@@ -1,0 +1,435 @@
+#!/usr/bin/env python3
+"""Chip check of the PyTorch port (``src/repro_torch``) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Builds the CUDA kernels from ``src/repro_torch/csrc`` and, on the card:
+
+  1. prints the build time, the compiler's register/spill report and the
+     card's name and power limit;
+  2. holds the device cipher (``csrc/rng.cuh``) against the Random123
+     known answers and against the host cipher on 1M random counters;
+  3. holds ``mh_chain`` (the operand kernel, ``cim`` operands) against its
+     plain version with tolerance 0, at V = 49,155 (granite-3 8B's vocab:
+     the row is staged in shared memory) and V = 256,000 (minitron 4B's:
+     the row is gathered from global memory);
+  4. does the same for ``mh_chain_fused`` with a per-column step base;
+  5. drives the main path, ``engine.submit(RunPlan)`` on a (64, 49155)
+     table with 256 chains per row, for ``cim`` and ``fused`` with the
+     executor chosen by ``auto``, counting each kernel's launches, and
+     checks acceptance, resume and a small input against the CPU path;
+     then ``sample_tokens`` (one chain per row, C = 1) and
+     ``num_chains=4`` for ``cim`` and ``fused`` (chains folded into
+     C = 1024 columns).  Each of these paths records its first launch's
+     operands, and the kernel is held against its plain version there;
+  6. times each kernel with CUDA events beside its plain version and its
+     bound, at every shape above, and times ``sample_tokens``.
+
+Each phase prints one JSON line; any failure raises and exits non-zero.
+The second-to-last line lists the kernels; the last line is the device
+record.  Without a CUDA device, or without the repository around it, it
+exits non-zero and prints no result.
+"""
+
+import contextlib
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+SRC = ROOT / "src"
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
+# 32-bit non-tensor peak of the H100 SXM data sheet (67 TFLOP/s float32),
+# taken for 32-bit integer operations too: no lower bound is looser
+ALU_OPS_PER_S = 67e12
+# Threefry-2x32-20 block: key schedule 2, initial adds 2, 20 rounds of
+# add/rotate/xor, 5 key injections of 3 adds
+THREEFRY_OPS = 2 + 2 + 20 * 3 + 5 * 3
+STEP_OPS = 20  # XOR-propose, lookup, subtract, exp, compares, selects, count
+
+B, V, C, K = 64, 49_155, 256, 64        # granite-3 8B vocab, phase 3-5 shape
+B_WIDE, V_WIDE, NBITS_WIDE = 8, 256_000, 18  # minitron 4B vocab
+N_STEPS = 1024
+SEED = 2024
+
+
+def emit(**record):
+    print(json.dumps(record), flush=True)
+
+
+def check(cond, msg):
+    if not cond:
+        raise AssertionError(msg)
+
+
+def smi() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def time_ms(torch, fn, reps):
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+@contextlib.contextmanager
+def first_launches(mh):
+    """Record a copy of the operands of each kernel's first launch while a
+    path runs; every launch still goes through the real kernel."""
+    seen = {}
+    names = ("mh_chain", "mh_chain_fused")
+    real = {n: getattr(mh, f"_launch_{n}") for n in names}
+
+    def recording(name):
+        def launch(*args, **kw):
+            if name not in seen:
+                seen[name] = (
+                    tuple(a.clone() if hasattr(a, "clone") else a for a in args),
+                    dict(kw),
+                )
+            return real[name](*args, **kw)
+        return launch
+
+    for n in names:
+        setattr(mh, f"_launch_{n}", recording(n))
+    try:
+        yield seen
+    finally:
+        for n in names:
+            setattr(mh, f"_launch_{n}", real[n])
+
+
+def bound_ms(nbytes, ops):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / ALU_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    if not (SRC / "repro_torch" / "csrc" / "mh.cu").is_file():
+        print(f"chip_smoke: the port's sources are not under {SRC}", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(SRC))
+    from repro_torch import prng, samplers
+    from repro_torch.kernels import _build, rng
+    from repro_torch.kernels.mh import mh, ref
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    card = smi()
+    print(card, flush=True)
+
+    # 1. build -----------------------------------------------------------
+    t0 = time.perf_counter()
+    info = _build.build()
+    _build.library()
+    ptxas = [
+        line.strip() for line in info["log"].splitlines()
+        if "registers" in line or "spill" in line or "Compiling entry" in line
+    ]
+    emit(
+        phase="build", seconds=info["seconds"], cached=info["cached"],
+        wall_s=time.perf_counter() - t0, ptxas=ptxas, card=card,
+        kind=torch.cuda.get_device_name(0), torch=torch.__version__,
+        cuda=torch.version.cuda,
+    )
+
+    # 2. cipher ----------------------------------------------------------
+    kat = [
+        ((0, 0), (0, 0), (0x6B200159, 0x99BA4EFE)),
+        ((0xFFFFFFFF,) * 2, (0xFFFFFFFF,) * 2, (0x1CB996FC, 0xBB002BE7)),
+        ((0x13198A2E, 0x03707344), (0x243F6A88, 0x85A308D3), (0xC4923A9C, 0x483DF7A0)),
+    ]
+    for key, ctr, out in kat:
+        y = rng.threefry2x32_device(*(torch.tensor([w], device=dev) for w in (*key, *ctr)))
+        check((int(y[0]), int(y[1])) == out, f"Threefry known answer {out} failed: {y}")
+    words = [
+        torch.randint(0, 2**32, (1 << 20,), generator=gen, device=dev, dtype=torch.int64)
+        for _ in range(4)
+    ]
+    d0, d1 = rng.threefry2x32_device(*words)
+    h0, h1 = rng.threefry2x32(*words)
+    bad = int((d0 != h0).sum() + (d1 != h1).sum())
+    check(bad == 0, f"device cipher differs from the host cipher on {bad} words")
+    emit(phase="cipher", known_answers=len(kat), counters=1 << 20, mismatches=bad)
+
+    # 3-4. kernels against their plain versions ---------------------------
+    wrapper_of = {"mh_chain": mh.mh_chain, "mh_chain_fused": mh.mh_chain_fused}
+    plain_of = {"mh_chain": ref.mh_chain_ref, "mh_chain_fused": ref.mh_chain_fused_ref}
+    launch_of = {"mh_chain": mh._launch_mh_chain,
+                 "mh_chain_fused": mh._launch_mh_chain_fused}
+    max_err = {"mh_chain": 0.0, "mh_chain_fused": 0.0}
+    cases = []  # (kernel, where, args, kw): every shape held and timed
+
+    def hold(name, where, args, kw):
+        """The kernel against its plain version on the same operands, at
+        tolerance 0; records the case for timing."""
+        s_, a = wrapper_of[name](*args, **kw)
+        rs, ra = plain_of[name](*args, **kw)
+        err = max(float((s_ - rs).abs().max()), float((a - ra).abs().max()))
+        diff = int((s_ != rs).sum()) + int((a != ra).sum())
+        ties = ref.tie_events(*args) if diff and name == "mh_chain" else []
+        max_err[name] = max(max_err[name], err)
+        check(diff == 0, f"{name} differs from its plain version at {where}: "
+              f"{diff} words, max |err| {err}, tie events {len(ties)}")
+        cases.append((name, where, args, kw))
+        return diff, err, float(a.sum()) / a.numel() / s_.shape[0]
+
+    def from_launch(args):
+        """A recorded launch's int32-coded words back to int64 words."""
+        return tuple(
+            _build.from_u32_bits(a) if getattr(a, "dtype", None) == torch.int32 else a
+            for a in args
+        )
+
+    def table_of(b, v):
+        return torch.randn(b, v, generator=gen, device=dev) * 3
+
+    cim = samplers.CIMRandomness(p_bfr=0.45, rng_p_bfr=0.45)
+    p_u32 = rng.threshold_u32(0.45)
+    for b, v, nbits in ((B, V, 16), (B_WIDE, V_WIDE, NBITS_WIDE)):
+        table = table_of(b, v)
+        init = torch.randint(0, v, (b, C), generator=gen, device=dev)
+        flips, u = cim.chunk(prng.PRNGKey(SEED, device=dev), 0, K, (b, C), nbits)
+        k0c, k1c = (
+            torch.randint(0, 2**32, (C,), generator=gen, device=dev) for _ in range(2)
+        )
+        t0c = torch.randint(0, 2**31 - K, (C,), generator=gen, device=dev)
+        where = f"V={v}"
+        diff, err, rate = hold("mh_chain", where, (table, init, flips, u, nbits), {})
+        emit(phase="mh_chain", B=b, V=v, C=C, K=K, nbits=nbits, mismatches=diff,
+             max_abs_err=err, accept_rate=rate, row_bytes=4 * v)
+        kw = dict(nbits=nbits, n_steps=K, cc=C, p_u32=p_u32)
+        diff, err, rate = hold("mh_chain_fused", where, (table, init, k0c, k1c, t0c), kw)
+        emit(phase="mh_chain_fused", B=b, V=v, C=C, K=K, nbits=nbits, mismatches=diff,
+             max_abs_err=err, accept_rate=rate,
+             t0_min=int(t0c.min()), t0_max=int(t0c.max()))
+
+    # 5. the main path --------------------------------------------------------
+    logits = table_of(B, V)
+    init = torch.randint(0, V, (B, C), generator=gen, device=dev)
+    kernel_of = {"cim": "mh_chain", "fused": "mh_chain_fused"}
+    main_launches = {}
+    path_s = {}
+    for randomness in ("cim", "fused"):
+        eng = samplers.MHEngine(samplers.EngineConfig(randomness=randomness))
+        check(eng.device.type == "cuda", "the engine did not default to the card")
+        target = samplers.TableTarget(logits)
+        plan = samplers.RunPlan(target=target, n_steps=N_STEPS, init_words=init, seed=SEED)
+        torch.cuda.synchronize()
+        mh.reset_launches()
+        t0 = time.perf_counter()
+        full = eng.submit(plan)
+        torch.cuda.synchronize()
+        path_s[randomness] = time.perf_counter() - t0
+        launches = dict(mh.LAUNCHES)
+        main_launches[kernel_of[randomness]] = launches[kernel_of[randomness]]
+        check(launches[kernel_of[randomness]] > 0,
+              f"the {randomness} main path launched no {kernel_of[randomness]}")
+        rate = float(full.acceptance_rate)
+        check(0.0 < rate < 1.0, f"acceptance {rate} not in (0, 1)")
+        check(tuple(full.samples.shape) == (N_STEPS, B, C), "wrong sample shape")
+        check(bool((full.samples < V).all()), "a kept state lies outside the table")
+        check(torch.equal(full.final_logp, target.log_prob(full.final_words)),
+              "final_logp is not the table's log-prob of final_words")
+        check(bool(torch.isfinite(full.final_logp).all()), "non-finite final_logp")
+        half = eng.submit(plan.replace(n_steps=N_STEPS // 2))
+        rest = half.resume(N_STEPS // 2)
+        exact = (
+            torch.equal(torch.cat([half.samples, rest.samples]), full.samples)
+            and torch.equal(rest.final_words, full.final_words)
+            and torch.equal(rest.final_logp, full.final_logp)
+            and torch.equal(half.accept_count + rest.accept_count, full.accept_count)
+        )
+        check(exact, f"{randomness}: submit(512) + resume(512) != submit(1024)")
+        emit(phase="main_path", randomness=randomness, execution="auto",
+             B=B, V=V, C=C, n_steps=N_STEPS, launches=launches,
+             acceptance_rate=rate, resume_bit_exact=exact, seconds=path_s[randomness],
+             chain_steps_per_s=N_STEPS * B * C / path_s[randomness])
+
+        # a small input, against the CPU path (the plain versions)
+        small = {}
+        for device in ("cuda", "cpu"):
+            e = samplers.MHEngine(samplers.EngineConfig(randomness=randomness), device=device)
+            t = samplers.TableTarget(logits[:4, :300].to(device))
+            small[device] = e.submit(
+                samplers.RunPlan(target=t, n_steps=40, init_words=init[:4, :16].cpu(), seed=7)
+            )
+        same = all(
+            torch.equal(getattr(small["cuda"], f).cpu(), getattr(small["cpu"], f))
+            for f in ("samples", "accept_count", "final_words", "final_logp")
+        )
+        check(same, f"{randomness}: the card and the CPU disagree on a small input")
+        emit(phase="small_input", randomness=randomness, card_equals_cpu=same)
+
+    launches_by_path = {f"main_path_{r}": {k: main_launches.get(k, 0)} for r, k
+                        in kernel_of.items()}
+
+    eng = samplers.MHEngine(samplers.EngineConfig())
+    key = prng.PRNGKey(SEED, device=dev)
+    mh.reset_launches()
+    with first_launches(mh) as seen:
+        tokens, res = eng.sample_tokens(key, logits, n_steps=256)
+    launches = dict(mh.LAUNCHES)
+    launches_by_path["sample_tokens"] = launches
+    check(launches["mh_chain"] > 0, "sample_tokens launched no mh_chain")
+    check(tuple(tokens.shape) == (B,) and bool(((tokens >= 0) & (tokens < V)).all()),
+          "sample_tokens gave tokens outside the vocabulary")
+    args, kw = seen["mh_chain"]
+    check(tuple(args[1].shape) == (B, 1), f"sample_tokens ran {tuple(args[1].shape)}")
+    diff, err, _ = hold("mh_chain", "sample_tokens (C=1)", from_launch(args), kw)
+    token_ms = []
+    for _ in range(6):  # the first is a warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.sample_tokens(key, logits, n_steps=256)
+        torch.cuda.synchronize()
+        token_ms.append((time.perf_counter() - t0) * 1e3)
+    token_ms = sorted(token_ms[1:])
+    emit(phase="sample_tokens", B=B, V=V, C=1, n_steps=256, launches=launches,
+         acceptance_rate=float(res.acceptance_rate), mismatches=diff, max_abs_err=err,
+         wall_ms_median=token_ms[len(token_ms) // 2], wall_ms_min=token_ms[0])
+
+    for randomness in ("cim", "fused"):
+        name = kernel_of[randomness]
+        cfg = samplers.EngineConfig(randomness=randomness, num_chains=4)
+        plan = samplers.RunPlan(
+            target=samplers.TableTarget(logits), n_steps=256,
+            init_words=init.expand(4, B, C), seed=SEED,
+        )
+        mh.reset_launches()
+        with first_launches(mh) as seen:
+            multi = samplers.MHEngine(cfg).submit(plan)
+        launches = dict(mh.LAUNCHES)
+        launches_by_path[f"num_chains_{randomness}"] = launches
+        check(launches[name] > 0, f"num_chains=4 ({randomness}) launched no {name}")
+        check(tuple(multi.samples.shape) == (4, 256, B, C), "wrong multi-chain shape")
+        solo = samplers.MHEngine(samplers.EngineConfig(randomness=randomness)).submit(
+            plan.replace(init_words=init, chain_id=2)
+        )
+        check(torch.equal(multi.samples[2], solo.samples),
+              f"{randomness}: chain 2 != solo chain_id=2")
+        args, kw = seen[name]
+        check(tuple(args[1].shape) == (B, 4 * C) and kw.get("cc", C) == C,
+              f"num_chains=4 ({randomness}) did not fold the chains into the columns")
+        diff, err, _ = hold(name, f"num_chains=4 {randomness} (C={4 * C})",
+                            from_launch(args), kw)
+        emit(phase="num_chains", randomness=randomness, num_chains=4, B=B, V=V,
+             C=C, kernel_C=4 * C, cc=kw.get("cc"), n_steps=256, launches=launches,
+             acceptance_rate=float(multi.acceptance_rate), chain2_equals_solo=True,
+             mismatches=diff, max_abs_err=err)
+
+    # 6. timing ---------------------------------------------------------------
+    # The table (12.6 MB at V = 49,155) stays in the 50 MB L2 between
+    # launches, as it does between the engine's chunks.
+    shapes = {"mh_chain": [], "mh_chain_fused": []}
+    for name, where, args, kw in cases:
+        table, init_ = args[0], args[1]
+        b, v = table.shape
+        c = init_.shape[-1]
+        k = kw["n_steps"] if kw else args[2].shape[0]
+        nbits = kw["nbits"] if kw else args[4]
+        steps = k * b * c
+        nbytes = 4 * (b * v + 2 * b * c + steps)  # table, init, accept, samples
+        if name == "mh_chain":
+            nbytes += 8 * steps  # flip words and uniforms
+            ops = STEP_OPS * steps
+        else:
+            nbytes += 12 * c  # per-column key words and step base
+            ops = steps * ((nbits + 2) * THREEFRY_OPS + 3 * nbits + STEP_OPS)
+        bound, bound_by = bound_ms(nbytes, ops)
+        coded = tuple(
+            _build.to_u32_bits(a) if getattr(a, "dtype", None) == torch.int64 else a
+            for a in args
+        )
+        shapes[name].append(dict(
+            where=where, B=b, V=v, C=c, K=k, nbits=nbits, **(
+                {"cc": kw["cc"]} if kw else {}),
+            ms=time_ms(torch, lambda: wrapper_of[name](*args, **kw), 20),
+            kernel_ms=time_ms(torch, lambda: launch_of[name](*coded, **kw), 20),
+            plain_ms=time_ms(torch, lambda: plain_of[name](*args, **kw), 3),
+            bound_ms=bound, bound_by=bound_by, bytes=nbytes, ops=ops,
+        ))
+    kernels = []
+    for name in ("mh_chain", "mh_chain_fused"):
+        main = shapes[name][0]  # the main path's shape: B=64, V=49,155, C=256
+        kernels.append(dict(
+            name=name, route="cuda", source="src/repro_torch/csrc/mh.cu",
+            replaces=(
+                "src/repro/kernels/mh/mh.py:35" if name == "mh_chain"
+                else "src/repro/kernels/mh/mh.py:125"
+            ),
+            launches=main_launches[name], max_abs_err=max_err[name],
+            ms=main["ms"], kernel_ms=main["kernel_ms"], plain_ms=main["plain_ms"],
+            bound_ms=main["bound_ms"], bound_by=main["bound_by"], library_ms=None,
+            launches_by_path={p: n[name] for p, n in launches_by_path.items()
+                              if n.get(name)},
+            shapes=shapes[name],
+        ))
+
+    # where the main path's time goes: operand draws vs the kernel, and the
+    # device's busy share over one profiled 256-step submit per backend
+    draw_ms = time_ms(
+        torch, lambda: cim.chunk(prng.PRNGKey(SEED, device=dev), 0, K, (B, C), 16), 3
+    )
+    emit(phase="cim_breakdown", chunk_steps=K, operand_draw_ms=draw_ms,
+         kernel_ms=kernels[0]["ms"], main_path_ms_per_chunk={
+             r: path_s[r] * 1e3 / (N_STEPS // K) for r in path_s})
+    from torch.profiler import ProfilerActivity, profile
+
+    for randomness in ("cim", "fused"):
+        eng = samplers.MHEngine(samplers.EngineConfig(randomness=randomness))
+        plan = samplers.RunPlan(
+            target=samplers.TableTarget(logits), n_steps=256, init_words=init, seed=SEED
+        )
+        eng.submit(plan)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            eng.submit(plan)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        by_kernel = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                by_kernel[e.name] = by_kernel.get(e.name, 0.0) + e.self_device_time_total / 1e3
+        busy_ms = sum(by_kernel.values())
+        top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:4]
+        emit(phase="profile", randomness=randomness, n_steps=256,
+             wall_ms_profiled=wall_ms, device_busy_ms=busy_ms,
+             device_busy_share=busy_ms / wall_ms,
+             top_kernels_ms=[[name[:100], ms] for name, ms in top])
+
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({
+        "ok": True,
+        "device": {
+            "platform": "gpu",
+            "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count(),
+        },
+    }), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,64 @@
+"""Carry state from the JAX package to the port and results back.
+
+The system has no weights: what crosses between the two packages is a
+PRNG key, a (B, V) table, the chain's init words and an engine config.
+The JAX side hands them over as numpy arrays (``np.asarray`` of a jax
+array) and a plain dict; these functions turn them into the port's
+tensors on a device (the current CUDA card unless ``device="cpu"`` is
+passed; without a card they raise), and an ``EngineResult`` back into numpy with the
+JAX package's dtypes, so the two can be compared array for array.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.samplers.engine import (
+    EngineConfig,
+    EngineResult,
+    resolve_device,
+)
+
+
+def key_from_numpy(key, device=None) -> torch.Tensor:
+    """A raw ``uint32[2]`` PRNG key -> the port's int64 (2,) key."""
+    key = np.asarray(key)
+    if key.shape != (2,):
+        raise ValueError(f"a raw PRNG key has shape (2,), got {key.shape}")
+    return torch.from_numpy(key.astype(np.int64)).to(resolve_device(device))
+
+
+def table_from_numpy(table, device=None) -> torch.Tensor:
+    """A (B, V) log-prob table -> float32 tensor."""
+    table = np.asarray(table, dtype=np.float32)
+    if table.ndim != 2:
+        raise ValueError(f"a table is (B, V), got {table.shape}")
+    return torch.from_numpy(table.copy()).to(resolve_device(device))
+
+
+def words_from_numpy(words, device=None) -> torch.Tensor:
+    """(B, C) or (num_chains, B, C) uint32 init words -> int64 tensor."""
+    words = np.asarray(words)
+    if words.ndim not in (2, 3):
+        raise ValueError(f"init words are (B, C) or (num_chains, B, C), got {words.shape}")
+    words = torch.from_numpy(words.astype(np.uint32).astype(np.int64))
+    return words.to(resolve_device(device))
+
+
+def config_from_dict(config: dict) -> EngineConfig:
+    """An ``EngineConfig`` from the JAX config's fields as a dict."""
+    return EngineConfig(**config)
+
+
+def result_to_numpy(result: EngineResult) -> dict:
+    """An ``EngineResult`` as numpy arrays with the JAX package's dtypes
+    (uint32 words, int32 counts, float32 log-probs and rate)."""
+    return {
+        "samples": result.samples.cpu().numpy().astype(np.uint32),
+        "accept_count": result.accept_count.cpu().numpy().astype(np.int32),
+        "acceptance_rate": np.float32(result.acceptance_rate.cpu().item()),
+        "final_words": result.final_words.cpu().numpy().astype(np.uint32),
+        "final_logp": result.final_logp.cpu().numpy().astype(np.float32),
+        "n_steps": np.int32(result.n_steps),
+    }

@@ -1,0 +1,37 @@
+"""Accurate [0,1] RNG module — paper §4.2.
+
+The PyTorch counterpart of ``repro.core.uniform_rng``.  Pipeline (mirrors
+the circuit):
+
+  1. reset the RNG sub-array bitcells to "0"            (lambda_0 <= 0.5)
+  2. pseudo-read -> raw bits ~ Bernoulli(p_BFR)          (biased)
+  3. MSXOR n-stage fold -> debiased bits (lambda_n ~ 0.5)
+  4. pack ``bit_width`` debiased bits into an integer R_n
+  5. u = R_n / 2^bit_width  in [0, 1)
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import bitcell, msxor
+
+
+def uniform_words(
+    key: torch.Tensor, shape, p_bfr: float, bit_width: int = 8, n_stages: int = 3
+) -> torch.Tensor:
+    """Debiased ``bit_width``-bit integers (int64) of the batch ``shape``."""
+    raw = bitcell.pseudo_read_fresh(
+        key, p_bfr, shape=(*shape, 1 << n_stages, bit_width)
+    )
+    bits = msxor.debias_bits(raw, n_stages=n_stages)
+    return msxor.pack_bits_to_uint(bits, bit_width)
+
+
+def uniform(
+    key: torch.Tensor, shape, p_bfr: float, bit_width: int = 8, n_stages: int = 3
+) -> torch.Tensor:
+    """u ~ U[0,1) float32 with per-bit bias |0.5 - lambda| =
+    debias_error(p, n).  Dividing by a power of two is exact."""
+    words = uniform_words(key, shape, p_bfr, bit_width, n_stages)
+    return words.to(torch.float32) / float(1 << bit_width)

@@ -1,0 +1,134 @@
+"""Build and load the port's CUDA kernels.
+
+The sources under ``repro_torch/csrc`` have a plain C interface.  At
+first use they are compiled by ``nvcc`` into one shared library under
+``build/repro_torch/<hash>/`` at the root of the checkout, keyed by a
+hash of the sources and flags, and loaded with ``ctypes``.  Nothing is
+built when a module is imported, so the CPU tests never need ``nvcc``.
+
+uint32 data crosses the C interface as int32 tensors holding the same
+32 bits (``to_u32_bits`` / ``from_u32_bits``); on the Python side the
+port carries uint32 words as int64.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+SOURCES = ("mh.cu",)
+HEADERS = ("rng.cuh",)
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "--fmad=false",
+    "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_U = ctypes.c_uint32
+_SIGNATURES = {
+    # table, init, flips, u, samples, accept, B, V, C, K, mask, stream
+    "repro_mh_chain": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _U, _P),
+    # table, init, k0c, k1c, t0c, samples, accept,
+    # B, V, C, K, nbits, cc, p_u32, mask, stream
+    "repro_mh_chain_fused": (
+        _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _U, _U, _P
+    ),
+    # k0, k1, x0, x1, y0, y1, n, stream
+    "repro_threefry2x32": (_P, _P, _P, _P, _P, _P, _I, _P),
+}
+
+
+def _nvcc() -> str:
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found (looked in $CUDA_HOME/bin and on PATH): the CUDA "
+            "kernels of repro_torch are built at first use on a machine with "
+            "the CUDA toolkit"
+        )
+    return found
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in (*SOURCES, *HEADERS):
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    return h.hexdigest()[:16]
+
+
+@functools.lru_cache(maxsize=None)
+def build() -> dict:
+    """Compile the kernels once per source hash; returns the library path,
+    the build seconds (0 when an earlier process built it), the compiler's
+    report (``-Xptxas -v``: registers, shared memory, spills) and whether
+    it was cached."""
+    out = BUILD_DIR / _digest() / "librepro_torch.so"
+    log = out.with_name("build.log")
+    if out.exists():
+        text = log.read_text() if log.exists() else ""
+        return {"path": str(out), "seconds": 0.0, "log": text, "cached": True}
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *(str(CSRC / s) for s in SOURCES)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed with exit code {proc.returncode}:\n{' '.join(cmd)}\n"
+            f"{proc.stdout}{proc.stderr}"
+        )
+    os.replace(tmp, out)
+    log.write_text(proc.stdout + proc.stderr)
+    return {
+        "path": str(out), "seconds": seconds,
+        "log": proc.stdout + proc.stderr, "cached": False,
+    }
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, with every function's C signature set."""
+    lib = ctypes.CDLL(build()["path"])
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    lib.repro_error_string.argtypes = [ctypes.c_int]
+    lib.repro_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(lib: ctypes.CDLL, err: int, kernel: str) -> None:
+    """Raise if a launch returned a CUDA error (``cudaGetLastError``)."""
+    if err != 0:
+        msg = lib.repro_error_string(err).decode()
+        raise RuntimeError(f"{kernel} failed to launch: CUDA error {err} ({msg})")
+
+
+def to_u32_bits(x: torch.Tensor) -> torch.Tensor:
+    """uint32 values held in int64 -> int32 with the same 32 bits."""
+    x = x.to(torch.int64) & 0xFFFFFFFF
+    return (x - ((x >> 31) << 32)).to(torch.int32).contiguous()
+
+
+def from_u32_bits(x: torch.Tensor) -> torch.Tensor:
+    """int32 bit patterns -> their uint32 values held in int64."""
+    return x.to(torch.int64) & 0xFFFFFFFF

@@ -1,0 +1,58 @@
+# The sampler engine, MH update rule, in PyTorch: the port of
+# repro.samplers.  Build a RunPlan, call MHEngine.submit, continue from the
+# returned RunHandle.  Table targets run through the fused CUDA kernels of
+# csrc/mh.cu on a CUDA device and through their plain versions on the CPU.
+
+from repro_torch.samplers.engine import (
+    EngineConfig,
+    EngineResult,
+    MHEngine,
+    SamplerEngine,
+    kept_count,
+    parse_collect,
+    resolve_execution,
+)
+from repro_torch.samplers.plan import (
+    RunHandle,
+    RunPlan,
+    submit,
+)
+from repro_torch.samplers.randomness import (
+    CIMRandomness,
+    FusedRandomness,
+    HostRandomness,
+    RandomnessBackend,
+    chain_key,
+    chain_keys,
+    make_randomness_backend,
+)
+from repro_torch.samplers.targets import (
+    CallableTarget,
+    TableTarget,
+    TopKTarget,
+    logits_target,
+)
+
+__all__ = [
+    "RunPlan",
+    "RunHandle",
+    "submit",
+    "MHEngine",
+    "SamplerEngine",
+    "EngineConfig",
+    "EngineResult",
+    "kept_count",
+    "parse_collect",
+    "resolve_execution",
+    "RandomnessBackend",
+    "HostRandomness",
+    "CIMRandomness",
+    "FusedRandomness",
+    "make_randomness_backend",
+    "chain_key",
+    "chain_keys",
+    "CallableTarget",
+    "TableTarget",
+    "TopKTarget",
+    "logits_target",
+]

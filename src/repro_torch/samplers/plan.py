@@ -1,0 +1,199 @@
+"""The run surface: ``RunPlan`` in, ``RunHandle`` out — the PyTorch port
+of ``repro.samplers.plan``.
+
+A ``RunPlan`` is one validated run spec: what to sample (``target``,
+``n_steps``, ``collect``), which stream (``key`` or ``seed``,
+``chain_id``) and the resume carry (``step0``, ``init_words``,
+``init_logp``).  ``MHEngine.submit(plan)`` runs it and returns a
+``RunHandle``, whose ``resume(n)`` continues the exact stream of one
+unsegmented run.  Checkpointing (``RunHandle.save``), mesh sharding and
+the telemetry span of ``submit`` wait for later slices of the port.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+
+from repro_torch import prng
+from repro_torch.samplers.engine import (
+    EngineResult,
+    MHEngine,
+    parse_collect,
+    resolve_execution,
+)
+
+
+def carries_logp(engine: MHEngine, target) -> bool:
+    """Whether ``engine`` takes a segment's ``final_logp`` as the next
+    segment's ``init_logp`` (the solo MH scan carry).  Elsewhere resume
+    re-derives the log-prob from the state, which is bit-identical."""
+    cfg = engine.config
+    if cfg.num_chains != 1:
+        return False
+    try:
+        return resolve_execution(cfg.execution, target, engine.device) == "scan"
+    except ValueError:
+        return False
+
+
+@dataclasses.dataclass(frozen=True)
+class RunPlan:
+    """One validated run spec.
+
+    ``key`` and ``seed`` are mutually exclusive: a key tensor of shape
+    (2,), or an int seed resolved to ``prng.PRNGKey(seed)`` on the
+    engine's device at submit time.  ``init_words`` is required.
+    ``step0``/``init_logp`` are the resume carry.  ``mesh`` is accepted
+    for the JAX package's signature and refused by the engine.
+    """
+
+    target: Any
+    n_steps: int
+    init_words: Any
+    key: Any = None
+    seed: int | None = None
+    chain_id: int = 0
+    step0: int = 0
+    collect: str | None = None
+    mesh: Any = None
+    init_logp: Any = None
+
+    def __post_init__(self):
+        if self.n_steps < 1:
+            raise ValueError(f"n_steps must be >= 1, got {self.n_steps}")
+        if (self.key is None) == (self.seed is None):
+            raise ValueError(
+                "a RunPlan names its randomness stream with exactly one of "
+                "key= (a PRNG key) or seed= (an int resolved to "
+                f"prng.PRNGKey at submit); got key={self.key!r}, "
+                f"seed={self.seed!r}"
+            )
+        if self.init_words is None:
+            raise ValueError(
+                "init_words is required — the engine never guesses chain state"
+            )
+        if int(self.step0) < 0:
+            raise ValueError(f"step0 must be >= 0, got {self.step0}")
+        if self.collect is not None:
+            parse_collect(self.collect)
+
+    def replace(self, **updates) -> "RunPlan":
+        """A re-validated copy with ``updates`` applied."""
+        return dataclasses.replace(self, **updates)
+
+    def resolved_key(self, device=None) -> torch.Tensor:
+        """The key this plan streams from, on ``device``."""
+        if self.key is not None:
+            return torch.as_tensor(self.key).to(device=device, dtype=torch.int64)
+        return prng.PRNGKey(self.seed, device=device)
+
+    def fingerprint(self, engine: MHEngine) -> dict:
+        """A JSON-able identity of (engine axes, stream, state layout):
+        what must match for a resume to continue the same chain.  Leaves
+        out ``chunk_steps``/``block_c``/``execution``, which never change
+        the stream."""
+        cfg = engine.config
+        key = self.resolved_key("cpu")
+        return {
+            "update": cfg.update,
+            "randomness": cfg.randomness,
+            "p_bfr": cfg.p_bfr,
+            "rng_p_bfr": cfg.rng_p_bfr,
+            "rng_bit_width": cfg.rng_bit_width,
+            "rng_stages": cfg.rng_stages,
+            "num_chains": cfg.num_chains,
+            "chain_id": int(self.chain_id),
+            "collect": self.collect if self.collect is not None else cfg.collect,
+            "key": [int(w) & 0xFFFFFFFF for w in key.reshape(-1).tolist()],
+            "target": type(self.target).__name__,
+            "state_shape": [int(s) for s in torch.as_tensor(self.init_words).shape],
+        }
+
+
+@dataclasses.dataclass
+class RunHandle:
+    """A finished (segment of a) run: the result, the plan that produced
+    it and the engine it ran on.  ``resume(n)`` continues the stream:
+    segment streams concatenate to one unsegmented run bit for bit."""
+
+    plan: RunPlan
+    result: EngineResult
+    engine: MHEngine
+
+    @property
+    def samples(self):
+        return self.result.samples
+
+    @property
+    def accept_count(self):
+        return self.result.accept_count
+
+    @property
+    def acceptance_rate(self):
+        return self.result.acceptance_rate
+
+    @property
+    def final_words(self):
+        return self.result.final_words
+
+    @property
+    def final_logp(self):
+        return self.result.final_logp
+
+    @property
+    def n_steps(self):
+        return self.result.n_steps
+
+    @property
+    def progress(self) -> int:
+        """Absolute step after this segment (= the next plan's step0)."""
+        return int(self.plan.step0) + int(self.plan.n_steps)
+
+    def resume_plan(self, n_steps: int, **overrides) -> RunPlan:
+        """The continuation plan for ``n_steps`` more steps."""
+        updates = dict(
+            n_steps=n_steps,
+            step0=self.progress,
+            init_words=self.final_words,
+            init_logp=(
+                self.final_logp
+                if carries_logp(self.engine, self.plan.target) else None
+            ),
+        )
+        updates.update(overrides)
+        return self.plan.replace(**updates)
+
+    def resume(self, n_steps: int, **overrides) -> "RunHandle":
+        """Run ``n_steps`` more on the same engine."""
+        return self.engine.submit(self.resume_plan(n_steps, **overrides))
+
+    def save(self, directory: str) -> str:
+        raise NotImplementedError(
+            "checkpointing is not ported yet (ROADMAP.md queue 1, item 5); "
+            "resume_plan() gives the carry to continue from"
+        )
+
+
+def submit(engine: MHEngine, plan: RunPlan, *, compiled: bool = False) -> RunHandle:
+    """Run ``plan`` on ``engine``; the function behind ``MHEngine.submit``.
+
+    PyTorch runs eagerly and has no counterpart of the JAX package's
+    jitted dispatcher, so ``compiled=True`` runs the same path as the
+    default and is accepted for the JAX signature.
+    """
+    del compiled
+    if not isinstance(plan, RunPlan):
+        raise TypeError(
+            f"submit takes a RunPlan, got {type(plan).__name__} — build one "
+            "with samplers.RunPlan(target=..., n_steps=..., init_words=..., "
+            "seed=...)"
+        )
+    result = engine.run(
+        plan.resolved_key(engine.device), plan.target, plan.n_steps,
+        plan.init_words, chain_id=plan.chain_id, mesh=plan.mesh,
+        step0=plan.step0, collect=plan.collect, init_logp=plan.init_logp,
+    )
+    return RunHandle(plan=plan, result=result, engine=engine)

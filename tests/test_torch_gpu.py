@@ -1,0 +1,113 @@
+"""The port's CUDA kernels against their plain versions, on a card.
+
+Every test here is marked ``gpu`` and skips without a CUDA device.  The
+file imports only torch and the port (no JAX), so it runs on a machine
+that has the card and no JAX:
+
+    PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import samplers
+from repro_torch.kernels import rng
+from repro_torch.kernels.mh import mh, ref
+
+pytestmark = pytest.mark.gpu
+
+KAT = [  # Random123 Threefry-2x32-20 known-answer vectors: key, counter, out
+    ((0, 0), (0, 0), (0x6B200159, 0x99BA4EFE)),
+    ((0xFFFFFFFF,) * 2, (0xFFFFFFFF,) * 2, (0x1CB996FC, 0xBB002BE7)),
+    ((0x13198A2E, 0x03707344), (0x243F6A88, 0x85A308D3), (0xC4923A9C, 0x483DF7A0)),
+]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def _words(rs, shape, high):
+    return torch.from_numpy(rs.integers(0, high, size=shape, dtype=np.uint64).astype(np.int64))
+
+
+def test_device_cipher(cuda):
+    for key, ctr, out in KAT:
+        y0, y1 = rng.threefry2x32_device(*(torch.tensor([v], device=cuda) for v in (*key, *ctr)))
+        assert (int(y0), int(y1)) == out
+    rs = np.random.default_rng(0)
+    args = [_words(rs, (4099,), 2**32) for _ in range(4)]
+    d0, d1 = rng.threefry2x32_device(*(a.to(cuda) for a in args))
+    h0, h1 = rng.threefry2x32(*args)
+    assert torch.equal(d0.cpu(), h0) and torch.equal(d1.cpu(), h1)
+
+
+@pytest.mark.parametrize("v", [300, 70_000])  # staged row / global gather
+def test_kernels_match_plain(cuda, v):
+    rs = np.random.default_rng(v)
+    b, c, k, nbits = 3, 200, 16, 17
+    table = torch.from_numpy((rs.normal(size=(b, v)) * 3).astype(np.float32)).to(cuda)
+    init = _words(rs, (b, c), v).to(cuda)
+    flips = _words(rs, (k, b, c), 2**nbits).to(cuda)
+    u = torch.from_numpy((rs.integers(0, 2**16, size=(k, b, c)) / 2**16).astype(np.float32)).to(cuda)
+    mh.reset_launches()
+    s, a = mh.mh_chain(table, init, flips, u, nbits)
+    rs_, ra = ref.mh_chain_ref(table, init, flips, u, nbits)
+    assert torch.equal(s, rs_) and torch.equal(a, ra)
+    cols = torch.arange(c, device=cuda)
+    kw = dict(nbits=nbits, n_steps=k, cc=50, p_u32=rng.threshold_u32(0.45))
+    t0c = cols * 11 + 2**32 - 5  # wraps mod 2^32 inside the chunk
+    s, a = mh.mh_chain_fused(table, init, cols * 7, cols * 3 + 1, t0c, **kw)
+    rs_, ra = ref.mh_chain_fused_ref(table, init, cols * 7, cols * 3 + 1, t0c, **kw)
+    assert torch.equal(s, rs_) and torch.equal(a, ra)
+    assert mh.LAUNCHES == {"mh_chain": 1, "mh_chain_fused": 1}
+
+
+def test_launch_errors_raise(cuda):
+    table = torch.zeros(70_000, 2, device=cuda).t()  # not contiguous
+    init = torch.zeros(2, 4, dtype=torch.int64, device=cuda)
+    flips = torch.zeros(3, 2, 4, dtype=torch.int64, device=cuda)
+    u = torch.zeros(3, 2, 4, device=cuda)
+    with pytest.raises(ValueError):
+        mh.mh_chain(table, init, flips, u, 4)
+    with pytest.raises(ValueError):
+        mh.mh_chain(table.contiguous(), init.cpu(), flips, u, 4)
+
+
+@pytest.mark.parametrize("randomness", ["host", "cim", "fused"])
+@pytest.mark.parametrize("num_chains", [1, 2])
+def test_engine_card_equals_cpu(cuda, randomness, num_chains):
+    rs = np.random.default_rng(5)
+    table = (rs.normal(size=(3, 500)) * 2).astype(np.float32)
+    init = rs.integers(0, 500, size=(num_chains, 3, 8)) if num_chains > 1 else rs.integers(0, 500, size=(3, 8))
+    runs = {}
+    for device in (cuda, "cpu"):
+        eng = samplers.MHEngine(
+            samplers.EngineConfig(randomness=randomness, num_chains=num_chains, chunk_steps=7),
+            device=device,
+        )
+        runs[str(device)] = eng.submit(
+            samplers.RunPlan(
+                target=samplers.TableTarget(torch.from_numpy(table).to(device)),
+                n_steps=30, init_words=init, seed=11, step0=3,
+            )
+        )
+    a, b = runs.values()
+    for f in ("samples", "accept_count", "final_words", "final_logp", "acceptance_rate"):
+        assert torch.equal(getattr(a, f).cpu(), getattr(b, f)), f
+
+
+def test_engine_defaults_to_the_card(cuda):
+    eng = samplers.MHEngine()
+    assert eng.device == cuda
+    with pytest.raises(ValueError, match="engine's device"):
+        eng.submit(
+            samplers.RunPlan(
+                target=samplers.TableTarget(torch.zeros(2, 5)), n_steps=2,
+                init_words=np.zeros((2, 3)), seed=0,
+            )
+        )

@@ -1,0 +1,155 @@
+"""The MH chain kernels: their plain versions against the JAX package's
+Pallas kernels (interpret mode on the CPU) at tolerance 0, the wrappers'
+input checks, and — on a card — each CUDA kernel against its plain
+version.
+
+Parity contract: chain states and accept counts are equal exactly; the
+one allowed exception is a tie event (``u`` within one ULP of the accept
+threshold ``exp(min(Δ, 0))``), and every test asserts that its seed has
+none.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.mh import mh as jmh
+from repro.kernels.mh import ops as jops
+from repro_torch.kernels import rng
+from repro_torch.kernels.mh import mh, ops, ref
+
+
+def _case(seed, b, v, c, k, nbits):
+    rs = np.random.default_rng(seed)
+    table = (rs.normal(size=(b, v)) * 3).astype(np.float32)
+    init = rs.integers(0, v, size=(b, c)).astype(np.uint32)
+    flips = rs.integers(0, 2**nbits, size=(k, b, c), dtype=np.uint64).astype(np.uint32)
+    # most proposals stay near the support, so wide words still accept
+    flips = np.where(rs.random(flips.shape) < 0.7, flips & 0x7F, flips)
+    # u on the cim grid (16 bits), with zeros and near-ones included
+    u = (rs.integers(0, 2**16, size=(k, b, c)) / 2**16).astype(np.float32)
+    return table, init, flips, u
+
+
+def _t(x):
+    x = np.asarray(x)
+    return torch.from_numpy(x.astype(np.int64) if x.dtype.kind in "ui" else x)
+
+
+def _assert_no_ties(table, init, flips, u, nbits):
+    ties = ref.tie_events(_t(table), _t(init), _t(flips), _t(u), nbits)
+    assert ties.shape[0] == 0, f"tie events at (k, b, c) = {ties.tolist()}"
+
+
+@pytest.mark.parametrize(
+    "b,v,c,k,nbits",
+    [(2, 37, 13, 24, 6), (3, 300, 5, 32, 16), (1, 129, 16, 17, 4), (2, 97, 3, 9, 32)],
+)
+def test_operand_kernel_matches_pallas(b, v, c, k, nbits):
+    table, init, flips, u = _case(b * v + c, b, v, c, k, nbits)
+    _assert_no_ties(table, init, flips, u, nbits)
+    js, ja = jmh.mh_chain_pallas(
+        jnp.asarray(table), jnp.asarray(init), jnp.asarray(flips), jnp.asarray(u),
+        nbits=nbits, block_c=c, interpret=True,
+    )
+    ts_, ta = mh.mh_chain(_t(table), _t(init), _t(flips), _t(u), nbits)
+    np.testing.assert_array_equal(np.asarray(js).astype(np.int64), ts_.numpy())
+    np.testing.assert_array_equal(np.asarray(ja), ta.numpy())
+    assert ta.dtype == torch.int32 and ts_.dtype == torch.int64
+    assert 0 < int(ta.sum()) < k * b * c
+
+
+@pytest.mark.parametrize(
+    "b,v,c,k,nbits,cc",
+    [(3, 300, 5, 16, 16, 5), (1, 129, 9, 11, 4, 3), (2, 97, 3, 7, 32, 3)],
+)
+def test_fused_kernel_matches_pallas(b, v, c, k, nbits, cc):
+    rs = np.random.default_rng(c * v)
+    table = (rs.normal(size=(b, v)) * 3).astype(np.float32)
+    init = rs.integers(0, v, size=(b, c)).astype(np.uint32)
+    k0c = rs.integers(0, 2**32, size=c, dtype=np.uint64).astype(np.uint32)
+    k1c = rs.integers(0, 2**32, size=c, dtype=np.uint64).astype(np.uint32)
+    t0c = rs.integers(0, 2**31 - 1, size=c).astype(np.int32)
+    t0c[0] = 2**31 - 3  # the step counter wraps inside the chunk
+    p = 0.45
+    flips, u = ref.fused_operands(
+        _t(k0c), _t(k1c), _t(t0c), rows=b, nbits=nbits, n_steps=k, cc=cc,
+        p_u32=rng.threshold_u32(p),
+    )
+    _assert_no_ties(table, init, flips.numpy(), u.numpy(), nbits)
+    js, ja = jops.mh_sample_fused(
+        jnp.asarray(table), jnp.asarray(init), jnp.asarray(k0c), jnp.asarray(k1c),
+        n_steps=k, t0=jnp.asarray(t0c), nbits=nbits, p_bfr=p, cc=cc,
+    )
+    ts_, ta = ops.mh_sample_fused(
+        _t(table), _t(init), _t(k0c), _t(k1c), n_steps=k, t0=_t(t0c), nbits=nbits,
+        p_bfr=p, cc=cc,
+    )
+    np.testing.assert_array_equal(np.asarray(js).astype(np.int64), ts_.numpy())
+    np.testing.assert_array_equal(np.asarray(ja), ta.numpy())
+
+
+def test_denormal_accept_is_rejected():
+    """Δ ≈ -95 with u = 0: exp(Δ) is a denormal, which XLA flushes to 0,
+    so the step must be rejected — in the JAX kernel and in the port."""
+    table = np.array([[0.0, -95.0, -87.0, 5.0]], dtype=np.float32)
+    init = np.zeros((1, 3), np.uint32)
+    flips = np.array([[[1, 2, 3]]], np.uint32)  # to -95, -87 and +5
+    u = np.zeros((1, 1, 3), np.float32)
+    js, ja = jmh.mh_chain_pallas(
+        jnp.asarray(table), jnp.asarray(init), jnp.asarray(flips), jnp.asarray(u),
+        nbits=2, block_c=3, interpret=True,
+    )
+    ts_, ta = mh.mh_chain(_t(table), _t(init), _t(flips), _t(u), 2)
+    assert np.asarray(ja).tolist() == ta.tolist() == [[0, 1, 1]]
+    np.testing.assert_array_equal(np.asarray(js).astype(np.int64), ts_.numpy())
+
+
+def test_tie_events_are_reported():
+    table = np.array([[0.0, -0.5]], dtype=np.float32)
+    e = torch.exp(torch.tensor(-0.5)).item()
+    u = np.array([[[e]]], np.float32)
+    ties = ref.tie_events(_t(table), _t(np.zeros((1, 1), np.uint32)), _t(np.ones((1, 1, 1), np.uint32)), _t(u), 1)
+    assert ties.tolist() == [[0, 0, 0]]
+
+
+class TestWrapperChecks:
+    def _args(self):
+        table, init, flips, u = _case(0, 2, 10, 3, 4, 4)
+        return _t(table), _t(init), _t(flips), _t(u)
+
+    def test_cpu_tensors_take_the_plain_version(self):
+        mh.reset_launches()
+        table, init, flips, u = self._args()
+        s, a = mh.mh_chain(table, init, flips, u, 4)
+        r = ref.mh_chain_ref(table, init, flips, u, 4)
+        assert torch.equal(s, r[0]) and torch.equal(a, r[1])
+        assert mh.LAUNCHES == {"mh_chain": 0, "mh_chain_fused": 0}
+
+    @pytest.mark.parametrize("bad", ["table_dtype", "u_dtype", "shape", "nbits", "strided"])
+    def test_rejects(self, bad):
+        table, init, flips, u = self._args()
+        nbits = 4
+        if bad == "table_dtype":
+            table = table.double()
+        elif bad == "u_dtype":
+            u = u.double()
+        elif bad == "shape":
+            flips = flips[:, :1]
+        elif bad == "nbits":
+            nbits = 33
+        else:
+            table = table.t().contiguous().t()
+        with pytest.raises(ValueError):
+            mh.mh_chain(table, init, flips, u, nbits)
+
+    def test_fused_rejects_bad_cc(self):
+        table, init, _, _ = self._args()
+        cols = torch.zeros(3, dtype=torch.int64)
+        with pytest.raises(ValueError):
+            mh.mh_chain_fused(table, init, cols, cols, cols, nbits=4, n_steps=2, cc=4, p_u32=7)
+
+    def test_hwprng_guard(self):
+        with pytest.raises(NotImplementedError):
+            mh.mh_chain_pallas_hwprng()
