@@ -14,7 +14,11 @@ Builds the CUDA kernels from ``src/repro_torch/csrc`` and, on the card:
      the row is staged in shared memory) and V = 256,000 (minitron 4B's:
      the row is gathered from global memory);
   4. does the same for ``mh_chain_fused`` with a per-column step base;
-  5. drives the main path, ``engine.submit(RunPlan)`` on a (64, 49155)
+  5. holds ``gibbs_chain`` and ``gibbs_chain_fused`` (``csrc/gibbs.cu``)
+     against their plain versions with tolerance 0 on an odd 7 x 9 Ising
+     lattice and a 6 x 8 spin glass, with a per-lattice parity and step
+     base that differ between lattices;
+  6. drives the MH main path, ``engine.submit(RunPlan)`` on a (64, 49155)
      table with 256 chains per row, for ``cim`` and ``fused`` with the
      executor chosen by ``auto``, counting each kernel's launches, and
      checks acceptance, resume and a small input against the CPU path;
@@ -22,8 +26,20 @@ Builds the CUDA kernels from ``src/repro_torch/csrc`` and, on the card:
      ``num_chains=4`` for ``cim`` and ``fused`` (chains folded into
      C = 1024 columns).  Each of these paths records its first launch's
      operands, and the kernel is held against its plain version there;
-  6. times each kernel with CUDA events beside its plain version and its
-     bound, at every shape above, and times ``sample_tokens``.
+  7. drives the Gibbs paths, ``workloads.build(...).run(key)`` through
+     ``engine.submit(RunPlan)`` with ``backend="pallas"``: the main path,
+     ``fused`` on 1024 x 1024 lattices (B = 4, beta = 0.4407, 1,024
+     half-sweeps in 64-step chunks, ``thin:16``) for ``ising`` and
+     ``spin_glass``; ``cim`` and ``host`` on a 256 x 256 Ising lattice
+     (B = 1, 16-step chunks); ``num_chains=4`` under ``fused`` (256 x 256,
+     B = 2).  Each path's first launch is held against the plain version
+     there; ``submit(513) + resume(511)`` must equal ``submit(1024)``, a
+     small lattice must give the same result on the card and the CPU, and
+     chain 2 of the 4-chain run must equal a solo run with
+     ``chain_id=2``;
+  8. times each kernel with CUDA events beside its plain version and its
+     bound, at every shape above, times ``sample_tokens``, and profiles
+     one segment of each main path.
 
 Each phase prints one JSON line; any failure raises and exits non-zero.
 The second-to-last line lists the kernels; the last line is the device
@@ -49,11 +65,19 @@ ALU_OPS_PER_S = 67e12
 # add/rotate/xor, 5 key injections of 3 adds
 THREEFRY_OPS = 2 + 2 + 20 * 3 + 5 * 3
 STEP_OPS = 20  # XOR-propose, lookup, subtract, exp, compares, selects, count
+# one active Gibbs site: four neighbour spins and sums, the logit, 1/(1+exp),
+# the compare, select and flip count
+GIBBS_OPS = 20
 
 B, V, C, K = 64, 49_155, 256, 64        # granite-3 8B vocab, phase 3-5 shape
 B_WIDE, V_WIDE, NBITS_WIDE = 8, 256_000, 18  # minitron 4B vocab
 N_STEPS = 1024
 SEED = 2024
+
+LAT, LAT_B, G_CHUNK, G_THIN = 1024, 4, 64, "thin:16"  # the Gibbs main path
+OP_LAT, OP_CHUNK, OP_STEPS = 256, 16, 256             # cim / host Gibbs paths
+MC_LAT, MC_B, MC_CHAINS = 256, 2, 4                   # num_chains=4 Gibbs path
+BETA = 0.4407  # the 2-D Ising critical coupling
 
 
 def emit(**record):
@@ -87,12 +111,12 @@ def time_ms(torch, fn, reps):
 
 
 @contextlib.contextmanager
-def first_launches(mh):
+def first_launches(mod):
     """Record a copy of the operands of each kernel's first launch while a
     path runs; every launch still goes through the real kernel."""
     seen = {}
-    names = ("mh_chain", "mh_chain_fused")
-    real = {n: getattr(mh, f"_launch_{n}") for n in names}
+    names = tuple(mod.LAUNCHES)
+    real = {n: getattr(mod, f"_launch_{n}") for n in names}
 
     def recording(name):
         def launch(*args, **kw):
@@ -105,12 +129,12 @@ def first_launches(mh):
         return launch
 
     for n in names:
-        setattr(mh, f"_launch_{n}", recording(n))
+        setattr(mod, f"_launch_{n}", recording(n))
     try:
         yield seen
     finally:
         for n in names:
-            setattr(mh, f"_launch_{n}", real[n])
+            setattr(mod, f"_launch_{n}", real[n])
 
 
 def bound_ms(nbytes, ops):
@@ -120,18 +144,28 @@ def bound_ms(nbytes, ops):
 
 
 def main() -> int:
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    if not (SRC / "repro_torch" / "csrc" / "mh.cu").is_file():
+    if not all((SRC / "repro_torch" / "csrc" / s).is_file() for s in ("mh.cu", "gibbs.cu")):
         print(f"chip_smoke: the port's sources are not under {SRC}", file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
-    from repro_torch import prng, samplers
+    from repro_torch import prng, samplers, workloads
     from repro_torch.kernels import _build, rng
+    from repro_torch.kernels.gibbs import gibbs as gk
+    from repro_torch.kernels.gibbs import ref as gref
     from repro_torch.kernels.mh import mh, ref
+
+    def reset_launches():
+        mh.reset_launches()
+        gk.reset_launches()
+
+    def launches_now():
+        return {**mh.LAUNCHES, **gk.LAUNCHES}
 
     dev = torch.device("cuda", torch.cuda.current_device())
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -173,21 +207,28 @@ def main() -> int:
     emit(phase="cipher", known_answers=len(kat), counters=1 << 20, mismatches=bad)
 
     # 3-4. kernels against their plain versions ---------------------------
-    wrapper_of = {"mh_chain": mh.mh_chain, "mh_chain_fused": mh.mh_chain_fused}
-    plain_of = {"mh_chain": ref.mh_chain_ref, "mh_chain_fused": ref.mh_chain_fused_ref}
+    wrapper_of = {"mh_chain": mh.mh_chain, "mh_chain_fused": mh.mh_chain_fused,
+                  "gibbs_chain": gk.gibbs_chain, "gibbs_chain_fused": gk.gibbs_chain_fused}
+    plain_of = {"mh_chain": ref.mh_chain_ref, "mh_chain_fused": ref.mh_chain_fused_ref,
+                "gibbs_chain": gref.gibbs_chain_ref,
+                "gibbs_chain_fused": gref.gibbs_chain_fused_ref}
     launch_of = {"mh_chain": mh._launch_mh_chain,
-                 "mh_chain_fused": mh._launch_mh_chain_fused}
-    max_err = {"mh_chain": 0.0, "mh_chain_fused": 0.0}
+                 "mh_chain_fused": mh._launch_mh_chain_fused,
+                 "gibbs_chain": gk._launch_gibbs_chain,
+                 "gibbs_chain_fused": gk._launch_gibbs_chain_fused}
+    ties_of = {"mh_chain": ref.tie_events, "gibbs_chain": gref.chain_ties}
+    max_err = {name: 0.0 for name in wrapper_of}
     cases = []  # (kernel, where, args, kw): every shape held and timed
 
     def hold(name, where, args, kw):
         """The kernel against its plain version on the same operands, at
-        tolerance 0; records the case for timing."""
+        tolerance 0; records the case for timing.  Returns (mismatched
+        words, largest difference, accept or flip count per step)."""
         s_, a = wrapper_of[name](*args, **kw)
         rs, ra = plain_of[name](*args, **kw)
         err = max(float((s_ - rs).abs().max()), float((a - ra).abs().max()))
         diff = int((s_ != rs).sum()) + int((a != ra).sum())
-        ties = ref.tie_events(*args) if diff and name == "mh_chain" else []
+        ties = ties_of[name](*args) if diff and name in ties_of else []
         max_err[name] = max(max_err[name], err)
         check(diff == 0, f"{name} differs from its plain version at {where}: "
               f"{diff} words, max |err| {err}, tie events {len(ties)}")
@@ -224,7 +265,28 @@ def main() -> int:
              max_abs_err=err, accept_rate=rate,
              t0_min=int(t0c.min()), t0_max=int(t0c.max()))
 
-    # 5. the main path --------------------------------------------------------
+    # 5. the Gibbs kernels against their plain versions ---------------------
+    for h, w, glass in ((7, 9, False), (6, 8, True)):
+        b, k = 3, 24
+        init = torch.randint(0, 2, (b, h, w), generator=gen, device=dev)
+        u = torch.rand((k, b, h, w), generator=gen, device=dev)
+        if glass:
+            j = (torch.randint(0, 2, (2, h, w), generator=gen, device=dev) * 2 - 1).float()
+            logit = gref.SpinGlassLogit(j[0].contiguous(), j[1].contiguous(), field=0.1)
+        else:
+            logit = gref.IsingLogit(BETA, 0.05)
+        parity0 = torch.tensor([0, 1, 1], device=dev)
+        t0b = torch.tensor([3, 2**31 - 7, -4], device=dev)  # differ, and wrap mod 2^32
+        k0b, k1b = (torch.randint(0, 2**32, (b,), generator=gen, device=dev) for _ in range(2))
+        where = f"{h}x{w} {'spin glass' if glass else 'ising'}"
+        d1, e1, r1 = hold("gibbs_chain", where, (init, u, logit, parity0), {})
+        d2, e2, r2 = hold("gibbs_chain_fused", where, (init, k0b, k1b, t0b, logit),
+                          dict(n_steps=k, lat_b=2))
+        emit(phase="gibbs_kernels", lattice=where, B=b, K=k, parity0=parity0.tolist(),
+             t0b=t0b.tolist(), lat_b=2, mismatches=[d1, d2], max_abs_err=[e1, e2],
+             flips_per_site_step=[r1, r2])
+
+    # 6. the MH main path -----------------------------------------------------
     logits = table_of(B, V)
     init = torch.randint(0, V, (B, C), generator=gen, device=dev)
     kernel_of = {"cim": "mh_chain", "fused": "mh_chain_fused"}
@@ -236,12 +298,12 @@ def main() -> int:
         target = samplers.TableTarget(logits)
         plan = samplers.RunPlan(target=target, n_steps=N_STEPS, init_words=init, seed=SEED)
         torch.cuda.synchronize()
-        mh.reset_launches()
+        reset_launches()
         t0 = time.perf_counter()
         full = eng.submit(plan)
         torch.cuda.synchronize()
         path_s[randomness] = time.perf_counter() - t0
-        launches = dict(mh.LAUNCHES)
+        launches = launches_now()
         main_launches[kernel_of[randomness]] = launches[kernel_of[randomness]]
         check(launches[kernel_of[randomness]] > 0,
               f"the {randomness} main path launched no {kernel_of[randomness]}")
@@ -286,10 +348,10 @@ def main() -> int:
 
     eng = samplers.MHEngine(samplers.EngineConfig())
     key = prng.PRNGKey(SEED, device=dev)
-    mh.reset_launches()
+    reset_launches()
     with first_launches(mh) as seen:
         tokens, res = eng.sample_tokens(key, logits, n_steps=256)
-    launches = dict(mh.LAUNCHES)
+    launches = launches_now()
     launches_by_path["sample_tokens"] = launches
     check(launches["mh_chain"] > 0, "sample_tokens launched no mh_chain")
     check(tuple(tokens.shape) == (B,) and bool(((tokens >= 0) & (tokens < V)).all()),
@@ -316,10 +378,10 @@ def main() -> int:
             target=samplers.TableTarget(logits), n_steps=256,
             init_words=init.expand(4, B, C), seed=SEED,
         )
-        mh.reset_launches()
+        reset_launches()
         with first_launches(mh) as seen:
             multi = samplers.MHEngine(cfg).submit(plan)
-        launches = dict(mh.LAUNCHES)
+        launches = launches_now()
         launches_by_path[f"num_chains_{randomness}"] = launches
         check(launches[name] > 0, f"num_chains=4 ({randomness}) launched no {name}")
         check(tuple(multi.samples.shape) == (4, 256, B, C), "wrong multi-chain shape")
@@ -338,11 +400,123 @@ def main() -> int:
              acceptance_rate=float(multi.acceptance_rate), chain2_equals_solo=True,
              mismatches=diff, max_abs_err=err)
 
-    # 6. timing ---------------------------------------------------------------
+    # 7. the Gibbs paths ------------------------------------------------------
+    g_kernel_of = {"host": "gibbs_chain", "cim": "gibbs_chain", "fused": "gibbs_chain_fused"}
+    g_main = {}  # kernel -> (path, launches) of the path that gives its row
+    g_path_s = {}
+
+    def gibbs_path(path, name, randomness, **kw):
+        """Build and run one Gibbs workload on the card through
+        ``engine.submit``, counting launches over the run alone; holds the
+        kernel against its plain version at the first launch."""
+        if name == "ising":
+            kw = dict(beta=BETA, **kw)
+        wl = workloads.build(name, prng.PRNGKey(SEED, device=dev), randomness=randomness,
+                             backend="pallas", **kw)
+        check(wl.engine.device.type == "cuda", "the workload's engine is not on the card")
+        kernel = g_kernel_of[randomness]
+        torch.cuda.synchronize()
+        reset_launches()
+        with first_launches(gk) as seen:
+            t0 = time.perf_counter()
+            res = wl.run(prng.PRNGKey(SEED + 1, device=dev))
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        launches = launches_now()
+        launches_by_path[path] = launches
+        check(launches[kernel] > 0, f"{path} launched no {kernel}")
+        t0 = time.perf_counter()  # again, warm
+        wl.run(prng.PRNGKey(SEED + 1, device=dev))
+        torch.cuda.synchronize()
+        warm_seconds = time.perf_counter() - t0
+        args, kw_ = seen[kernel]
+        diff, err, _ = hold(kernel, f"{path} first launch", from_launch(args), kw_)
+        b, h, w = wl.init_words.shape[-3:]
+        chains = wl.engine.config.num_chains
+        rate = float(res.acceptance_rate)
+        check(0.0 < rate <= 0.5, f"{path}: flip rate {rate} not in (0, 0.5]")
+        check(bool(((res.samples == 0) | (res.samples == 1)).all()), f"{path}: a spin not 0/1")
+        check(bool(torch.isfinite(res.final_logp).all()) and bool((res.final_logp <= 0).all()),
+              f"{path}: final_logp is not a finite log-probability")
+        stat = wl.series(res)
+        check(bool(np.isfinite(stat).all()), f"{path}: non-finite {wl.meta['statistic']}")
+        g_path_s[path] = warm_seconds
+        emit(phase="main_path_gibbs", path=path, workload=name, randomness=randomness,
+             execution="pallas", lattice=f"{h}x{w}", B=b, num_chains=chains,
+             n_steps=wl.n_steps, chunk_steps=wl.engine.config.chunk_steps,
+             collect=wl.engine.config.collect, launches=launches,
+             half_sweep_launches=wl.n_steps if launches[kernel] else 0,
+             first_launch_mismatches=diff, max_abs_err=err, seconds=seconds,
+             warm_seconds=warm_seconds,
+             site_steps_per_s=wl.n_steps * chains * b * h * w / warm_seconds, flip_rate=rate,
+             statistic=wl.meta["statistic"], stat_mean=float(stat.mean()),
+             stat_last=stat[-1].tolist()[:8], diagnostics=wl.diagnostics(res))
+        return wl, res, kernel, launches[kernel]
+
+    main_kw = dict(height=LAT, width=LAT, batch=LAT_B, n_steps=N_STEPS, chunk_steps=G_CHUNK,
+                   collect=G_THIN)
+    wl, full, kernel, n = gibbs_path("main_path_gibbs_ising_fused", "ising", "fused", **main_kw)
+    g_main[kernel] = ("main_path_gibbs_ising_fused", n)
+    plan = wl.plan(prng.PRNGKey(SEED + 1, device=dev))
+    half = wl.engine.submit(plan.replace(n_steps=513))
+    rest = half.resume(511)
+    exact = (
+        torch.equal(torch.cat([half.samples, rest.samples]), full.samples)
+        and torch.equal(rest.final_words, full.final_words)
+        and torch.equal(rest.final_logp, full.final_logp)
+        and torch.equal(half.accept_count + rest.accept_count, full.accept_count)
+    )
+    check(exact, "ising fused: submit(513) + resume(511) != submit(1024)")
+    emit(phase="gibbs_resume", workload="ising", randomness="fused", split=[513, 511],
+         kept_rows=[half.samples.shape[0], rest.samples.shape[0]], resume_bit_exact=exact)
+    del wl, full, half, rest
+    gibbs_path("main_path_gibbs_spin_glass_fused", "spin_glass", "fused", **main_kw)
+    op_kw = dict(height=OP_LAT, width=OP_LAT, batch=1, n_steps=OP_STEPS, chunk_steps=OP_CHUNK)
+    for randomness in ("cim", "host"):
+        path = f"main_path_gibbs_ising_{randomness}"
+        _, _, kernel, n = gibbs_path(path, "ising", randomness, **op_kw)
+        g_main.setdefault(kernel, (path, n))
+    mc_kw = dict(height=MC_LAT, width=MC_LAT, batch=MC_B, n_steps=OP_STEPS,
+                 chunk_steps=G_CHUNK, num_chains=MC_CHAINS)
+    wl, multi, _, _ = gibbs_path("num_chains_gibbs_fused", "ising", "fused", **mc_kw)
+    solo = workloads.build(
+        "ising", prng.PRNGKey(SEED, device=dev), randomness="fused", backend="pallas",
+        beta=BETA, **{**mc_kw, "num_chains": 1},
+    )
+    solo_res = solo.engine.submit(
+        solo.plan(prng.PRNGKey(SEED + 1, device=dev), init_words=wl.init_words[2], chain_id=2)
+    ).result
+    same = all(torch.equal(getattr(multi, f)[2], getattr(solo_res, f))
+               for f in ("samples", "accept_count", "final_words", "final_logp"))
+    check(same, "ising fused: chain 2 of 4 != solo chain_id=2")
+    emit(phase="gibbs_num_chains", num_chains=MC_CHAINS, chain2_equals_solo=same)
+    del wl, multi, solo_res
+
+    # a small lattice, on the card and on the CPU (the plain versions)
+    for name, randomness in (("ising", "host"), ("ising", "cim"), ("ising", "fused"),
+                             ("spin_glass", "fused")):
+        small = {}
+        shape = dict(height=7, width=9) if name == "ising" else dict(height=6, width=8)
+        for device in ("cuda", "cpu"):
+            wl = workloads.build(name, prng.PRNGKey(3), randomness=randomness,
+                                 backend="pallas", batch=2, n_steps=40, chunk_steps=9,
+                                 device=device, **shape)
+            small[device] = wl.engine.submit(wl.plan(prng.PRNGKey(4), step0=5))
+        same = all(
+            torch.equal(getattr(small["cuda"], f).cpu(), getattr(small["cpu"], f))
+            for f in ("samples", "accept_count", "final_words")
+        )
+        close = torch.allclose(small["cuda"].final_logp.cpu(), small["cpu"].final_logp,
+                               rtol=4 * 2**-23, atol=0)
+        check(same and close, f"{name} {randomness}: the card and the CPU disagree")
+        emit(phase="gibbs_small_input", workload=name, randomness=randomness,
+             card_equals_cpu=same, final_logp_within_4_ulp=close)
+
+    # 8. timing ---------------------------------------------------------------
     # The table (12.6 MB at V = 49,155) stays in the 50 MB L2 between
     # launches, as it does between the engine's chunks.
-    shapes = {"mh_chain": [], "mh_chain_fused": []}
-    for name, where, args, kw in cases:
+
+    def mh_cost(name, args, kw):
         table, init_ = args[0], args[1]
         b, v = table.shape
         c = init_.shape[-1]
@@ -356,31 +530,66 @@ def main() -> int:
         else:
             nbytes += 12 * c  # per-column key words and step base
             ops = steps * ((nbits + 2) * THREEFRY_OPS + 3 * nbits + STEP_OPS)
+        shape = dict(B=b, V=v, C=c, K=k, nbits=nbits, **({"cc": kw["cc"]} if kw else {}))
+        return nbytes, ops, shape
+
+    def gibbs_cost(name, args, kw):
+        fused = name == "gibbs_chain_fused"
+        init_, logit, start = args[0], args[4 if fused else 2], args[3]
+        b, h, w = init_.shape
+        k = kw["n_steps"] if fused else args[1].shape[0]
+        sites = b * h * w
+        colour = {0: (h * w + 1) // 2, 1: h * w // 2}  # sites of each colour
+        active = sum(colour[(p0 + j) % 2] for p0 in start.tolist() for j in range(k))
+        nbytes = 4 * (2 * sites + k * sites + b)  # init, flips, samples, parity/t0
+        if isinstance(logit, gref.SpinGlassLogit):
+            nbytes += 8 * h * w  # the couplings
+        if name == "gibbs_chain":
+            nbytes += 4 * k * sites  # the uniforms
+            ops = GIBBS_OPS * active
+        else:
+            nbytes += 8 * b  # the key words
+            ops = (GIBBS_OPS + THREEFRY_OPS) * active + THREEFRY_OPS * k * b
+        return nbytes, ops, dict(B=b, H=h, W=w, K=k, active_site_steps=active,
+                                 **({"lat_b": kw["lat_b"]} if kw else {}))
+
+    shapes = {name: [] for name in wrapper_of}
+    for name, where, args, kw in cases:
+        cost = gibbs_cost if name.startswith("gibbs") else mh_cost
+        nbytes, ops, shape = cost(name, args, kw)
         bound, bound_by = bound_ms(nbytes, ops)
         coded = tuple(
             _build.to_u32_bits(a) if getattr(a, "dtype", None) == torch.int64 else a
             for a in args
         )
+        big = nbytes > 1e8  # the 1024 x 1024 main-path launches
         shapes[name].append(dict(
-            where=where, B=b, V=v, C=c, K=k, nbits=nbits, **(
-                {"cc": kw["cc"]} if kw else {}),
-            ms=time_ms(torch, lambda: wrapper_of[name](*args, **kw), 20),
-            kernel_ms=time_ms(torch, lambda: launch_of[name](*coded, **kw), 20),
-            plain_ms=time_ms(torch, lambda: plain_of[name](*args, **kw), 3),
+            where=where, **shape,
+            ms=time_ms(torch, lambda: wrapper_of[name](*args, **kw), 5 if big else 20),
+            kernel_ms=time_ms(torch, lambda: launch_of[name](*coded, **kw), 5 if big else 20),
+            plain_ms=time_ms(torch, lambda: plain_of[name](*args, **kw), 2 if big else 3),
             bound_ms=bound, bound_by=bound_by, bytes=nbytes, ops=ops,
         ))
+    sources = {"mh": "src/repro_torch/csrc/mh.cu", "gibbs": "src/repro_torch/csrc/gibbs.cu"}
+    replaces = {
+        "mh_chain": "src/repro/kernels/mh/mh.py:35",
+        "mh_chain_fused": "src/repro/kernels/mh/mh.py:125",
+        "gibbs_chain": "src/repro/kernels/gibbs/gibbs.py:37",
+        "gibbs_chain_fused": "src/repro/kernels/gibbs/gibbs.py:136",
+    }
     kernels = []
-    for name in ("mh_chain", "mh_chain_fused"):
-        main = shapes[name][0]  # the main path's shape: B=64, V=49,155, C=256
+    for name in wrapper_of:
+        if name.startswith("gibbs"):
+            path, launches = g_main[name]
+            main = next(s for s in shapes[name] if s["where"] == f"{path} first launch")
+        else:  # the MH main path's shape: B=64, V=49,155, C=256
+            path, launches, main = f"main_path_{name}", main_launches[name], shapes[name][0]
         kernels.append(dict(
-            name=name, route="cuda", source="src/repro_torch/csrc/mh.cu",
-            replaces=(
-                "src/repro/kernels/mh/mh.py:35" if name == "mh_chain"
-                else "src/repro/kernels/mh/mh.py:125"
-            ),
-            launches=main_launches[name], max_abs_err=max_err[name],
+            name=name, route="cuda", source=sources[name.split("_")[0]],
+            replaces=replaces[name], launches=launches, max_abs_err=max_err[name],
             ms=main["ms"], kernel_ms=main["kernel_ms"], plain_ms=main["plain_ms"],
             bound_ms=main["bound_ms"], bound_by=main["bound_by"], library_ms=None,
+            main_path=path, main_shape=main["where"],
             launches_by_path={p: n[name] for p, n in launches_by_path.items()
                               if n.get(name)},
             shapes=shapes[name],
@@ -396,16 +605,14 @@ def main() -> int:
              r: path_s[r] * 1e3 / (N_STEPS // K) for r in path_s})
     from torch.profiler import ProfilerActivity, profile
 
-    for randomness in ("cim", "fused"):
-        eng = samplers.MHEngine(samplers.EngineConfig(randomness=randomness))
-        plan = samplers.RunPlan(
-            target=samplers.TableTarget(logits), n_steps=256, init_words=init, seed=SEED
-        )
-        eng.submit(plan)
+    def profiled(run, **record):
+        """One warm-up run, then one run under the profiler: wall time,
+        device busy time and share, and the kernels that took the most."""
+        run()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            eng.submit(plan)
+            run()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
         by_kernel = {}
@@ -414,10 +621,38 @@ def main() -> int:
                 by_kernel[e.name] = by_kernel.get(e.name, 0.0) + e.self_device_time_total / 1e3
         busy_ms = sum(by_kernel.values())
         top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:4]
-        emit(phase="profile", randomness=randomness, n_steps=256,
-             wall_ms_profiled=wall_ms, device_busy_ms=busy_ms,
+        emit(phase="profile", **record, wall_ms_profiled=wall_ms, device_busy_ms=busy_ms,
              device_busy_share=busy_ms / wall_ms,
              top_kernels_ms=[[name[:100], ms] for name, ms in top])
+
+    for randomness in ("cim", "fused"):
+        eng = samplers.MHEngine(samplers.EngineConfig(randomness=randomness))
+        plan = samplers.RunPlan(
+            target=samplers.TableTarget(logits), n_steps=256, init_words=init, seed=SEED
+        )
+        profiled(lambda: eng.submit(plan), randomness=randomness, n_steps=256)
+
+    # the Gibbs paths: per-chunk wall time against the kernel call alone
+    by_name = {k["name"]: k for k in kernels}
+    emit(phase="gibbs_breakdown", main_path_ms_per_chunk={
+        "ising_fused": g_path_s["main_path_gibbs_ising_fused"] * 1e3 / (N_STEPS // G_CHUNK),
+        "spin_glass_fused": g_path_s["main_path_gibbs_spin_glass_fused"] * 1e3
+        / (N_STEPS // G_CHUNK),
+        "ising_cim": g_path_s["main_path_gibbs_ising_cim"] * 1e3 / (OP_STEPS // OP_CHUNK),
+        "ising_host": g_path_s["main_path_gibbs_ising_host"] * 1e3 / (OP_STEPS // OP_CHUNK),
+    }, gibbs_chain_fused_ms=by_name["gibbs_chain_fused"]["ms"],
+        gibbs_chain_fused_kernel_ms=by_name["gibbs_chain_fused"]["kernel_ms"],
+        gibbs_chain_ms=by_name["gibbs_chain"]["ms"],
+        gibbs_chain_kernel_ms=by_name["gibbs_chain"]["kernel_ms"])
+    for randomness, kw in (
+        ("fused", dict(main_kw, n_steps=256)), ("cim", dict(op_kw, n_steps=64)),
+    ):
+        wl = workloads.build("ising", prng.PRNGKey(SEED, device=dev), randomness=randomness,
+                             backend="pallas", beta=BETA, **kw)
+        profiled(lambda: wl.run(prng.PRNGKey(SEED + 1, device=dev)), workload="ising",
+                 randomness=randomness, lattice=f"{kw['height']}x{kw['width']}",
+                 B=kw["batch"], n_steps=kw["n_steps"], chunk_steps=kw["chunk_steps"])
+        del wl
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({

@@ -1,7 +1,8 @@
 """Carry state from the JAX package to the port and results back.
 
 The system has no weights: what crosses between the two packages is a
-PRNG key, a (B, V) table, the chain's init words and an engine config.
+PRNG key, a (B, V) table or a lattice model's parameters, the chain's
+init words and an engine config.
 The JAX side hands them over as numpy arrays (``np.asarray`` of a jax
 array) and a plain dict; these functions turn them into the port's
 tensors on a device (the current CUDA card unless ``device="cpu"`` is
@@ -19,6 +20,7 @@ from repro_torch.samplers.engine import (
     EngineResult,
     resolve_device,
 )
+from repro_torch.workloads.ising import IsingModel
 
 
 def key_from_numpy(key, device=None) -> torch.Tensor:
@@ -38,12 +40,38 @@ def table_from_numpy(table, device=None) -> torch.Tensor:
 
 
 def words_from_numpy(words, device=None) -> torch.Tensor:
-    """(B, C) or (num_chains, B, C) uint32 init words -> int64 tensor."""
+    """uint32 init words -> int64 tensor: an MH chain state (B, C) or
+    (num_chains, B, C), or a lattice state (B, H, W) or (num_chains, B,
+    H, W)."""
     words = np.asarray(words)
-    if words.ndim not in (2, 3):
-        raise ValueError(f"init words are (B, C) or (num_chains, B, C), got {words.shape}")
+    if words.ndim not in (2, 3, 4):
+        raise ValueError(
+            f"init words are (B, C), (num_chains, B, C), (B, H, W) or "
+            f"(num_chains, B, H, W), got {words.shape}"
+        )
     words = torch.from_numpy(words.astype(np.uint32).astype(np.int64))
     return words.to(resolve_device(device))
+
+
+def couplings_from_numpy(j_right, j_down, device=None) -> tuple:
+    """A spin glass's (H, W) couplings -> two float32 tensors, the
+    arguments of ``workloads.spin_glass.SpinGlass``."""
+    out = []
+    for j in (j_right, j_down):
+        j = np.asarray(j, dtype=np.float32)
+        if j.ndim != 2:
+            raise ValueError(f"couplings are (H, W), got {j.shape}")
+        out.append(torch.from_numpy(j.copy()).to(resolve_device(device)))
+    return tuple(out)
+
+
+def ising_from_jax(model) -> IsingModel:
+    """The port's ``IsingModel`` with a JAX ``IsingModel``'s (height,
+    width, beta, field); read by attribute, so nothing of JAX is imported."""
+    return IsingModel(
+        height=int(model.height), width=int(model.width),
+        beta=float(model.beta), field=float(model.field),
+    )
 
 
 def config_from_dict(config: dict) -> EngineConfig:

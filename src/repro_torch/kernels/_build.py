@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
 The sources under ``repro_torch/csrc`` have a plain C interface.  At
-first use they are compiled by ``nvcc`` into one shared library under
+first use each is compiled by its own ``nvcc``, all started together,
+and the objects are linked into one shared library under
 ``build/repro_torch/<hash>/`` at the root of the checkout, keyed by a
 hash of the sources and flags, and loaded with ``ctypes``.  Nothing is
 built when a module is imported, so the CPU tests never need ``nvcc``.
@@ -25,19 +26,20 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-SOURCES = ("mh.cu",)
+SOURCES = ("mh.cu", "gibbs.cu")
 HEADERS = ("rng.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "--fmad=false",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _U = ctypes.c_uint32
+_F = ctypes.c_float
 _SIGNATURES = {
     # table, init, flips, u, samples, accept, B, V, C, K, mask, stream
     "repro_mh_chain": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _U, _P),
@@ -48,6 +50,21 @@ _SIGNATURES = {
     ),
     # k0, k1, x0, x1, y0, y1, n, stream
     "repro_threefry2x32": (_P, _P, _P, _P, _P, _P, _I, _P),
+    # init, u, parity0, beta, field, samples, flips, B, H, W, K, stream
+    "repro_gibbs_chain": (_P, _P, _P, _F, _F, _P, _P, _I, _I, _I, _I, _P),
+    # init, u, parity0, j_right, j_down, field, samples, flips, B, H, W, K, stream
+    "repro_gibbs_chain_spin_glass": (
+        _P, _P, _P, _P, _P, _F, _P, _P, _I, _I, _I, _I, _P
+    ),
+    # init, k0b, k1b, t0b, beta, field, samples, flips, B, H, W, K, lat_b, stream
+    "repro_gibbs_chain_fused": (
+        _P, _P, _P, _P, _F, _F, _P, _P, _I, _I, _I, _I, _I, _P
+    ),
+    # init, k0b, k1b, t0b, j_right, j_down, field, samples, flips,
+    # B, H, W, K, lat_b, stream
+    "repro_gibbs_chain_fused_spin_glass": (
+        _P, _P, _P, _P, _P, _P, _F, _P, _P, _I, _I, _I, _I, _I, _P
+    ),
 }
 
 
@@ -73,6 +90,25 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
+def _run_all(cmds: list) -> str:
+    """Run the commands side by side, wait for every one, and raise for
+    the first that failed; returns their joined output."""
+    procs = [
+        (cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        for cmd in cmds
+    ]
+    text, failed = "", None
+    for cmd, proc in procs:
+        stdout, stderr = proc.communicate()
+        text += stdout + stderr
+        if proc.returncode != 0 and failed is None:
+            failed = (cmd, proc.returncode, stdout + stderr)
+    if failed is not None:
+        cmd, rc, output = failed
+        raise RuntimeError(f"nvcc failed with exit code {rc}:\n{' '.join(cmd)}\n{output}")
+    return text
+
+
 @functools.lru_cache(maxsize=None)
 def build() -> dict:
     """Compile the kernels once per source hash; returns the library path,
@@ -85,22 +121,22 @@ def build() -> dict:
         text = log.read_text() if log.exists() else ""
         return {"path": str(out), "seconds": 0.0, "log": text, "cached": True}
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *(str(CSRC / s) for s in SOURCES)]
+    pid = os.getpid()
+    nvcc = _nvcc()
+    objs = [str(out.with_name(f"{Path(src).stem}.{pid}.o")) for src in SOURCES]
+    tmp = out.with_name(f"{out.name}.{pid}.tmp")
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    text = _run_all([  # one nvcc per source, all started together
+        [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(CSRC / src)]
+        for src, obj in zip(SOURCES, objs)
+    ])
+    text += _run_all([[nvcc, "-shared", "-o", str(tmp), *objs]])
     seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed with exit code {proc.returncode}:\n{' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}"
-        )
     os.replace(tmp, out)
-    log.write_text(proc.stdout + proc.stderr)
-    return {
-        "path": str(out), "seconds": seconds,
-        "log": proc.stdout + proc.stderr, "cached": False,
-    }
+    for obj in objs:
+        os.remove(obj)
+    log.write_text(text)
+    return {"path": str(out), "seconds": seconds, "log": text, "cached": False}
 
 
 @functools.lru_cache(maxsize=None)

@@ -84,3 +84,19 @@ def bernoulli(key: torch.Tensor, p: float, shape: tuple) -> torch.Tensor:
     """bool Bernoulli(p) of ``shape``: ``uniform < float32(p)``."""
     p32 = torch.tensor(p, dtype=torch.float32, device=key.device)
     return uniform(key, shape) < p32
+
+
+def randint(key: torch.Tensor, shape: tuple, minval: int, maxval: int) -> torch.Tensor:
+    """int32 integers in ``[minval, maxval)`` of ``shape``, as
+    ``jax.random.randint`` draws them: two bit draws from ``split(key)``
+    folded into the span by a multiply-mod in uint32 arithmetic.  Returns
+    an int64 tensor holding the int32 values."""
+    minval = max(-(2**31), min(int(minval), 2**31 - 1))
+    maxval = max(-(2**31), min(int(maxval), 2**31 - 1))
+    span = 1 if maxval <= minval else (maxval - minval) & MASK32
+    ks = split(key)
+    higher, lower = bits(ks[..., 0, :], shape), bits(ks[..., 1, :], shape)
+    multiplier = (((2**16 % span) ** 2) & MASK32) % span
+    offset = ((higher % span) * multiplier) & MASK32
+    offset = ((offset + lower % span) & MASK32) % span
+    return minval + offset

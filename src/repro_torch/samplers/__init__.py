@@ -1,7 +1,10 @@
-# The sampler engine, MH update rule, in PyTorch: the port of
-# repro.samplers.  Build a RunPlan, call MHEngine.submit, continue from the
-# returned RunHandle.  Table targets run through the fused CUDA kernels of
-# csrc/mh.cu on a CUDA device and through their plain versions on the CPU.
+# The sampler engine in PyTorch: the port of repro.samplers, with the MH
+# and Gibbs update rules.  Build a RunPlan, call MHEngine.submit, continue
+# from the returned RunHandle.  Under execution="pallas" table targets run
+# through the CUDA kernels of csrc/mh.cu and lattice models (workloads/)
+# through those of csrc/gibbs.cu on a CUDA device, and through their plain
+# versions on the CPU.  The exports are the JAX package's, less the
+# autotuner and the deprecated run_engine shim, which are not ported yet.
 
 from repro_torch.samplers.engine import (
     EngineConfig,

@@ -1,27 +1,33 @@
-"""The sampler engine, MH update rule — the PyTorch port of
-``repro.samplers.engine``.
+"""The sampler engine — the PyTorch port of ``repro.samplers.engine``.
 
 One chain datapath with the JAX package's axes and field names:
 
   * **target**      — ``CallableTarget`` / ``TableTarget`` / ``TopKTarget``
+                      (MH), or a lattice model (Gibbs:
+                      ``workloads.ising.IsingModel``,
+                      ``workloads.spin_glass.SpinGlass``)
+  * **update rule** — ``mh`` (XOR proposal, accept test) or ``gibbs``
+                      (one checkerboard half-sweep per step, the flip
+                      ``u < sigmoid(logit)``)
   * **randomness**  — ``host`` / ``cim`` / ``fused`` (randomness.py)
   * **execution**   — ``scan`` (a Python loop over steps in PyTorch) vs
                       ``pallas`` (the name is kept so one config builds
-                      both engines: the fused CUDA kernels of
-                      ``csrc/mh.cu`` for CUDA tensors, their plain
+                      both engines: the CUDA kernels of ``csrc/mh.cu`` and
+                      ``csrc/gibbs.cu`` for CUDA tensors, their plain
                       versions for CPU tensors); ``auto`` picks ``pallas``
-                      for a table target on a CUDA device, else ``scan``
+                      for an MH table target on a CUDA device, else
+                      ``scan`` — and always ``scan`` for Gibbs, as in JAX
   * **collection**  — ``all`` / ``thin:<k>`` (absolute steps
                       ``(step0 + t) % k == 0``) / ``last``
 
-Both executors consume the same operands and the same accept rule, so
+Both executors consume the same operands and the same update rule, so
 with the same key they give identical sample streams; operands of step
-``t`` depend only on ``(key, step0 + t)``, so chunking and ``step0``
-segmentation never change the stream.
+``t`` depend only on ``(key, step0 + t)`` (and the Gibbs parity on
+``step0 + t``), so chunking and ``step0`` segmentation never change the
+stream.
 
 Every entry runs on ``device`` — ``"cuda"`` unless the caller asks for
-the CPU.  The Gibbs update rule and mesh sharding are not ported yet
-(ROADMAP.md queue 1, items 5 and 6).
+the CPU.  Mesh sharding is not ported yet (ROADMAP.md queue 1, item 5).
 """
 
 from __future__ import annotations
@@ -32,6 +38,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.kernels.gibbs import ops as gibbs_ops
+from repro_torch.kernels.gibbs.ref import sigmoid
 from repro_torch.kernels.mh import ops as mh_ops
 from repro_torch.kernels.mh.ref import accept_test
 from repro_torch.samplers.randomness import (
@@ -102,7 +110,7 @@ class EngineConfig:
     rng_p_bfr: float | None = None   # [0,1]-RNG raw-bit bias (default p_bfr)
     rng_bit_width: int = 16          # u precision (cim backend)
     rng_stages: int = 3              # MSXOR stages (cim backend)
-    update: str = "mh"               # mh | gibbs (gibbs: not ported yet)
+    update: str = "mh"               # mh | gibbs
     execution: str = "auto"          # auto | scan | pallas
     chunk_steps: int = 64            # randomness streaming granularity
     block_c: int = 256               # TPU lane block (unused by the port)
@@ -154,9 +162,23 @@ class EngineResult(NamedTuple):
     n_steps: int                   # total steps run (not kept)
 
 
-def resolve_execution(execution: str, target, device) -> str:
+def resolve_execution(execution: str, target, device, update: str = "mh") -> str:
     """Executor dispatch: an explicit choice wins; ``auto`` runs the fused
-    kernel for a table target on a CUDA device, scan elsewhere."""
+    MH kernel for a table target on a CUDA device, scan elsewhere.
+
+    ``gibbs`` keeps the JAX package's rule: ``pallas`` needs a lattice
+    model the checkerboard kernel knows (``supports_fused_gibbs``), and
+    ``auto`` is always ``scan``."""
+    if update == "gibbs":
+        if execution == "pallas":
+            if not getattr(target, "supports_fused_gibbs", False):
+                raise ValueError(
+                    "pallas Gibbs execution needs a lattice model with a "
+                    "fused checkerboard kernel (supports_fused_gibbs); "
+                    "use execution='scan'"
+                )
+            return "pallas"
+        return "scan"
     if execution == "pallas":
         if target.table is None:
             raise ValueError(
@@ -360,6 +382,107 @@ def _run_pallas_chains(
     return unfold(samples), unfold(acc), unfold(state), unfold(logp)
 
 
+def _gibbs_step(target, state, acc, u, parity: int):
+    """THE scan-side Gibbs half-sweep — the kernels' half-sweep, op for
+    op: conditional logit from the current neighbours, the new value
+    ``u < sigmoid(logit)`` written on the active checkerboard colour only.
+    ``acc`` counts sites whose value changed (the flip count)."""
+    new = (u < sigmoid(target.conditional_logit(state))).to(torch.int64)
+    active = target.update_mask(tuple(state.shape), parity, device=state.device)
+    nxt = torch.where(active, new, state)
+    return nxt, acc + (nxt != state).to(torch.int32)
+
+
+def _run_scan_gibbs(key, target, backend, n_steps, chunk, step0, init_words, collect):
+    shape = tuple(init_words.shape)
+    carry = (init_words, torch.zeros(shape, dtype=torch.int32, device=init_words.device))
+
+    def make_xs(start, n):
+        _, u = backend.chunk(key, start, n, shape, 1, need_flips=False)
+        return u, range(start, start + n)
+
+    def step_fn(c, x):
+        u_t, t = x
+        return _gibbs_step(target, *c, u_t, t % 2)
+
+    samples, (state, acc) = _run_scan_chunked(
+        make_xs, step_fn, carry, n_steps, chunk, step0, collect
+    )
+    return samples, acc, state
+
+
+def _fused_gibbs_logit(target):
+    """The logit spec the Gibbs kernels take (``IsingLogit`` or
+    ``SpinGlassLogit``): the kernel cannot trace a closure, so a lattice
+    model hands over its conditional in that form."""
+    spec = getattr(target, "logit_spec", None)
+    if spec is None:
+        raise ValueError(
+            f"{type(target).__name__} has no logit_spec: the Gibbs kernels know "
+            "the Ising and spin-glass conditionals only; use execution='scan'"
+        )
+    return spec
+
+
+def _run_pallas_gibbs(key, target, backend, n_steps, chunk, step0, init_words, collect):
+    """The Gibbs kernels on one chain: the C-chain executor with C = 1."""
+    if init_words.ndim != 3:
+        raise ValueError(
+            f"pallas Gibbs expects (B, H, W) lattice state, got "
+            f"{tuple(init_words.shape)}"
+        )
+    samples, acc, words = _run_pallas_gibbs_chains(
+        key[None], target, backend, n_steps, chunk, step0, init_words[None], collect
+    )
+    return samples[0], acc[0], words[0]
+
+
+def _run_pallas_gibbs_chains(keys, target, backend, n_steps, chunk, step0, init, collect):
+    """The Gibbs kernels over C chains: one call per chunk, chains folded
+    into the lattice-batch axis chain-major (lattice c * B + i)."""
+    if init.ndim != 4:
+        raise ValueError(
+            f"multi-chain pallas Gibbs expects (num_chains, B, H, W) lattice "
+            f"state, got {tuple(init.shape)}"
+        )
+    logit = _fused_gibbs_logit(target)
+    c_chains, b, h, w = init.shape
+    state0 = init.reshape(c_chains * b, h, w)
+    if backend.name == "fused":
+        k0b, k1b = _fused_key_cols(keys, b)
+
+        def run_chunk(state, start, n):
+            return gibbs_ops.gibbs_sweep_fused(
+                state, k0b, k1b, logit, n_steps=n, t0=step0 + start, lat_b=b,
+            )
+    else:
+
+        def run_chunk(state, start, n):
+            u = torch.stack([
+                backend.chunk(k, step0 + start, n, (b, h, w), 1, need_flips=False)[1]
+                for k in keys
+            ])  # (C, n, B, H, W)
+            u = u.transpose(0, 1).reshape(n, c_chains * b, h, w)
+            return gibbs_ops.gibbs_sweep(state, u, logit, parity0=(step0 + start) % 2)
+
+    samples, acc, state = _drive_pallas_chunks(
+        run_chunk, state0, n_steps, chunk, step0, collect
+    )
+
+    def unfold(x):  # (..., C*B, H, W) -> (C, ..., B, H, W)
+        lead = x.shape[:-3]
+        return torch.movedim(x.reshape(*lead, c_chains, b, h, w), len(lead), 0)
+
+    return unfold(samples), unfold(acc), unfold(state)
+
+
+def _gibbs_logp(target, words: torch.Tensor) -> torch.Tensor:
+    """Per-site conditional log-prob (pseudo-likelihood) of ``words``."""
+    logit = target.conditional_logit(words)
+    logsig = torch.nn.functional.logsigmoid
+    return torch.where(words == 1, logsig(logit), logsig(-logit)).to(torch.float32)
+
+
 def _acceptance_rate(acc: torch.Tensor, n_steps: int) -> torch.Tensor:
     total = np.float32(n_steps) * np.float32(max(1, acc.numel()))
     return acc.sum().to(torch.float32) / torch.tensor(
@@ -384,20 +507,16 @@ def resolve_device(device) -> torch.device:
 
 
 class MHEngine:
-    """The MH sampler engine on one device (``SamplerEngine`` aliases it).
+    """The sampler engine on one device, ``mh`` or ``gibbs`` update rule
+    (``SamplerEngine`` aliases it).
 
     ``device`` defaults to ``"cuda"``; the engine raises if there is no
     card and never moves to the CPU on its own.  Keys, init words and
-    init log-probs are moved to the engine's device; a table target must
-    already live there.
+    init log-probs are moved to the engine's device; a table target or a
+    spin glass's couplings must already live there.
     """
 
     def __init__(self, config: EngineConfig = EngineConfig(), device=None):
-        if config.update == "gibbs":
-            raise NotImplementedError(
-                "the Gibbs update rule is not ported yet (ROADMAP.md queue 1, "
-                "item 6, and queue 2, items 4-5)"
-            )
         self.config = config
         self.device = resolve_device(device)
         self._backend = config.backend()
@@ -422,11 +541,18 @@ class MHEngine:
         return words.to(device=self.device, dtype=torch.int64) & _MASK32
 
     def _check_target(self, target) -> None:
-        table = getattr(target, "table", None)
-        if table is not None and table.device != self.device:
+        for name in ("table", "j_right", "j_down"):
+            x = getattr(target, name, None)
+            if isinstance(x, torch.Tensor) and x.device != self.device:
+                raise ValueError(
+                    f"the target's {name} is on {x.device}, the engine on "
+                    f"{self.device}: build the target on the engine's device"
+                )
+        if self.config.update == "gibbs" and not hasattr(target, "conditional_logit"):
             raise ValueError(
-                f"the target's table is on {table.device}, the engine on "
-                f"{self.device}: build the table on the engine's device"
+                "gibbs update needs a conditional target exposing "
+                "conditional_logit/update_mask (e.g. workloads.ising."
+                f"IsingModel); got {type(target).__name__}"
             )
 
     def run(
@@ -434,17 +560,23 @@ class MHEngine:
         chain_id: int = 0, mesh=None, step0: int = 0, collect: str | None = None,
         init_logp=None,
     ) -> EngineResult:
-        """Run ``n_steps`` MH steps from ``init_words``; keep what
-        ``collect`` says (default: ``config.collect``).
+        """Run ``n_steps`` steps of the configured update rule from
+        ``init_words``; keep what ``collect`` says (default:
+        ``config.collect``).
 
-        ``init_words`` is (B, C) for a table target (B targets x C chains)
-        and any shape for a callable target; with ``config.num_chains ==
-        C > 1`` it carries a leading (C,) axis and every result field
-        gains it — chain c is bit-identical to a solo run with
-        ``chain_id=chain_id + c``.  ``step0`` offsets the randomness
-        stream by an absolute step count, so a run resumed from
-        ``(final_words, step0=s)`` continues one unsegmented run exactly.
-        ``init_logp`` (solo scan only) seeds the carried log-prob.
+        ``mh``: ``init_words`` is (B, C) for a table target (B targets x C
+        chains) and any shape for a callable target.  ``gibbs``: it is the
+        lattice state (..., H, W) of {0, 1} words, strictly (B, H, W)
+        under pallas execution; each step is one checkerboard half-sweep,
+        ``accept_count`` is the per-site flip count and ``final_logp`` the
+        per-site conditional log-prob of the final state.  With
+        ``config.num_chains == C > 1`` it carries a leading (C,) axis and
+        every result field gains it — chain c is bit-identical to a solo
+        run with ``chain_id=chain_id + c``.  ``step0`` offsets the
+        randomness stream (and the Gibbs checkerboard parity) by an
+        absolute step count, so a run resumed from ``(final_words,
+        step0=s)`` continues one unsegmented run exactly.  ``init_logp``
+        (solo MH scan only) seeds the carried log-prob.
         """
         if mesh is not None:
             raise NotImplementedError(
@@ -457,10 +589,13 @@ class MHEngine:
         if step0 < 0:
             raise ValueError(f"step0 must be >= 0, got {step0}")
         collect = parse_collect(self.config.collect if collect is None else collect)
-        if init_logp is not None and self.config.num_chains > 1:
+        if init_logp is not None and (
+            self.config.num_chains > 1 or self.config.update == "gibbs"
+        ):
             raise ValueError(
-                "init_logp resumes the solo MH carry only — the chains axis "
-                "derives its own per-chain carries"
+                "init_logp resumes the solo MH carry only — the Gibbs carry "
+                "holds no log-prob and the chains axis derives its own "
+                "per-chain carries"
             )
         self._check_target(target)
         key = self._key(key)
@@ -471,6 +606,8 @@ class MHEngine:
                 collect=collect,
             )
         key = chain_key(key, chain_id)
+        if self.config.update == "gibbs":
+            return self._run_gibbs(key, target, n_steps, init, step0, collect)
         execution = resolve_execution(self.config.execution, target, self.device)
         args = (key, target, self._backend, target.nbits, n_steps,
                 self.config.chunk_steps, step0, init, collect)
@@ -494,6 +631,24 @@ class MHEngine:
             n_steps=n_steps,
         )
 
+    def _run_gibbs(self, key, target, n_steps: int, init, step0: int, collect):
+        execution = resolve_execution(
+            self.config.execution, target, self.device, "gibbs"
+        )
+        run = _run_scan_gibbs if execution == "scan" else _run_pallas_gibbs
+        samples, acc, words = run(
+            key, target, self._backend, n_steps, self.config.chunk_steps, step0,
+            init, collect,
+        )
+        return EngineResult(
+            samples=samples,
+            accept_count=acc,
+            acceptance_rate=_acceptance_rate(acc, n_steps),
+            final_words=words,
+            final_logp=_gibbs_logp(target, words),
+            n_steps=n_steps,
+        )
+
     def _run_chains(
         self, key, target, n_steps: int, init, base: int = 0, step0: int = 0,
         collect: tuple[str, int] = ("all", 1),
@@ -510,6 +665,25 @@ class MHEngine:
                 f"broadcast a solo init with init.expand({num_chains}, *init.shape)"
             )
         keys = chain_keys(key, num_chains, base=base)
+        if cfg.update == "gibbs":
+            execution = resolve_execution(cfg.execution, target, self.device, "gibbs")
+            args = (target, self._backend, n_steps, cfg.chunk_steps, step0)
+            if execution == "scan":
+                runs = [
+                    _run_scan_gibbs(keys[c], *args, init[c], collect)
+                    for c in range(num_chains)
+                ]
+                samples, acc, words = (torch.stack(x) for x in zip(*runs))
+            else:
+                samples, acc, words = _run_pallas_gibbs_chains(keys, *args, init, collect)
+            return EngineResult(
+                samples=samples,
+                accept_count=acc,
+                acceptance_rate=_acceptance_rate(acc, n_steps),
+                final_words=words,
+                final_logp=_gibbs_logp(target, words),
+                n_steps=n_steps,
+            )
         execution = resolve_execution(cfg.execution, target, self.device)
         nbits = target.nbits
         if execution == "scan":

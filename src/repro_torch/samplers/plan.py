@@ -29,9 +29,11 @@ from repro_torch.samplers.engine import (
 def carries_logp(engine: MHEngine, target) -> bool:
     """Whether ``engine`` takes a segment's ``final_logp`` as the next
     segment's ``init_logp`` (the solo MH scan carry).  Elsewhere resume
-    re-derives the log-prob from the state, which is bit-identical."""
+    re-derives the log-prob from the state, which is bit-identical; a
+    Gibbs resume re-derives everything, the checkerboard parity included,
+    from ``(final_words, step0)``."""
     cfg = engine.config
-    if cfg.num_chains != 1:
+    if cfg.update != "mh" or cfg.num_chains != 1:
         return False
     try:
         return resolve_execution(cfg.execution, target, engine.device) == "scan"

@@ -11,8 +11,10 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch import samplers
-from repro_torch.kernels import rng
+from repro_torch import samplers, workloads
+from repro_torch.kernels import _build, rng
+from repro_torch.kernels.gibbs import gibbs as gk
+from repro_torch.kernels.gibbs import ref as gref
 from repro_torch.kernels.mh import mh, ref
 
 pytestmark = pytest.mark.gpu
@@ -111,3 +113,73 @@ def test_engine_defaults_to_the_card(cuda):
                 init_words=np.zeros((2, 3)), seed=0,
             )
         )
+
+
+def _lattice_logit(rs, h, w, spin_glass, device):
+    if not spin_glass:
+        return gref.IsingLogit(0.4407, 0.05)
+    j = [torch.from_numpy(rs.choice([-1.0, 1.0], size=(h, w)).astype(np.float32)).to(device)
+         for _ in range(2)]
+    return gref.SpinGlassLogit(*j, field=0.1)
+
+
+@pytest.mark.parametrize("h,w,spin_glass", [(7, 9, False), (8, 6, True), (64, 96, False)])
+def test_gibbs_kernels_match_plain(cuda, h, w, spin_glass):
+    """Odd lattice, spin glass with couplings, per-lattice parity and t0
+    that differ between lattices and wrap mod 2^32 inside the chunk."""
+    rs = np.random.default_rng(h * w)
+    b, k = 3, 20
+    init = torch.from_numpy(rs.integers(0, 2, size=(b, h, w))).to(cuda)
+    u = torch.from_numpy(rs.random(size=(k, b, h, w), dtype=np.float32)).to(cuda)
+    logit = _lattice_logit(rs, h, w, spin_glass, cuda)
+    gk.reset_launches()
+    parity0 = torch.tensor([0, 1, 1], device=cuda)
+    s, f = gk.gibbs_chain(init, u, logit, parity0)
+    rs_, rf = gref.gibbs_chain_ref(init, u, logit, parity0)
+    assert torch.equal(s, rs_) and torch.equal(f, rf)
+    lat = torch.arange(b, device=cuda)
+    t0b = torch.tensor([3, 2**31 - 7, -4], device=cuda)
+    kw = dict(n_steps=k, lat_b=2)
+    s, f = gk.gibbs_chain_fused(init, lat * 7, lat * 3 + 1, t0b, logit, **kw)
+    rs_, rf = gref.gibbs_chain_fused_ref(init, lat * 7, lat * 3 + 1, t0b, logit, **kw)
+    assert torch.equal(s, rs_) and torch.equal(f, rf)
+    assert gk.LAUNCHES == {"gibbs_chain": 1, "gibbs_chain_fused": 1}
+
+
+def test_gibbs_launch_errors_raise(cuda):
+    init = torch.zeros(2, 4, 4, dtype=torch.int64, device=cuda)
+    u = torch.zeros(3, 2, 4, 4, device=cuda)
+    parity0 = torch.zeros(2, dtype=torch.int64, device=cuda)
+    with pytest.raises(ValueError, match="IsingLogit"):
+        gk.gibbs_chain(init, u, object(), parity0)
+    with pytest.raises(ValueError):
+        gk.gibbs_chain(init, u.cpu(), gref.IsingLogit(0.3), parity0)
+    # a grid the card refuses (B > 65535) fails at launch and raises
+    b = 70_000
+    with pytest.raises(RuntimeError, match="failed to launch"):
+        gk._launch_gibbs_chain(
+            torch.zeros(b, 2, 2, dtype=torch.int32, device=cuda),
+            torch.zeros(1, b, 2, 2, device=cuda), gref.IsingLogit(0.3),
+            torch.zeros(b, dtype=torch.int32, device=cuda),
+        )
+    assert _build.library() is not None
+
+
+@pytest.mark.parametrize("name", ["ising", "spin_glass"])
+@pytest.mark.parametrize("randomness", ["host", "cim", "fused"])
+@pytest.mark.parametrize("backend", ["scan", "pallas"])
+@pytest.mark.parametrize("num_chains", [1, 2])
+def test_gibbs_engine_card_equals_cpu(cuda, name, randomness, backend, num_chains):
+    runs = {}
+    shape = dict(height=6, width=8) if name == "spin_glass" else dict(height=7, width=9)
+    for device in (cuda, "cpu"):
+        wl = workloads.build(
+            name, np.array([0, 5], np.uint32), randomness=randomness, backend=backend,
+            batch=2, n_steps=23, chunk_steps=6, num_chains=num_chains, device=device,
+            **shape,
+        )
+        runs[str(device)] = wl.engine.submit(wl.plan(np.array([0, 9]), step0=3)).result
+    a, b = runs.values()
+    for f in ("samples", "accept_count", "final_words", "acceptance_rate"):
+        assert torch.equal(getattr(a, f).cpu(), getattr(b, f)), f
+    assert torch.allclose(a.final_logp.cpu(), b.final_logp, rtol=4 * 2**-23, atol=0)
