@@ -37,9 +37,32 @@ Builds the CUDA kernels from ``src/repro_torch/csrc`` and, on the card:
      small lattice must give the same result on the card and the CPU, and
      chain 2 of the 4-chain run must equal a solo run with
      ``chain_id=2``;
-  8. times each kernel with CUDA events beside its plain version and its
-     bound, at every shape above, times ``sample_tokens``, and profiles
-     one segment of each main path.
+  8. holds ``msxor`` (``csrc/msxor.cu``, the MSXOR debias fold) against
+     its plain version with tolerance 0, both outputs (words, uniforms),
+     for n_stages 1-5 on odd M (777, 4,099), at the Fig. 9 shape
+     (8, 400,000) and at (8, 2^24), on random bit patterns with bit 31
+     set in half the words (and on their int32 patterns for odd M);
+  9. drives the Fig. 9 path (``benchmarks/table_fig9_msxor.py:41-53``):
+     ``bitcell.raw_random_words(PRNGKey(1), p, (8, 400,000))`` on the card
+     for p = 0.40, 0.45, debiased by ``msxor_fold`` (the kernel), with the
+     per-bit bias of the result (worst < 0.005, about 6 sigma), a
+     (8, 4,096) draw held against the CPU's word for word;
+ 10. drives the macro (``core.macro.CIMMacro``): the quickstart
+     (``examples/quickstart.py``: the paper GMM, 8 bits, burn-in 500,
+     50,000 samples) and the Fig. 17 cases at 100,000 samples (GMM 8-bit,
+     MGD 12-bit on (-4, 4)^2), with the TV distance to the exact grid
+     probabilities, the acceptance rate, the card's wall time and the
+     28 nm model's energy and time (model outputs, not the card's); and
+     the macro at the JAX test's size on the card and the CPU, equal;
+ 11. drives the ``gmm`` workload (``workloads.build("gmm", ...,
+     backend="pallas")`` at its defaults: 64 chains, 2,048 steps, 32-step
+     chunks) under ``cim`` and ``fused``, counting the MH kernels'
+     launches, holding the first launch against the plain version, and a
+     smoke-size run on the card against the CPU;
+ 12. times each kernel with CUDA events beside its plain version and its
+     bound, at every shape above (``msxor`` with its input read from HBM:
+     the launches rotate among copies that together exceed the L2), times
+     ``sample_tokens``, and profiles one segment of each main path.
 
 Each phase prints one JSON line; any failure raises and exits non-zero.
 The second-to-last line lists the kernels; the last line is the device
@@ -48,6 +71,7 @@ exits non-zero and prints no result.
 """
 
 import contextlib
+import itertools
 import json
 import subprocess
 import sys
@@ -78,6 +102,11 @@ LAT, LAT_B, G_CHUNK, G_THIN = 1024, 4, 64, "thin:16"  # the Gibbs main path
 OP_LAT, OP_CHUNK, OP_STEPS = 256, 16, 256             # cim / host Gibbs paths
 MC_LAT, MC_B, MC_CHAINS = 256, 2, 4                   # num_chains=4 Gibbs path
 BETA = 0.4407  # the 2-D Ising critical coupling
+FIG9_M, BIG_M = 400_000, 1 << 24  # the Fig. 9 draw's columns, a size past the L2
+# bytes of inputs among which a timed kernel rotates, 4x the H100's 50 MB
+# L2, so that each launch reads its input from HBM as its bound assumes
+COLD_BYTES = 200e6
+FIG17_N = 100_000  # benchmarks/table_fig17_sampling.py:N_SAMPLES
 
 
 def emit(**record):
@@ -108,6 +137,22 @@ def time_ms(torch, fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(torch, fn, reps, match):
+    """Device time per call of the kernels whose name contains ``match``,
+    from the profiler's trace of ``reps`` calls after a warm-up."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(e.self_device_time_total for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA and match in e.name)
+    return total_us / 1e3 / reps
 
 
 @contextlib.contextmanager
@@ -150,23 +195,32 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    if not all((SRC / "repro_torch" / "csrc" / s).is_file() for s in ("mh.cu", "gibbs.cu")):
+    if not all((SRC / "repro_torch" / "csrc" / s).is_file()
+               for s in ("mh.cu", "gibbs.cu", "msxor.cu")):
         print(f"chip_smoke: the port's sources are not under {SRC}", file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
     from repro_torch import prng, samplers, workloads
+    from repro_torch.core import bitcell, energy, msxor, targets
+    from repro_torch.core.macro import CIMMacro, MacroConfig
     from repro_torch.kernels import _build, rng
     from repro_torch.kernels.gibbs import gibbs as gk
     from repro_torch.kernels.gibbs import ref as gref
     from repro_torch.kernels.mh import mh, ref
+    from repro_torch.kernels.msxor import msxor as xk
+    from repro_torch.kernels.msxor import ops as xops
+    from repro_torch.kernels.msxor import ref as xref
+    from repro_torch.workloads import gmm as gmm_wl
 
     def reset_launches():
         mh.reset_launches()
         gk.reset_launches()
+        xk.reset_launches()
 
     def launches_now():
-        return {**mh.LAUNCHES, **gk.LAUNCHES}
+        return {**mh.LAUNCHES, **gk.LAUNCHES, **xk.LAUNCHES}
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda", torch.cuda.current_device())
     gen = torch.Generator(device=dev).manual_seed(SEED)
     card = smi()
@@ -512,7 +566,183 @@ def main() -> int:
         emit(phase="gibbs_small_input", workload=name, randomness=randomness,
              card_equals_cpu=same, final_logp_within_4_ulp=close)
 
-    # 8. timing ---------------------------------------------------------------
+    # 8. the MSXOR kernel against its plain version ----------------------------
+    msxor_err = 0.0
+    msxor_cases = []  # (where, raw, n_stages, to_uniform): every shape held and timed
+
+    def hold_msxor(where, raw, n_stages, to_uniform, record=True):
+        """``msxor`` against its plain version on the same words, at
+        tolerance 0; returns the largest difference."""
+        nonlocal msxor_err
+        got = xk.msxor(raw, n_stages, to_uniform)
+        plain = (xref.msxor_uniform_ref if to_uniform else xref.msxor_fold_ref)(raw, n_stages)
+        err = float((got.double() - plain.double()).abs().max())
+        diff = int((got != plain).sum())
+        msxor_err = max(msxor_err, err)
+        check(diff == 0 and got.shape == plain.shape,
+              f"msxor differs from its plain version at {where}: {diff} words, max |err| {err}")
+        if record:
+            msxor_cases.append((where, raw, n_stages, to_uniform))
+        return err
+
+    def bit_patterns(g, m):
+        """(G, M) random uint32 words; bit 31 is set in half of them, whose
+        int32 patterns are negative."""
+        return torch.randint(0, 2**32, (g, m), generator=gen, device=dev, dtype=torch.int64)
+
+    for n_stages in range(1, 6):
+        for m in (777, 4099):
+            raw = bit_patterns(1 << n_stages, m)
+            errs = [hold_msxor(f"G={1 << n_stages}, M={m}", words, n_stages, u, record=False)
+                    for words in (raw, _build.to_u32_bits(raw)) for u in (False, True)]
+            emit(phase="msxor_kernel", n_stages=n_stages, G=1 << n_stages, M=m,
+                 max_abs_err=errs, bit31_words=int((raw >= 2**31).sum()))
+    for m, label in ((FIG9_M, "Fig. 9 shape"), (BIG_M, "(8, 2^24)")):
+        raw = bit_patterns(8, m)
+        errs = [hold_msxor(f"{label} {'uniform' if u else 'fold'}", raw, 3, u)
+                for u in (False, True)]
+        emit(phase="msxor_kernel", n_stages=3, G=8, M=m, max_abs_err=errs,
+             bit31_words=int((raw >= 2**31).sum()))
+        del raw
+
+    # 9. the Fig. 9 path: biased raw words debiased by the kernel -----------
+    card_draw, cpu_draw = (bitcell.raw_random_words(prng.PRNGKey(1, device=d), 0.40, (8, 4096))
+                           for d in (dev, "cpu"))
+    check(torch.equal(card_draw.cpu(), cpu_draw),
+          "the (8, 4096) draw differs on the card and the CPU")
+    torch.cuda.synchronize()
+    reset_launches()
+    fig9 = []
+    with first_launches(xk) as seen_fig9:
+        for p in (0.40, 0.45):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            raw = bitcell.raw_random_words(prng.PRNGKey(1, device=dev), p, (8, FIG9_M), nbits=32)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out = xops.msxor_fold(raw)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            shifts = torch.arange(32, device=dev)
+            means = ((out[None, :] >> shifts[:, None]) & 1).double().mean(dim=1)
+            fig9.append(dict(p_bfr=p, raw=raw, out=out, draw_ms=(t1 - t0) * 1e3,
+                             fold_ms=(t2 - t1) * 1e3, bit_means=means.tolist()))
+    fig9_launches = launches_now()
+    check(fig9_launches["msxor"] > 0, "the Fig. 9 path launched no msxor")
+    for row in fig9:
+        means = np.array(row.pop("bit_means"))
+        raw, out = row.pop("raw"), row.pop("out")
+        worst = float(np.abs(means - 0.5).max())
+        raw_ones = float(((raw[None] >> torch.arange(32, device=dev)[:, None, None]) & 1)
+                         .double().mean())
+        check(worst < 0.005, f"Fig. 9 p={row['p_bfr']}: worst bit bias {worst} >= 0.005")
+        check(torch.equal(out, xref.msxor_fold_ref(raw, 3)),
+              f"Fig. 9 p={row['p_bfr']}: the fold differs from its plain version")
+        emit(phase="fig9_msxor", **row, empirical_lambda_mean=float(means.mean()),
+             worst_bit_bias=worst, raw_bit_mean=raw_ones,
+             debias_error_analytic=msxor.debias_error(row["p_bfr"], 3),
+             launches=fig9_launches, small_draw_card_equals_cpu=True)
+    args, kw = seen_fig9["msxor"]
+    check(tuple(args[0].shape) == (8, FIG9_M), f"the Fig. 9 launch ran {tuple(args[0].shape)}")
+    hold_msxor("Fig. 9 path first launch", args[0], kw["n_stages"], kw["to_uniform"],
+               record=False)
+    del raw, out
+
+    # 10. the macro: the quickstart and Fig. 17 ---------------------------------
+    def tv_distance(words, probs):
+        counts = np.bincount(np.asarray(words).reshape(-1), minlength=probs.size)
+        return float(0.5 * np.abs(counts / counts.sum() - probs).sum())
+
+    def macro_stats(stats):
+        return dict(acceptance_rate=stats.acceptance_rate, n_samples=stats.n_samples,
+                    n_steps=stats.n_steps, model_28nm_energy_pj=stats.energy_pj,
+                    model_28nm_energy_per_sample_pj=stats.energy_per_sample_pj,
+                    model_28nm_time_s=stats.modeled_time_s,
+                    model_28nm_samples_per_s=stats.throughput_samples_per_s)
+
+    gmm = targets.GaussianMixture.paper_gmm()
+    gmm_codec = targets.GridCodec(nbits=8, dim=1, lo=(-10.0,), hi=(10.0,))
+    mgd = targets.MultivariateGaussian.paper_mgd()
+    mgd_codec = targets.GridCodec(nbits=12, dim=2, lo=(-4.0, -4.0), hi=(4.0, 4.0))
+    macro = CIMMacro(MacroConfig(nbits=8, burn_in=500))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pts, stats = macro.sample_points(prng.PRNGKey(0, device=dev), gmm, gmm_codec, 50_000)
+    wall = time.perf_counter() - t0
+    check(pts.shape == (50_000, 1) and bool(np.isfinite(pts).all()), "quickstart: bad points")
+    tv = tv_distance(gmm_codec.encode(torch.from_numpy(pts)).numpy(),
+                     targets.reference_grid_probs(gmm, gmm_codec))
+    check(tv < 0.06, f"quickstart: TV distance {tv} >= 0.06")
+    check(0.05 < stats.acceptance_rate < 0.95, f"quickstart: acceptance {stats.acceptance_rate}")
+    emit(phase="macro", case="quickstart_gmm_8bit", samples=50_000, burn_in=500,
+         tv_distance=tv, card_wall_s=wall, chain_steps_per_s=stats.n_steps / wall,
+         **macro_stats(stats))
+    for name, density, codec, tv_max in (("gmm", gmm, gmm_codec, 0.05),
+                                         ("mgd", mgd, mgd_codec, 0.2)):
+        m = CIMMacro(MacroConfig(nbits=codec.nbits, burn_in=500))
+        log_prob = targets.discretized_target(density, codec)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        words, stats = m.sample(prng.PRNGKey(2, device=dev), log_prob, FIG17_N)
+        wall = time.perf_counter() - t0
+        tv = tv_distance(words, targets.reference_grid_probs(density, codec))
+        check(words.shape == (FIG17_N,) and int(words.max()) < 1 << codec.nbits,
+              f"fig17 {name}: bad words")
+        check(tv < tv_max, f"fig17 {name}: TV distance {tv} >= {tv_max}")
+        emit(phase="macro", case=f"fig17_{name}_{codec.nbits}bit", samples=FIG17_N,
+             burn_in=500, tv_distance=tv, card_wall_s=wall,
+             chain_steps_per_s=stats.n_steps / wall,
+             model_28nm_time_s_32bit=energy.time_for_samples_s(FIG17_N, nbits=32),
+             **macro_stats(stats))
+    runs = [CIMMacro(MacroConfig(nbits=8, burn_in=200), device=d).sample_points(
+        prng.PRNGKey(9), gmm, gmm_codec, n_samples=2000) for d in (dev, "cpu")]
+    same = np.array_equal(runs[0][0], runs[1][0]) and runs[0][1] == runs[1][1]
+    check(same, "macro: the card and the CPU disagree at the JAX test's size")
+    emit(phase="macro_small_input", nbits=8, burn_in=200, samples=2000, card_equals_cpu=same,
+         acceptance_rate=runs[0][1].acceptance_rate)
+
+    # 11. the gmm workload on the MH kernels ------------------------------------
+    gmm_kernel_of = {"cim": "mh_chain", "fused": "mh_chain_fused"}
+    gmm_probs = gmm_wl.reference_probs(8)
+    for randomness, kernel in gmm_kernel_of.items():
+        wl = workloads.build("gmm", prng.PRNGKey(SEED, device=dev), randomness=randomness,
+                             backend="pallas")
+        check(wl.engine.device.type == "cuda", "the gmm workload's engine is not on the card")
+        torch.cuda.synchronize()
+        reset_launches()
+        with first_launches(mh) as seen:
+            t0 = time.perf_counter()
+            res = wl.run(prng.PRNGKey(SEED + 1, device=dev))
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        launches = launches_now()
+        path = f"gmm_{randomness}"
+        launches_by_path[path] = launches
+        check(launches[kernel] > 0, f"{path} launched no {kernel}")
+        args, kw = seen[kernel]
+        diff, err, _ = hold(kernel, f"{path} first launch", from_launch(args), kw)
+        rate = float(res.acceptance_rate)
+        check(0.0 < rate < 1.0, f"{path}: acceptance {rate}")
+        kept = res.samples[wl.burn_in:].reshape(-1).cpu().numpy()
+        tv = tv_distance(kept, gmm_probs)
+        check(tv < 0.08, f"{path}: TV distance {tv} >= 0.08")
+        small = {}
+        for device in (dev, "cpu"):
+            w = workloads.build("gmm", prng.PRNGKey(3), randomness=randomness,
+                                backend="pallas", smoke=True, device=device)
+            small[str(device)] = w.run(prng.PRNGKey(4))
+        a, b = small.values()
+        same = all(torch.equal(getattr(a, f).cpu(), getattr(b, f))
+                   for f in ("samples", "accept_count", "final_words", "final_logp"))
+        check(same, f"{path}: the card and the CPU disagree at smoke size")
+        emit(phase="gmm", randomness=randomness, execution="pallas", chains=64,
+             n_steps=wl.n_steps, chunk_steps=wl.engine.config.chunk_steps, launches=launches,
+             first_launch_mismatches=diff, max_abs_err=err, acceptance_rate=rate,
+             tv_distance=tv, seconds=seconds,
+             chain_steps_per_s=wl.n_steps * 64 / seconds, smoke_card_equals_cpu=same)
+        del wl, res
+
+    # 12. timing --------------------------------------------------------------
     # The table (12.6 MB at V = 49,155) stays in the 50 MB L2 between
     # launches, as it does between the engine's chunks.
 
@@ -595,6 +825,52 @@ def main() -> int:
             shapes=shapes[name],
         ))
 
+    # the MSXOR kernel: bytes-bound, G * M * 8 bytes of int64 words in and
+    # M * 8 (words) or M * 4 (uniforms) out.  The Fig. 9 input (25.6 MB)
+    # would stay in the 50 MB L2 between launches and beat an HBM bound, so
+    # every timed call takes the next of copies that together exceed the L2
+    msxor_shapes = []
+    for where, raw, n_stages, to_uniform in msxor_cases:
+        g, m = raw.shape
+        nbytes = g * m * 8 + m * (4 if to_uniform else 8)
+        ops = m * ((g - 1) + (3 if to_uniform else 0))  # XORs, shift, convert, scale
+        bound, bound_by = bound_ms(nbytes, ops)
+        raws = [raw] + [raw.clone() for _ in range(int(COLD_BYTES // raw.nbytes))]
+        nxt = itertools.cycle(raws).__next__
+        big = m > FIG9_M
+        msxor_shapes.append(dict(
+            where=where, G=g, M=m, to_uniform=to_uniform, input_copies=len(raws),
+            ms=time_ms(torch, lambda: xk.msxor(nxt(), n_stages, to_uniform), 20 if big else 50),
+            kernel_ms=time_ms(torch, lambda: xk._launch_msxor(
+                nxt(), n_stages=n_stages, to_uniform=to_uniform), 20 if big else 200),
+            plain_ms=time_ms(torch, lambda: (
+                xref.msxor_uniform_ref if to_uniform else xref.msxor_fold_ref)(nxt(), n_stages),
+                5 if big else 20),
+            bound_ms=bound, bound_by=bound_by, bytes=nbytes, ops=ops,
+        ))
+        # the launch from Python takes longer than the kernel at the Fig. 9
+        # shape; the profiler's device time is the kernel's own
+        dev_ms = device_ms(torch, lambda: xk._launch_msxor(
+            nxt(), n_stages=n_stages, to_uniform=to_uniform), 20, "msxor_kernel")
+        msxor_shapes[-1].update(device_ms=dev_ms, device_rate_TBps=nbytes / dev_ms / 1e9,
+                                device_over_bound=dev_ms / bound)
+        del raws, nxt
+    main = next(x for x in msxor_shapes if x["where"] == "Fig. 9 shape fold")
+    kernels.append(dict(
+        name="msxor", route="cuda", source="src/repro_torch/csrc/msxor.cu",
+        replaces="src/repro/kernels/msxor/msxor.py:32", launches=fig9_launches["msxor"],
+        max_abs_err=msxor_err, ms=main["ms"], kernel_ms=main["kernel_ms"],
+        device_ms=main["device_ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+        bound_by=main["bound_by"], device_over_bound=main["device_over_bound"], library_ms=None,
+        library_none_reason="no single PyTorch call XOR-reduces over an axis",
+        main_path="fig9_msxor", main_shape="(8, 400000) fold",
+        launches_by_path={"fig9_msxor": fig9_launches["msxor"]}, shapes=msxor_shapes,
+    ))
+    del msxor_cases
+    emit(phase="fig9_breakdown", raw_draw_ms=[r["draw_ms"] for r in fig9],
+         fold_wrapper_ms=[r["fold_ms"] for r in fig9], msxor_ms=main["ms"],
+         msxor_kernel_ms=main["kernel_ms"], msxor_device_ms=main["device_ms"])
+
     # where the main path's time goes: operand draws vs the kernel, and the
     # device's busy share over one profiled 256-step submit per backend
     draw_ms = time_ms(
@@ -654,6 +930,7 @@ def main() -> int:
                  B=kw["batch"], n_steps=kw["n_steps"], chunk_steps=kw["chunk_steps"])
         del wl
 
+    emit(phase="total", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({
         "ok": True,

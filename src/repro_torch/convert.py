@@ -1,8 +1,8 @@
 """Carry state from the JAX package to the port and results back.
 
 The system has no weights: what crosses between the two packages is a
-PRNG key, a (B, V) table or a lattice model's parameters, the chain's
-init words and an engine config.
+PRNG key, a (B, V) table, a lattice model's or a density's parameters, a
+grid codec, the chain's init words and an engine config.
 The JAX side hands them over as numpy arrays (``np.asarray`` of a jax
 array) and a plain dict; these functions turn them into the port's
 tensors on a device (the current CUDA card unless ``device="cpu"`` is
@@ -15,11 +15,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core.targets import GaussianMixture, GridCodec, MultivariateGaussian
 from repro_torch.samplers.engine import (
     EngineConfig,
     EngineResult,
     resolve_device,
 )
+from repro_torch.samplers.targets import TableTarget
 from repro_torch.workloads.ising import IsingModel
 
 
@@ -72,6 +74,38 @@ def ising_from_jax(model) -> IsingModel:
         height=int(model.height), width=int(model.width),
         beta=float(model.beta), field=float(model.field),
     )
+
+
+def _floats(x) -> tuple:
+    """A nested sequence of numbers as nested tuples of Python floats."""
+    if np.ndim(x) == 0:
+        return float(x)
+    return tuple(_floats(v) for v in x)
+
+
+def codec_from_jax(codec) -> GridCodec:
+    """The port's ``GridCodec`` with a JAX ``GridCodec``'s fields."""
+    return GridCodec(
+        nbits=int(codec.nbits), dim=int(codec.dim), lo=_floats(codec.lo),
+        hi=_floats(codec.hi), gray=bool(codec.gray),
+    )
+
+
+def gaussian_mixture_from_jax(gmm) -> GaussianMixture:
+    """The port's ``GaussianMixture`` with a JAX mixture's parameters."""
+    return GaussianMixture(_floats(gmm.means), _floats(gmm.covs), _floats(gmm.weights))
+
+
+def multivariate_gaussian_from_jax(mgd) -> MultivariateGaussian:
+    """The port's ``MultivariateGaussian`` with a JAX one's parameters."""
+    return MultivariateGaussian(mean=_floats(mgd.mean), cov=_floats(mgd.cov))
+
+
+def table_target_from_numpy(table, nbits: int | None = None, device=None) -> TableTarget:
+    """A (B, V) log-prob table built by the JAX package (for example the
+    ``gmm`` workload's, ``np.asarray(target.table)``) as the port's
+    ``TableTarget``: the two engines then sample one table, bit for bit."""
+    return TableTarget(table_from_numpy(table, device=device), nbits=nbits)
 
 
 def config_from_dict(config: dict) -> EngineConfig:

@@ -12,9 +12,28 @@ the circuit):
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from repro_torch.core import bitcell, msxor
+
+
+@dataclasses.dataclass(frozen=True)
+class UniformRNGConfig:
+    p_bfr: float = 0.45          # pseudo-read at CVDD=0.5 V, 25 C
+    n_stages: int = 3            # MSXOR stages (paper: 3 for p_BFR >= 0.4)
+    bit_width: int = 8           # output sample precision (paper: 8-bit)
+
+    def __post_init__(self):
+        if not 0.0 < self.p_bfr <= 0.5:
+            raise ValueError(f"p_bfr must be in (0, 0.5], got {self.p_bfr}")
+        if not 1 <= self.bit_width <= 32:
+            raise ValueError(f"bit_width must be in [1,32], got {self.bit_width}")
+
+    @property
+    def debias_error(self) -> float:
+        return msxor.debias_error(self.p_bfr, self.n_stages)
 
 
 def uniform_words(

@@ -26,7 +26,7 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-SOURCES = ("mh.cu", "gibbs.cu")
+SOURCES = ("mh.cu", "gibbs.cu", "msxor.cu")
 HEADERS = ("rng.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = (
@@ -40,6 +40,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _U = ctypes.c_uint32
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 _SIGNATURES = {
     # table, init, flips, u, samples, accept, B, V, C, K, mask, stream
     "repro_mh_chain": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _U, _P),
@@ -65,6 +66,8 @@ _SIGNATURES = {
     "repro_gibbs_chain_fused_spin_glass": (
         _P, _P, _P, _P, _P, _P, _F, _P, _P, _I, _I, _I, _I, _I, _P
     ),
+    # raw, out, n_stages, M, to_uniform, stream
+    "repro_msxor": (_P, _P, _I, _L, _I, _P),
 }
 
 

@@ -68,13 +68,25 @@ def mh_chain_ref(
     return samples, acc
 
 
-def tie_events(table, init, flips, u, nbits: int) -> torch.Tensor:
+def _ulp(x: torch.Tensor) -> torch.Tensor:
+    """The float32 spacing at |x| (0 where x is not finite)."""
+    a = torch.abs(x)
+    gap = torch.nextafter(a, torch.full_like(a, float("inf"))) - a
+    return torch.where(torch.isfinite(x), gap, torch.zeros_like(gap))
+
+
+def tie_events(table, init, flips, u, nbits: int, logp_ulps: int = 0) -> torch.Tensor:
     """Steps of the chain ``mh_chain_ref`` runs where the accept decision
     could depend on the last bit of ``exp``: a finite candidate whose
     ``u`` lies within one ULP of ``e = exp(min(Δ, 0))``, or ``u == 0``
     with ``e`` at the flush threshold.  Implementations of ``exp`` (XLA's,
     PyTorch's, CUDA's ``expf``) may differ by an ULP there, and nowhere
-    else can two chains part.  Returns the (k, b, c) indices."""
+    else can two chains part.
+
+    ``logp_ulps`` widens the window for a table known only to within that
+    many ULP per entry (a density evaluated by two implementations): Δ
+    may then move by that many ULP of each log-prob, and ``e`` with it.
+    Returns the (k, b, c) indices."""
     samples, _ = mh_chain_ref(table, init, flips, u, nbits)
     prev = torch.cat([init.to(torch.int64)[None], samples[:-1]])
     logp = table_log_prob(table, prev)
@@ -82,8 +94,10 @@ def tie_events(table, init, flips, u, nbits: int) -> torch.Tensor:
     delta = logp_cand - logp
     e = torch.exp(torch.minimum(delta, torch.zeros_like(delta)))
     ulp = torch.nextafter(e, torch.full_like(e, float("inf"))) - e
+    slack = logp_ulps * (_ulp(logp) + _ulp(logp_cand))
+    window = ulp + e * torch.expm1(slack)
     near_flush = (u == 0) & (torch.abs(e - FLUSH) <= FLUSH * 2.0**-20)
-    tie = torch.isfinite(logp_cand) & ((torch.abs(u - e) <= ulp) | near_flush)
+    tie = torch.isfinite(logp_cand) & ((torch.abs(u - e) <= window) | near_flush)
     return torch.nonzero(tie)
 
 

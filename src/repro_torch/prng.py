@@ -86,14 +86,26 @@ def bernoulli(key: torch.Tensor, p: float, shape: tuple) -> torch.Tensor:
     return uniform(key, shape) < p32
 
 
-def randint(key: torch.Tensor, shape: tuple, minval: int, maxval: int) -> torch.Tensor:
-    """int32 integers in ``[minval, maxval)`` of ``shape``, as
-    ``jax.random.randint`` draws them: two bit draws from ``split(key)``
-    folded into the span by a multiply-mod in uint32 arithmetic.  Returns
-    an int64 tensor holding the int32 values."""
-    minval = max(-(2**31), min(int(minval), 2**31 - 1))
-    maxval = max(-(2**31), min(int(maxval), 2**31 - 1))
-    span = 1 if maxval <= minval else (maxval - minval) & MASK32
+def randint(
+    key: torch.Tensor, shape: tuple, minval: int, maxval: int, dtype: str = "int32"
+) -> torch.Tensor:
+    """Integers in ``[minval, maxval)`` of ``shape`` and ``dtype`` ("int32"
+    or "uint32"), as ``jax.random.randint`` draws them: the bounds clipped
+    to the dtype's range (a ``maxval`` above it widens the span by one),
+    two bit draws from ``split(key)`` folded into the span by a
+    multiply-mod in uint32 arithmetic.  Returns an int64 tensor holding
+    the values."""
+    bounds = {"int32": (-(2**31), 2**31 - 1), "uint32": (0, MASK32)}
+    if dtype not in bounds:
+        raise ValueError(f"dtype must be 'int32' or 'uint32', got {dtype!r}")
+    lo, hi = bounds[dtype]
+    out_of_range = int(maxval) > hi
+    minval = max(lo, min(int(minval), hi))
+    maxval = max(lo, min(int(maxval), hi))
+    if maxval <= minval:
+        span = 1
+    else:  # a span of 2^32 is uint32's 0: the remainders below leave the bits as they are
+        span = ((maxval - minval) & MASK32) + int(out_of_range)
     ks = split(key)
     higher, lower = bits(ks[..., 0, :], shape), bits(ks[..., 1, :], shape)
     multiplier = (((2**16 % span) ** 2) & MASK32) % span

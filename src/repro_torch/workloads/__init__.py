@@ -1,12 +1,12 @@
-"""The lattice workloads of the PyTorch port — the counterpart of
+"""The workloads of the PyTorch port — the counterpart of
 ``repro.workloads``.
 
 Every workload is a target, an engine configuration and a scalar
 statistic of the sample stream that ``repro_torch.diagnostics`` judges.
 ``build(name, key, ...)`` assembles a ``WorkloadRun``; ``run(key)`` goes
-through ``engine.submit(RunPlan)``.  The registry holds ``ising`` and
-``spin_glass``; ``gmm`` needs ``core/targets.py``, which is not ported
-yet (ROADMAP.md queue 1).
+through ``engine.submit(RunPlan)``.  The registry holds ``gmm`` (MH over
+a Gaussian-mixture table), ``ising`` and ``spin_glass`` (checkerboard
+Gibbs).
 """
 
 from __future__ import annotations
@@ -17,7 +17,7 @@ from typing import Callable
 import numpy as np
 
 from repro_torch import diagnostics, samplers
-from repro_torch.workloads import ising, spin_glass
+from repro_torch.workloads import gmm, ising, spin_glass
 
 
 @dataclasses.dataclass
@@ -112,24 +112,16 @@ class WorkloadRun:
 
 
 WORKLOADS = {
+    "gmm": gmm.build,
     "ising": ising.build,
     "spin_glass": spin_glass.build,
 }
-NOT_PORTED = ("gmm",)
 
 
 def build(name: str, key, **kwargs) -> WorkloadRun:
     """Assemble a registered workload by name."""
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"workload {name!r} is not ported yet (ROADMAP.md queue 1): it "
-            "needs core/targets.py"
-        )
     try:
         builder = WORKLOADS[name]
     except KeyError:
-        raise ValueError(
-            f"unknown workload {name!r} (have {sorted(WORKLOADS)}; "
-            f"{', '.join(NOT_PORTED)} not ported yet (ROADMAP))"
-        ) from None
+        raise ValueError(f"unknown workload {name!r} (have {sorted(WORKLOADS)})") from None
     return builder(key, **kwargs)

@@ -28,7 +28,7 @@ import pytest
 import torch
 
 from repro import samplers as js
-from repro_torch import convert, prng, workloads
+from repro_torch import convert, prng
 from repro_torch import samplers as ts
 from repro_torch.kernels.mh import mh, ref
 
@@ -239,8 +239,6 @@ def test_convert_device_rule():
 
 
 def test_unported_paths_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        workloads.build("gmm", np.zeros(2, np.uint32), device="cpu")
     eng = ts.MHEngine(device="cpu")
     table, init = _data()
     plan = ts.RunPlan(

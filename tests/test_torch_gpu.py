@@ -11,11 +11,16 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch import samplers, workloads
+from repro_torch import prng, samplers, workloads
+from repro_torch.core import targets
+from repro_torch.core.macro import CIMMacro, MacroConfig
 from repro_torch.kernels import _build, rng
 from repro_torch.kernels.gibbs import gibbs as gk
 from repro_torch.kernels.gibbs import ref as gref
 from repro_torch.kernels.mh import mh, ref
+from repro_torch.kernels.msxor import msxor as kmsxor
+from repro_torch.kernels.msxor import ops as msxor_ops
+from repro_torch.kernels.msxor.ref import msxor_fold_ref, msxor_uniform_ref
 
 pytestmark = pytest.mark.gpu
 
@@ -183,3 +188,68 @@ def test_gibbs_engine_card_equals_cpu(cuda, name, randomness, backend, num_chain
     for f in ("samples", "accept_count", "final_words", "acceptance_rate"):
         assert torch.equal(getattr(a, f).cpu(), getattr(b, f)), f
     assert torch.allclose(a.final_logp.cpu(), b.final_logp, rtol=4 * 2**-23, atol=0)
+
+
+@pytest.mark.parametrize("n_stages", [1, 2, 3, 4, 5])
+@pytest.mark.parametrize("m", [1, 3, 777, 4096, 4099])
+def test_msxor_kernel_matches_plain(cuda, n_stages, m):
+    """Both outputs, word for word, on random bit patterns (bit 31 set in
+    half the words), from int64 words and from their int32 patterns."""
+    rs = np.random.default_rng([n_stages, m])
+    raw = _words(rs, (1 << n_stages, m), 2**32).to(cuda)
+    kmsxor.reset_launches()
+    words = msxor_ops.msxor_fold(raw, n_stages=n_stages)
+    u = msxor_ops.msxor_uniform(raw, n_stages=n_stages)
+    assert kmsxor.LAUNCHES == {"msxor": 2}
+    assert torch.equal(words, msxor_fold_ref(raw, n_stages))
+    assert torch.equal(u, msxor_uniform_ref(raw, n_stages))
+    coded = _build.to_u32_bits(raw)  # int32 patterns, negative ones included
+    assert torch.equal(msxor_ops.msxor_fold(coded, n_stages=n_stages), words)
+    assert words.device == cuda and u.dtype == torch.float32
+
+
+def test_msxor_launch_errors_raise(cuda):
+    with pytest.raises(ValueError):
+        msxor_ops.msxor_fold(torch.zeros(8, 4, device=cuda))  # float words
+    with pytest.raises(ValueError):
+        msxor_ops.msxor_fold(torch.zeros(4, 4, dtype=torch.int64, device=cuda))
+    with pytest.raises(ValueError, match="n_stages"):
+        msxor_ops.msxor_fold(torch.zeros(1, 4, dtype=torch.int64, device=cuda), n_stages=0)
+
+
+def test_fig9_draw_card_equals_cpu(cuda):
+    from repro_torch.core import bitcell
+
+    for p in (0.40, 0.45):
+        a = bitcell.raw_random_words(prng.PRNGKey(1, device=cuda), p, (8, 4096))
+        b = bitcell.raw_random_words(prng.PRNGKey(1), p, (8, 4096))
+        assert torch.equal(a.cpu(), b)
+        assert torch.equal(msxor_ops.msxor_fold(a).cpu(), msxor_ops.msxor_fold(b))
+
+
+def test_macro_card_equals_cpu(cuda):
+    """tests/test_core_sampling.py's macro run (nbits 8, burn-in 200, 2,000
+    samples): its seed has no tie event within 4 ULP of each log-prob
+    (tests/test_torch_paper_core.py), so the chains agree exactly."""
+    gmm, codec = targets.GaussianMixture.paper_gmm(), targets.GridCodec(8, 1, (-10.0,), (10.0,))
+    runs = [
+        CIMMacro(MacroConfig(nbits=8, burn_in=200), device=d).sample_points(
+            prng.PRNGKey(9), gmm, codec, n_samples=2000
+        )
+        for d in (cuda, "cpu")
+    ]
+    (pa, sa), (pb, sb) = runs
+    np.testing.assert_array_equal(pa, pb)
+    assert sa == sb
+
+
+@pytest.mark.parametrize("randomness", ["host", "cim", "fused"])
+def test_gmm_card_equals_cpu(cuda, randomness):
+    runs = {}
+    for device in (cuda, "cpu"):
+        wl = workloads.build("gmm", np.array([0, 5], np.uint32), randomness=randomness,
+                             backend="pallas", smoke=True, device=device)
+        runs[str(device)] = wl.run(np.array([0, 4], np.uint32))
+    a, b = runs.values()
+    for f in ("samples", "accept_count", "final_words", "final_logp", "acceptance_rate"):
+        assert torch.equal(getattr(a, f).cpu(), getattr(b, f)), f

@@ -375,9 +375,8 @@ def test_gibbs_refuses_init_logp_and_foreign_couplings():
 
 
 def test_workload_registry():
-    assert sorted(workloads.WORKLOADS) == ["ising", "spin_glass"]
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        workloads.build("gmm", KEY, device="cpu")
+    assert sorted(workloads.WORKLOADS) == ["gmm", "ising", "spin_glass"]
+    assert workloads.build("gmm", KEY, smoke=True, device="cpu").name == "gmm"
     with pytest.raises(ValueError, match="unknown workload"):
         workloads.build("potts", KEY, device="cpu")
     with pytest.raises(ValueError, match="even"):
