@@ -17,7 +17,12 @@ Builds the CUDA kernels from ``src/repro_torch/csrc`` and, on the card:
   5. holds ``gibbs_chain`` and ``gibbs_chain_fused`` (``csrc/gibbs.cu``)
      against their plain versions with tolerance 0 on an odd 7 x 9 Ising
      lattice and a 6 x 8 spin glass, with a per-lattice parity and step
-     base that differ between lattices;
+     base that differ between lattices; then ``gibbs_chain_fused`` (the
+     persistent band kernel) on odd 5 x 7 and 3 x 5 lattices, at K = 1,
+     on a spin glass cut into bands of several rows, past the flush of its
+     uint8 flip counts (K = 300), and on 16 lattices of 1024 x 1024 under
+     lat_b = 4 (more than one cooperative launch), all with per-lattice
+     step bases of mixed parity;
   6. drives the MH main path, ``engine.submit(RunPlan)`` on a (64, 49155)
      table with 256 chains per row, for ``cim`` and ``fused`` with the
      executor chosen by ``auto``, counting each kernel's launches, and
@@ -60,9 +65,14 @@ Builds the CUDA kernels from ``src/repro_torch/csrc`` and, on the card:
      launches, holding the first launch against the plain version, and a
      smoke-size run on the card against the CPU;
  12. times each kernel with CUDA events beside its plain version and its
-     bound, at every shape above (``msxor`` with its input read from HBM:
-     the launches rotate among copies that together exceed the L2), times
-     ``sample_tokens``, and profiles one segment of each main path.
+     two bounds, at every shape above (``msxor`` with its input read from
+     HBM: the launches rotate among copies that together exceed the L2;
+     ``gibbs_chain_fused`` also by the profiler's device time and with its
+     kernel launches per call), times ``sample_tokens``, and profiles one
+     segment of each main path (the whole Gibbs ``fused`` main path);
+ 13. reads the instruction mix of the band kernel's per-site loops from
+     the library's SASS (``cuobjdump``) and the issue-limited time it
+     sets at the main shape.
 
 Each phase prints one JSON line; any failure raises and exits non-zero.
 The second-to-last line lists the kernels; the last line is the device
@@ -85,13 +95,40 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 # 32-bit non-tensor peak of the H100 SXM data sheet (67 TFLOP/s float32),
 # taken for 32-bit integer operations too: no lower bound is looser
 ALU_OPS_PER_S = 67e12
+# 32-bit integer add, bitwise and shift results per clock per SM at compute
+# capability 9.0 (CUDA C++ Programming Guide, "Arithmetic Instructions"
+# throughput table): int_bound_ms is operations over this times the SMs
+# times the card's maximum SM clock (nvidia-smi clocks.max.sm)
+INT_OPS_PER_CLOCK_PER_SM = 64
+# Results per clock per SM of the other units a warp scheduler feeds on
+# compute capability 9.0: the multiply-add unit, which also takes integer
+# adds and shifts issued as IMAD, and the four schedulers' issue slots
+# (one warp instruction a clock each)
+FMA_OPS_PER_CLOCK_PER_SM = 64
+ISSUE_PER_CLOCK_PER_SM = 128
 # Threefry-2x32-20 block: key schedule 2, initial adds 2, 20 rounds of
 # add/rotate/xor, 5 key injections of 3 adds
 THREEFRY_OPS = 2 + 2 + 20 * 3 + 5 * 3
+# the same block where only x0 is kept and the key and salt word are the
+# same for every site of a half-sweep (the band kernel's draw): the counter
+# add; round 1's add and xor (x1's rotate is common); rounds 2-19; round
+# 20's add (its x1 is not used); 4 key injections of 2 adds (the constant
+# folded into the key word) and the last one's add to x0
+THREEFRY_SITE_OPS = 1 + 2 + 18 * 3 + 1 + 4 * 2 + 1
 STEP_OPS = 20  # XOR-propose, lookup, subtract, exp, compares, selects, count
-# one active Gibbs site: four neighbour spins and sums, the logit, 1/(1+exp),
-# the compare, select and flip count
+STEP_FP_OPS = 6  # of which float: the subtract, min, exp, flush, u < e, isfinite
+# one active Gibbs site of the operand kernel: four neighbour spins and
+# sums, the logit, 1/(1+exp), the compare, select and flip count
 GIBBS_OPS = 20
+GIBBS_FP_OPS = 18  # of which float: all but the select and the flip count
+# one active site of the band kernel beside its draw (integer): the shift
+# to 24 bits, the neighbour count (3 adds), the threshold compare, the
+# flip test and count
+BAND_SITE_INT_OPS = 7
+# and the spin glass's float work a site: four spins (2 each), four
+# products, four sums, the doubling, the sigmoid (negate, exp, add,
+# divide) and the threshold (scale, ceil, convert)
+GLASS_SITE_FP_OPS = 8 + 4 + 4 + 1 + 4 + 3
 
 B, V, C, K = 64, 49_155, 256, 64        # granite-3 8B vocab, phase 3-5 shape
 B_WIDE, V_WIDE, NBITS_WIDE = 8, 256_000, 18  # minitron 4B vocab
@@ -141,7 +178,8 @@ def time_ms(torch, fn, reps):
 
 def device_ms(torch, fn, reps, match):
     """Device time per call of the kernels whose name contains ``match``,
-    from the profiler's trace of ``reps`` calls after a warm-up."""
+    from the profiler's trace of ``reps`` calls after a warm-up; raises if
+    the trace holds no such kernel."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -150,8 +188,12 @@ def device_ms(torch, fn, reps, match):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    total_us = sum(e.self_device_time_total for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA and match in e.name)
+    seen = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            seen[e.name[:60]] = seen.get(e.name[:60], 0.0) + e.self_device_time_total
+    total_us = sum(us for name, us in seen.items() if match in name)
+    check(total_us > 0, f"the profiler's trace holds no {match}: {sorted(seen)}")
     return total_us / 1e3 / reps
 
 
@@ -182,10 +224,66 @@ def first_launches(mod):
             setattr(mod, f"_launch_{n}", real[n])
 
 
+# SASS classes: the integer ALU (logic, shifts, compares, selects, adds as
+# IADD3), the multiply-add unit (IMAD and its moves and adds, VIADD, float
+# arithmetic); loads and stores and the rest take only an issue slot
+ALU_OPCODES = {"IADD3", "LOP3", "SHF", "ISETP", "SEL", "LEA", "PRMT", "IABS", "IMNMX",
+               "FLO", "POPC", "BMSK", "SGXT", "PLOP3", "MOV", "FSETP", "FSEL", "I2F", "F2I"}
+FMA_OPCODES = {"IMAD", "IMUL", "VIADD", "FFMA", "FADD", "FMUL"}
+
+
+def sass_loops(cuobjdump, library_path, *names):
+    """The innermost loops of the kernel whose mangled name contains every
+    one of ``names``, from ``cuobjdump -sass`` of the built library: for
+    each loop (a backward branch and its target) its address range and its
+    instructions per iteration by class, with its funnel-shift rotates,
+    shared stores and 16-byte streaming stores counted apart."""
+    import re
+
+    out = subprocess.run([cuobjdump, "-sass", library_path], capture_output=True,
+                         text=True, timeout=300, check=True).stdout
+    body = next((part for part in out.split("Function : ")[1:]
+                 if all(n in part.split("\n", 1)[0] for n in names)), None)
+    check(body is not None, f"no kernel named {names} in the SASS of {library_path}")
+    instr = [
+        (int(m[1], 16), m[2], m[3])
+        for m in re.finditer(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z0-9_.]+)([^;]*);",
+                             body)
+    ]
+    ranges = []
+    for addr, op, args in instr:
+        target = re.search(r"0x([0-9a-f]+)", args)
+        if op == "BRA" and target and int(target[1], 16) < addr:
+            ranges.append((int(target[1], 16), addr))
+    inner = [r for r in ranges
+             if not any(o != r and r[0] <= o[0] and o[1] <= r[1] for o in ranges)]
+    loops = []
+    for lo, hi in sorted(inner):
+        ops = [(op, args) for addr, op, args in instr if lo <= addr <= hi]
+        base = [op.split(".")[0] for op, _ in ops]
+        loops.append(dict(
+            start=hex(lo), end=hex(hi), instructions=len(ops),
+            alu=sum(b in ALU_OPCODES for b in base),
+            fma=sum(b in FMA_OPCODES for b in base),
+            rotates=sum(op.startswith("SHF.L.W") for op, _ in ops),
+            shared_stores=sum(b == "STS" for b in base),
+            vector_stores=sum(op.startswith("STG.E.EF.128") for op, _ in ops),
+        ))
+    return loops
+
+
 def bound_ms(nbytes, ops):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / ALU_OPS_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def max_sm_clock_hz() -> float:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
 
 
 def main() -> int:
@@ -225,6 +323,12 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(SEED)
     card = smi()
     print(card, flush=True)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    clock_hz = max_sm_clock_hz()
+    int_ops_per_s = INT_OPS_PER_CLOCK_PER_SM * sms * clock_hz
+
+    def int_bound_ms(ops):
+        return ops / int_ops_per_s * 1e3
 
     # 1. build -----------------------------------------------------------
     t0 = time.perf_counter()
@@ -238,7 +342,8 @@ def main() -> int:
         phase="build", seconds=info["seconds"], cached=info["cached"],
         wall_s=time.perf_counter() - t0, ptxas=ptxas, card=card,
         kind=torch.cuda.get_device_name(0), torch=torch.__version__,
-        cuda=torch.version.cuda,
+        cuda=torch.version.cuda, sms=sms, max_sm_clock_mhz=clock_hz / 1e6,
+        int_ops_per_s=int_ops_per_s, band_limits_1024=gk.band_limits(dev.index, LAT),
     )
 
     # 2. cipher ----------------------------------------------------------
@@ -339,6 +444,35 @@ def main() -> int:
         emit(phase="gibbs_kernels", lattice=where, B=b, K=k, parity0=parity0.tolist(),
              t0b=t0b.tolist(), lat_b=2, mismatches=[d1, d2], max_abs_err=[e1, e2],
              flips_per_site_step=[r1, r2])
+
+    # the band kernel at the shapes its design must get right: odd wraps,
+    # K = 1, bands of several rows, the uint8 flush, more than one group
+    for where, b, h, w, k, glass, lat_b in (
+        ("5x7 odd", 3, 5, 7, 24, False, 2),
+        ("3x5 odd", 2, 3, 5, 17, False, 1),
+        ("64x96 K=1", 4, 64, 96, 1, False, 4),
+        ("33x40 spin glass", 3, 33, 40, 30, True, 3),
+        ("256x256 K=300", 2, 256, 256, 300, False, 2),
+        ("16 x 1024x1024 lat_b=4", 16, LAT, LAT, 16, False, 4),
+    ):
+        init = torch.randint(0, 2, (b, h, w), generator=gen, device=dev)
+        k0b, k1b = (torch.randint(0, 2**32, (b,), generator=gen, device=dev) for _ in range(2))
+        t0b = torch.tensor([3, -4, 2**31 - 7, 10] * (b // 4 + 1), device=dev)[:b]
+        if glass:
+            j = (torch.randint(0, 2, (2, h, w), generator=gen, device=dev) * 2 - 1).float()
+            logit = gref.SpinGlassLogit(j[0].contiguous(), j[1].contiguous(), field=0.1)
+        else:
+            logit = gref.IsingLogit(BETA, 0.05)
+        groups = gk.plan_groups(b, h, w, **gk.band_limits(dev.index, w))
+        gk.reset_launches()
+        diff, err, rate = hold("gibbs_chain_fused", where, (init, k0b, k1b, t0b, logit),
+                               dict(n_steps=k, lat_b=lat_b))
+        launched = gk.LAUNCHES["gibbs_chain_fused"]
+        check(launched == len(groups), f"{where}: {launched} launches for {len(groups)} groups")
+        emit(phase="gibbs_band_kernel", lattice=where, B=b, K=k, lat_b=lat_b,
+             t0b_parity=[int(x) % 2 for x in t0b.tolist()], groups=[g._asdict() for g in groups],
+             launches=launched, mismatches=diff, max_abs_err=err, flips_per_site_step=rate)
+        del init
 
     # 6. the MH main path -----------------------------------------------------
     logits = table_of(B, V)
@@ -479,10 +613,13 @@ def main() -> int:
         launches = launches_now()
         launches_by_path[path] = launches
         check(launches[kernel] > 0, f"{path} launched no {kernel}")
-        t0 = time.perf_counter()  # again, warm
-        wl.run(prng.PRNGKey(SEED + 1, device=dev))
-        torch.cuda.synchronize()
-        warm_seconds = time.perf_counter() - t0
+        warm = []  # again, warm: the median of three runs, since a run on a
+        for _ in range(3):  # shared host now and then stalls
+            t0 = time.perf_counter()
+            wl.run(prng.PRNGKey(SEED + 1, device=dev))
+            torch.cuda.synchronize()
+            warm.append(time.perf_counter() - t0)
+        warm_seconds = sorted(warm)[1]
         args, kw_ = seen[kernel]
         diff, err, _ = hold(kernel, f"{path} first launch", from_launch(args), kw_)
         b, h, w = wl.init_words.shape[-3:]
@@ -499,9 +636,9 @@ def main() -> int:
              execution="pallas", lattice=f"{h}x{w}", B=b, num_chains=chains,
              n_steps=wl.n_steps, chunk_steps=wl.engine.config.chunk_steps,
              collect=wl.engine.config.collect, launches=launches,
-             half_sweep_launches=wl.n_steps if launches[kernel] else 0,
+             kernel_launches=launches[kernel] if kernel == "gibbs_chain_fused" else wl.n_steps,
              first_launch_mismatches=diff, max_abs_err=err, seconds=seconds,
-             warm_seconds=warm_seconds,
+             warm_seconds=warm_seconds, warm_runs_seconds=warm,
              site_steps_per_s=wl.n_steps * chains * b * h * w / warm_seconds, flip_rate=rate,
              statistic=wl.meta["statistic"], stat_mean=float(stat.mean()),
              stat_last=stat[-1].tolist()[:8], diagnostics=wl.diagnostics(res))
@@ -761,7 +898,7 @@ def main() -> int:
             nbytes += 12 * c  # per-column key words and step base
             ops = steps * ((nbits + 2) * THREEFRY_OPS + 3 * nbits + STEP_OPS)
         shape = dict(B=b, V=v, C=c, K=k, nbits=nbits, **({"cc": kw["cc"]} if kw else {}))
-        return nbytes, ops, shape
+        return nbytes, ops, ops - STEP_FP_OPS * steps, shape
 
     def gibbs_cost(name, args, kw):
         fused = name == "gibbs_chain_fused"
@@ -777,29 +914,75 @@ def main() -> int:
         if name == "gibbs_chain":
             nbytes += 4 * k * sites  # the uniforms
             ops = GIBBS_OPS * active
+            int_ops = (GIBBS_OPS - GIBBS_FP_OPS) * active
         else:
             nbytes += 8 * b  # the key words
-            ops = (GIBBS_OPS + THREEFRY_OPS) * active + THREEFRY_OPS * k * b
-        return nbytes, ops, dict(B=b, H=h, W=w, K=k, active_site_steps=active,
-                                 **({"lat_b": kw["lat_b"]} if kw else {}))
+            # a draw and the flip per active site, a step key per lattice
+            # and half-sweep; the Ising flip is a table lookup, the spin
+            # glass's is float work
+            int_ops = (THREEFRY_SITE_OPS + BAND_SITE_INT_OPS) * active + THREEFRY_OPS * k * b
+            glass = isinstance(logit, gref.SpinGlassLogit)
+            ops = int_ops + (GLASS_SITE_FP_OPS * active if glass else 0)
+        return nbytes, ops, int_ops, dict(B=b, H=h, W=w, K=k, active_site_steps=active,
+                                          **({"lat_b": kw["lat_b"]} if kw else {}))
 
     shapes = {name: [] for name in wrapper_of}
     for name, where, args, kw in cases:
         cost = gibbs_cost if name.startswith("gibbs") else mh_cost
-        nbytes, ops, shape = cost(name, args, kw)
+        nbytes, ops, int_ops, shape = cost(name, args, kw)
         bound, bound_by = bound_ms(nbytes, ops)
         coded = tuple(
             _build.to_u32_bits(a) if getattr(a, "dtype", None) == torch.int64 else a
             for a in args
         )
         big = nbytes > 1e8  # the 1024 x 1024 main-path launches
-        shapes[name].append(dict(
+        row = dict(
             where=where, **shape,
             ms=time_ms(torch, lambda: wrapper_of[name](*args, **kw), 5 if big else 20),
             kernel_ms=time_ms(torch, lambda: launch_of[name](*coded, **kw), 5 if big else 20),
             plain_ms=time_ms(torch, lambda: plain_of[name](*args, **kw), 2 if big else 3),
-            bound_ms=bound, bound_by=bound_by, bytes=nbytes, ops=ops,
-        ))
+            bound_ms=bound, bound_by=bound_by, int_bound_ms=int_bound_ms(int_ops),
+            bytes=nbytes, ops=ops, int_ops=int_ops,
+        )
+        if name == "gibbs_chain_fused":
+            gk.reset_launches()
+            wrapper_of[name](*args, **kw)
+            row["kernel_launches_per_call"] = gk.LAUNCHES[name]
+            row["device_ms"] = device_ms(
+                torch, lambda: launch_of[name](*coded, **kw), 5 if big else 20,
+                "gibbs_band_kernel")
+        shapes[name].append(row)
+
+    # 13. the band kernel's per-site loops in SASS ------------------------------
+    # Each active site takes one iteration of a draw loop (its Threefry
+    # block and flip, into a register bit) and one of a write loop (its
+    # spin and flip count into shared memory); the band's store loop
+    # writes 4 sites (of both colours) an iteration.  The interior rows'
+    # loops are the main shape's.
+    loops = sass_loops(str(Path(_build._nvcc()).with_name("cuobjdump")), info["path"],
+                       "gibbs_band_kernel", "IsingLogit")
+    draws = [i for i, loop in enumerate(loops) if loop["rotates"] >= 19]
+    check(draws, f"no Threefry loop (19 rotates) in the band kernel's SASS: {loops}")
+    write = next((i for i in range(draws[-1] + 1, len(loops))
+                  if loops[i]["shared_stores"] >= 2), None)
+    store = next((i for i in range(draws[-1] + 1, len(loops))
+                  if loops[i]["vector_stores"]), None)
+    check(write is not None and store is not None,
+          f"no write or store loop after the draw loop in the band kernel's SASS: {loops}")
+    per_site = {key: loops[draws[-1]][key] + loops[write][key] + loops[store][key] / 2
+                for key in ("instructions", "alu", "fma")}
+    clocks = max(per_site["alu"] / INT_OPS_PER_CLOCK_PER_SM,
+                 per_site["fma"] / FMA_OPS_PER_CLOCK_PER_SM,
+                 per_site["instructions"] / ISSUE_PER_CLOCK_PER_SM)
+    g_path = g_main["gibbs_chain_fused"][0]
+    g_row = next(x for x in shapes["gibbs_chain_fused"] if x["where"] == f"{g_path} first launch")
+    g_row["issue_bound_ms"] = g_row["active_site_steps"] * clocks / (sms * clock_hz) * 1e3
+    emit(phase="sass_band_kernel", kernel="gibbs_band_kernel<IsingLogit>",
+         draw_loop=loops[draws[-1]], write_loop=loops[write], store_loop=loops[store],
+         per_active_site=per_site, issue_clocks_per_site_per_sm=clocks,
+         active_site_steps=g_row["active_site_steps"], issue_bound_ms=g_row["issue_bound_ms"],
+         int_bound_ms=g_row["int_bound_ms"], device_ms=g_row["device_ms"],
+         device_over_issue_bound=g_row["device_ms"] / g_row["issue_bound_ms"])
     sources = {"mh": "src/repro_torch/csrc/mh.cu", "gibbs": "src/repro_torch/csrc/gibbs.cu"}
     replaces = {
         "mh_chain": "src/repro/kernels/mh/mh.py:35",
@@ -818,7 +1001,10 @@ def main() -> int:
             name=name, route="cuda", source=sources[name.split("_")[0]],
             replaces=replaces[name], launches=launches, max_abs_err=max_err[name],
             ms=main["ms"], kernel_ms=main["kernel_ms"], plain_ms=main["plain_ms"],
-            bound_ms=main["bound_ms"], bound_by=main["bound_by"], library_ms=None,
+            bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+            int_bound_ms=main["int_bound_ms"], library_ms=None,
+            **{k: main[k] for k in ("device_ms", "kernel_launches_per_call",
+                                    "issue_bound_ms") if k in main},
             main_path=path, main_shape=main["where"],
             launches_by_path={p: n[name] for p, n in launches_by_path.items()
                               if n.get(name)},
@@ -834,6 +1020,7 @@ def main() -> int:
         g, m = raw.shape
         nbytes = g * m * 8 + m * (4 if to_uniform else 8)
         ops = m * ((g - 1) + (3 if to_uniform else 0))  # XORs, shift, convert, scale
+        int_ops = m * ((g - 1) + (1 if to_uniform else 0))  # XORs, shift
         bound, bound_by = bound_ms(nbytes, ops)
         raws = [raw] + [raw.clone() for _ in range(int(COLD_BYTES // raw.nbytes))]
         nxt = itertools.cycle(raws).__next__
@@ -846,13 +1033,15 @@ def main() -> int:
             plain_ms=time_ms(torch, lambda: (
                 xref.msxor_uniform_ref if to_uniform else xref.msxor_fold_ref)(nxt(), n_stages),
                 5 if big else 20),
-            bound_ms=bound, bound_by=bound_by, bytes=nbytes, ops=ops,
+            bound_ms=bound, bound_by=bound_by, int_bound_ms=int_bound_ms(int_ops),
+            bytes=nbytes, ops=ops, int_ops=int_ops,
         ))
         # the launch from Python takes longer than the kernel at the Fig. 9
         # shape; the profiler's device time is the kernel's own
         dev_ms = device_ms(torch, lambda: xk._launch_msxor(
             nxt(), n_stages=n_stages, to_uniform=to_uniform), 20, "msxor_kernel")
-        msxor_shapes[-1].update(device_ms=dev_ms, device_rate_TBps=nbytes / dev_ms / 1e9,
+        msxor_shapes[-1].update(device_ms=dev_ms,
+                                device_rate_TBps=nbytes / dev_ms / 1e9,
                                 device_over_bound=dev_ms / bound)
         del raws, nxt
     main = next(x for x in msxor_shapes if x["where"] == "Fig. 9 shape fold")
@@ -861,7 +1050,8 @@ def main() -> int:
         replaces="src/repro/kernels/msxor/msxor.py:32", launches=fig9_launches["msxor"],
         max_abs_err=msxor_err, ms=main["ms"], kernel_ms=main["kernel_ms"],
         device_ms=main["device_ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
-        bound_by=main["bound_by"], device_over_bound=main["device_over_bound"], library_ms=None,
+        bound_by=main["bound_by"], int_bound_ms=main["int_bound_ms"],
+        device_over_bound=main["device_over_bound"], library_ms=None,
         library_none_reason="no single PyTorch call XOR-reduces over an axis",
         main_path="fig9_msxor", main_shape="(8, 400000) fold",
         launches_by_path={"fig9_msxor": fig9_launches["msxor"]}, shapes=msxor_shapes,
@@ -918,10 +1108,11 @@ def main() -> int:
         "ising_host": g_path_s["main_path_gibbs_ising_host"] * 1e3 / (OP_STEPS // OP_CHUNK),
     }, gibbs_chain_fused_ms=by_name["gibbs_chain_fused"]["ms"],
         gibbs_chain_fused_kernel_ms=by_name["gibbs_chain_fused"]["kernel_ms"],
+        gibbs_chain_fused_device_ms=by_name["gibbs_chain_fused"]["device_ms"],
         gibbs_chain_ms=by_name["gibbs_chain"]["ms"],
         gibbs_chain_kernel_ms=by_name["gibbs_chain"]["kernel_ms"])
     for randomness, kw in (
-        ("fused", dict(main_kw, n_steps=256)), ("cim", dict(op_kw, n_steps=64)),
+        ("fused", main_kw), ("cim", dict(op_kw, n_steps=64)),
     ):
         wl = workloads.build("ising", prng.PRNGKey(SEED, device=dev), randomness=randomness,
                              backend="pallas", beta=BETA, **kw)

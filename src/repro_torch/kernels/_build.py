@@ -57,14 +57,17 @@ _SIGNATURES = {
     "repro_gibbs_chain_spin_glass": (
         _P, _P, _P, _P, _P, _F, _P, _P, _I, _I, _I, _I, _P
     ),
-    # init, k0b, k1b, t0b, beta, field, samples, flips, B, H, W, K, lat_b, stream
+    # W, out[3]: SMs, most rows a band, cooperative launch
+    "repro_gibbs_band_limits": (_I, _P),
+    # init, k0b, k1b, t0b, beta, field, samples, flips, ready,
+    # B, H, W, K, lat_b, b0, lattices, bands, rows, stream
     "repro_gibbs_chain_fused": (
-        _P, _P, _P, _P, _F, _F, _P, _P, _I, _I, _I, _I, _I, _P
+        _P, _P, _P, _P, _F, _F, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P
     ),
-    # init, k0b, k1b, t0b, j_right, j_down, field, samples, flips,
-    # B, H, W, K, lat_b, stream
+    # init, k0b, k1b, t0b, j_right, j_down, field, samples, flips, ready,
+    # B, H, W, K, lat_b, b0, lattices, bands, rows, stream
     "repro_gibbs_chain_fused_spin_glass": (
-        _P, _P, _P, _P, _P, _P, _F, _P, _P, _I, _I, _I, _I, _I, _P
+        _P, _P, _P, _P, _P, _P, _F, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P
     ),
     # raw, out, n_stages, M, to_uniform, stream
     "repro_msxor": (_P, _P, _I, _L, _I, _P),

@@ -1,24 +1,32 @@
 """Wrappers of the checkerboard Gibbs kernels (``csrc/gibbs.cu``).
 
 ``gibbs_chain`` replaces ``repro.kernels.gibbs.gibbs.gibbs_chain_pallas``
-(the Pallas ``_gibbs_kernel``: uniforms as operands) and
-``gibbs_chain_fused`` replaces ``gibbs_chain_pallas_fused``
-(``_gibbs_fused_kernel``: uniforms drawn in-kernel from the counter
-cipher).  For CUDA tensors each wrapper checks its inputs, launches its
-kernel on the current stream and raises if a launch fails; for CPU
-tensors it runs the plain version in ``ref.py``.  There is no other
-fallback.
+(the Pallas ``_gibbs_kernel``: uniforms as operands; ``gibbs_sweep_kernel``,
+one launch per half-sweep) and ``gibbs_chain_fused`` replaces
+``gibbs_chain_pallas_fused`` (``_gibbs_fused_kernel``: uniforms drawn
+in-kernel from the counter cipher; ``gibbs_band_kernel``, one cooperative
+launch per group of lattices, each block keeping a band of rows in shared
+memory for all K half-sweeps).  For CUDA tensors each wrapper checks its
+inputs, launches its kernel on the current stream and raises if a launch
+fails or is refused; for CPU tensors it runs the plain version in
+``ref.py``.  There is no other fallback.
 
 The conditional arrives as a logit spec, ``ref.IsingLogit`` or
 ``ref.SpinGlassLogit``; the kernel has one specialisation for each, and
-any other spec raises ``ValueError``.  Spin words are {0, 1} values held
-in int64 tensors on both sides of the wrapper; they cross into the kernel
-as int32.  ``LAUNCHES`` counts the kernel calls of each wrapper.
+any other spec raises ``ValueError``.  Spins are {0, 1} values; they go in
+as any integer tensor and come out as int32, never widened here (the
+engine widens the rows it keeps).  ``plan_groups`` splits a batch into
+the groups one cooperative launch can hold and raises for a lattice too
+large for the card's shared memory.  ``LAUNCHES`` counts kernel launches:
+one per ``gibbs_chain`` call (its K half-sweep launches together) and one
+per lattice group of a ``gibbs_chain_fused`` call.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -73,21 +81,26 @@ def _check_lattice(init: torch.Tensor, logit, k: int) -> torch.device:
     return init.device
 
 
-def _check_grid(b: int, h: int, w: int, k: int) -> None:
-    """Sizes the kernel's grid and 32-bit site indices can take."""
-    if not (b <= 65535 and h * w < 2**31 and k < 2**31):
+def _check_grid(b: int, h: int, w: int, k: int, max_b: int = 65535) -> None:
+    """Sizes the kernels' grids and 32-bit site indices can take."""
+    if not (b <= max_b and h * w < 2**31 and k < 2**31):
         raise ValueError(f"Gibbs kernel cannot take B={b}, H={h}, W={w}, K={k}")
 
 
+def _spins32(init: torch.Tensor) -> torch.Tensor:
+    """{0, 1} spins as a contiguous int32 tensor (no copy if they are one)."""
+    return init.to(torch.int32).contiguous()
+
+
 def gibbs_chain(
-    init: torch.Tensor,     # (B, H, W) {0, 1} spin words (int64)
+    init: torch.Tensor,     # (B, H, W) {0, 1} spins (int32 or int64)
     u: torch.Tensor,        # (K, B, H, W) float32
     logit,                  # IsingLogit | SpinGlassLogit
     parity0: torch.Tensor,  # (B,) per-lattice starting parity
 ):
     """K checkerboard half-sweeps over B lattices, uniforms as operands.
 
-    Returns (samples (K, B, H, W) words as int64, flips (B, H, W) int32).
+    Returns (samples (K, B, H, W) int32 spins, flips (B, H, W) int32).
     """
     k = u.shape[0] if u.ndim == 4 else 0
     dev = _check_lattice(init, logit, k)
@@ -97,10 +110,9 @@ def gibbs_chain(
     if dev.type == "cpu":
         return gibbs_chain_ref(init, u, logit, parity0)
     _check_grid(b, h, w, k)
-    samples, flips = _launch_gibbs_chain(
-        _build.to_u32_bits(init), u.contiguous(), logit, _build.to_u32_bits(parity0)
+    return _launch_gibbs_chain(
+        _spins32(init), u.contiguous(), logit, _build.to_u32_bits(parity0)
     )
-    return _build.from_u32_bits(samples), flips
 
 
 def _logit_args(logit) -> tuple[str, tuple]:
@@ -114,7 +126,7 @@ def _logit_args(logit) -> tuple[str, tuple]:
 
 
 def _launch_gibbs_chain(init32, u, logit, parity32):
-    """K launches of ``gibbs_chain_kernel`` with ``OperandDraw`` (one call)."""
+    """K launches of ``gibbs_sweep_kernel`` (one call)."""
     lib = _build.library()
     k, b, h, w = u.shape
     samples = torch.empty((k, b, h, w), dtype=torch.int32, device=u.device)
@@ -126,13 +138,71 @@ def _launch_gibbs_chain(init32, u, logit, parity32):
             samples.data_ptr(), flips.data_ptr(), b, h, w, k,
             torch.cuda.current_stream(u.device).cuda_stream,
         )
-    _build.check(lib, err, f"gibbs_chain_kernel<OperandDraw>{suffix}")
+    _build.check(lib, err, f"gibbs_sweep_kernel{suffix}")
     LAUNCHES["gibbs_chain"] += 1
     return samples, flips
 
 
+# --- the band kernel's launch plan ------------------------------------------
+
+
+class Group(NamedTuple):
+    """One cooperative launch: ``lattices`` lattices from ``b0``, each cut
+    into ``bands`` bands of ``rows`` rows (the last band may be shorter)."""
+
+    b0: int
+    lattices: int
+    bands: int
+    rows: int
+
+
+def plan_groups(b: int, h: int, w: int, *, max_blocks: int, max_rows: int) -> list[Group]:
+    """Split B lattices of H x W into consecutive groups, each one
+    cooperative launch of at most ``max_blocks`` blocks (one per SM), as
+    few groups as can be and of sizes within one of each other; each
+    lattice gets as many bands as its group's share of the blocks allows.
+    Lattice i keeps its index, so its site base ``(i % lat_b) * H * W``.
+    ``max_rows`` is the most rows a band of width ``w`` may have
+    (``band_limits``).
+
+    Raises ``ValueError`` for a lattice that needs more bands than the
+    card holds blocks (the per-lattice limit)."""
+    need = -(-h // max_rows) if max_rows > 0 else None
+    if need is None or need > max_blocks:
+        raise ValueError(
+            f"a {h} x {w} lattice is too large for one cooperative launch of the "
+            f"band kernel: a band holds at most {max_rows} rows of {w} sites "
+            f"(what one block holds), and a lattice at most "
+            f"{max_blocks} bands (one block per SM)"
+        )
+    n_groups = -(-b // min(b, max_blocks // need))
+    groups, b0 = [], 0
+    for g in range(n_groups):
+        size = b // n_groups + (g < b % n_groups)
+        rows = -(-h // min(h, max_blocks // size))
+        groups.append(Group(b0, size, -(-h // rows), rows))
+        b0 += size
+    return groups
+
+
+@functools.lru_cache(maxsize=None)
+def band_limits(device_index: int, w: int) -> dict:
+    """What the band kernel can take on a card for lattices ``w`` sites
+    wide, as ``csrc/gibbs.cu`` reckons it: blocks a launch (one per SM)
+    and the most rows a band may have.  Raises if the card has no
+    cooperative launch."""
+    lib = _build.library()
+    out = (ctypes.c_int * 3)()
+    with torch.cuda.device(device_index):
+        err = lib.repro_gibbs_band_limits(w, out)
+    _build.check(lib, err, "repro_gibbs_band_limits")
+    if not out[2]:
+        raise RuntimeError(f"cuda:{device_index} cannot launch cooperative kernels")
+    return {"max_blocks": out[0], "max_rows": out[1]}
+
+
 def gibbs_chain_fused(
-    init: torch.Tensor,   # (B, H, W) {0, 1} spin words (int64)
+    init: torch.Tensor,   # (B, H, W) {0, 1} spins (int32 or int64)
     k0b: torch.Tensor,    # (B,) uint32 per-lattice chain-key word 0
     k1b: torch.Tensor,    # (B,) uint32 per-lattice chain-key word 1
     t0b: torch.Tensor,    # (B,) per-lattice absolute-step base
@@ -144,7 +214,9 @@ def gibbs_chain_fused(
     """K half-sweeps with the uniforms drawn in-kernel: half-sweep k of
     lattice i draws ``uniform_at(step_key(k0b[i], k1b[i], t0b[i] + k),
     (i % lat_b) * H * W + h * W + w)`` and updates the colour
-    ``(t0b[i] + k) % 2``.  ``lat_b`` is the per-chain lattice count."""
+    ``(t0b[i] + k) % 2``.  ``lat_b`` is the per-chain lattice count.
+
+    Returns (samples (K, B, H, W) int32 spins, flips (B, H, W) int32)."""
     dev = _check_lattice(init, logit, n_steps)
     b, h, w = init.shape
     for name, x in (("k0b", k0b), ("k1b", k1b), ("t0b", t0b)):
@@ -153,27 +225,37 @@ def gibbs_chain_fused(
         raise ValueError(f"need 0 < lat_b <= B={b}, got {lat_b}")
     if dev.type == "cpu":
         return gibbs_chain_fused_ref(init, k0b, k1b, t0b, logit, n_steps, lat_b)
-    _check_grid(b, h, w, n_steps)
-    samples, flips = _launch_gibbs_chain_fused(
-        _build.to_u32_bits(init), _build.to_u32_bits(k0b), _build.to_u32_bits(k1b),
+    _check_grid(b, h, w, n_steps, max_b=2**31 - 1)
+    return _launch_gibbs_chain_fused(
+        _spins32(init), _build.to_u32_bits(k0b), _build.to_u32_bits(k1b),
         _build.to_u32_bits(t0b), logit, n_steps=n_steps, lat_b=lat_b,
     )
-    return _build.from_u32_bits(samples), flips
 
 
-def _launch_gibbs_chain_fused(init32, k0b32, k1b32, t0b32, logit, *, n_steps, lat_b):
-    """K launches of ``gibbs_chain_kernel`` with ``FusedDraw`` (one call)."""
+def _launch_gibbs_chain_fused(init32, k0b32, k1b32, t0b32, logit, *, n_steps, lat_b,
+                              groups=None):
+    """One cooperative launch of ``gibbs_band_kernel`` per lattice group
+    (``plan_groups`` on this card unless ``groups`` is given)."""
     lib = _build.library()
     b, h, w = init32.shape
-    samples = torch.empty((n_steps, b, h, w), dtype=torch.int32, device=init32.device)
-    flips = torch.empty((b, h, w), dtype=torch.int32, device=init32.device)
+    dev = init32.device
+    if groups is None:
+        groups = plan_groups(b, h, w, **band_limits(dev.index, w))
+    samples = torch.empty((n_steps, b, h, w), dtype=torch.int32, device=dev)
+    flips = torch.empty((b, h, w), dtype=torch.int32, device=dev)
+    ready = torch.zeros(
+        (len(groups), max(g.lattices * g.bands for g in groups)), dtype=torch.int32, device=dev
+    )
     suffix, largs = _logit_args(logit)
-    with torch.cuda.device(init32.device):
-        err = getattr(lib, "repro_gibbs_chain_fused" + suffix)(
-            init32.data_ptr(), k0b32.data_ptr(), k1b32.data_ptr(), t0b32.data_ptr(),
-            *largs, samples.data_ptr(), flips.data_ptr(), b, h, w, n_steps, lat_b,
-            torch.cuda.current_stream(init32.device).cuda_stream,
-        )
-    _build.check(lib, err, f"gibbs_chain_kernel<FusedDraw>{suffix}")
-    LAUNCHES["gibbs_chain_fused"] += 1
+    launch = getattr(lib, "repro_gibbs_chain_fused" + suffix)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        for g, flags in zip(groups, ready):
+            err = launch(
+                init32.data_ptr(), k0b32.data_ptr(), k1b32.data_ptr(), t0b32.data_ptr(),
+                *largs, samples.data_ptr(), flips.data_ptr(), flags.data_ptr(),
+                b, h, w, n_steps, lat_b, g.b0, g.lattices, g.bands, g.rows, stream,
+            )
+            _build.check(lib, err, f"gibbs_band_kernel{suffix}")
+            LAUNCHES["gibbs_chain_fused"] += 1
     return samples, flips

@@ -1,12 +1,12 @@
 """Plain PyTorch versions of the two checkerboard Gibbs kernels.
 
 ``gibbs_chain_ref`` is the counterpart of ``repro.kernels.gibbs.ref`` and
-the plain version of ``csrc/gibbs.cu:gibbs_chain_kernel`` with
-``OperandDraw``; ``gibbs_chain_fused_ref`` draws the uniforms the fused
-kernel draws in-kernel, through ``repro_torch.kernels.rng``, and runs the
-same half-sweeps: the plain version of ``gibbs_chain_kernel`` with
-``FusedDraw``.  The CPU path of the wrappers and the card-side parity
-checks run these.
+the plain version of ``csrc/gibbs.cu:gibbs_sweep_kernel``;
+``gibbs_chain_fused_ref`` draws the uniforms the fused kernel draws
+in-kernel, through ``repro_torch.kernels.rng``, and runs the same
+half-sweeps: the plain version of ``gibbs_band_kernel``.  Both return
+int32 spins and flip counts, as the kernels do.  The CPU path of the
+wrappers and the card-side parity checks run these.
 
 A Pallas kernel traces the model's ``logit_fn`` as a closure; a CUDA
 kernel cannot, so the two conditionals that reach it are spelled out
@@ -118,12 +118,12 @@ def _per_lattice(x, b: int, device) -> torch.Tensor:
 def _half_sweep(state, u_k, logit, active):
     """One half-sweep: ``u < sigmoid(logit)`` written on the active colour
     only, every logit from the state before the sweep."""
-    new = (u_k < sigmoid(logit(state))).to(torch.int64)
+    new = (u_k < sigmoid(logit(state))).to(torch.int32)
     return torch.where(active, new, state)
 
 
 def gibbs_chain_ref(
-    init: torch.Tensor,  # (B, H, W) {0, 1} spin words (int64)
+    init: torch.Tensor,  # (B, H, W) {0, 1} spins (int32 or int64)
     u: torch.Tensor,     # (K, B, H, W) float32 uniforms
     logit,               # IsingLogit | SpinGlassLogit
     parity0=0,           # int or (B,) per-lattice starting parity
@@ -131,13 +131,14 @@ def gibbs_chain_ref(
     """K checkerboard half-sweeps; half-sweep k updates the sites with
     ``(row + col) % 2 == (parity0 + k) % 2``.
 
-    Returns (samples (K, B, H, W) words as int64, flips (B, H, W) int32).
+    Returns (samples (K, B, H, W) int32 spins, flips (B, H, W) int32), the
+    kernels' dtypes.
     """
-    state = init.to(torch.int64)
+    state = init.to(torch.int32)
     b, h, w = state.shape
     checker = checkerboard(h, w, state.device)
     par0 = _per_lattice(parity0, b, state.device)
-    samples = torch.empty(u.shape, dtype=torch.int64, device=state.device)
+    samples = torch.empty(u.shape, dtype=torch.int32, device=state.device)
     nflips = torch.zeros(state.shape, dtype=torch.int32, device=state.device)
     for k in range(u.shape[0]):
         nxt = _half_sweep(state, u[k], logit, checker == (par0 + k) % 2)
@@ -160,12 +161,13 @@ def fused_uniforms(k0b, k1b, t0b, k: int, shape: tuple, lat_b: int) -> torch.Ten
 
 def gibbs_chain_fused_ref(init, k0b, k1b, t0b, logit, n_steps: int, lat_b: int):
     """The fused kernel's chain: half-sweep k draws ``fused_uniforms`` and
-    takes the parity ``(t0b + k) % 2`` of its absolute step (mod 2^32)."""
-    state = init.to(torch.int64)
+    takes the parity ``(t0b + k) % 2`` of its absolute step (mod 2^32).
+    Returns int32 samples and flips, as ``gibbs_chain_ref``."""
+    state = init.to(torch.int32)
     b, h, w = state.shape
     checker = checkerboard(h, w, state.device)
     t0 = _per_lattice(rng.u32(t0b), b, state.device)
-    samples = torch.empty((n_steps, b, h, w), dtype=torch.int64, device=state.device)
+    samples = torch.empty((n_steps, b, h, w), dtype=torch.int32, device=state.device)
     nflips = torch.zeros(state.shape, dtype=torch.int32, device=state.device)
     for k in range(n_steps):
         u_k = fused_uniforms(k0b, k1b, t0b, k, (b, h, w), lat_b)
@@ -187,7 +189,7 @@ def chain_ties(init, u, logit, parity0=0) -> torch.Tensor:
     """The tie events of the chain ``gibbs_chain_ref`` runs, on the active
     sites of each half-sweep: (k, b, h, w) indices."""
     samples, _ = gibbs_chain_ref(init, u, logit, parity0)
-    prev = torch.cat([init.to(torch.int64)[None], samples[:-1]])
+    prev = torch.cat([init.to(samples.dtype)[None], samples[:-1]])
     b, h, w = init.shape
     ks = torch.arange(u.shape[0], device=u.device).reshape(-1, 1, 1, 1)
     par0 = _per_lattice(parity0, b, u.device)

@@ -266,8 +266,9 @@ def _drive_pallas_chunks(run_chunk, init_state, n_steps, chunk, step0, collect):
     """The kernel executors' chunk loop: ``run_chunk(state, start, n)``
     launches one kernel for relative steps [start, start + n) and returns
     (samples (n, *state shape), per-chain accept counts).  Kept rows go
-    straight into one preallocated buffer; under "last" only (state,
-    count) survive a chunk."""
+    straight into one preallocated int64 buffer (widened there: the Gibbs
+    kernels write int32 spins); under "last" only (state, count) survive
+    a chunk."""
     mode, k = collect
     chunk = _effective_chunk(n_steps, chunk, k if mode == "thin" else None)
     state = init_state
@@ -439,7 +440,8 @@ def _run_pallas_gibbs(key, target, backend, n_steps, chunk, step0, init_words, c
 
 def _run_pallas_gibbs_chains(keys, target, backend, n_steps, chunk, step0, init, collect):
     """The Gibbs kernels over C chains: one call per chunk, chains folded
-    into the lattice-batch axis chain-major (lattice c * B + i)."""
+    into the lattice-batch axis chain-major (lattice c * B + i).  Each
+    chunk's int32 state is the next chunk's init."""
     if init.ndim != 4:
         raise ValueError(
             f"multi-chain pallas Gibbs expects (num_chains, B, H, W) lattice "
@@ -473,7 +475,9 @@ def _run_pallas_gibbs_chains(keys, target, backend, n_steps, chunk, step0, init,
         lead = x.shape[:-3]
         return torch.movedim(x.reshape(*lead, c_chains, b, h, w), len(lead), 0)
 
-    return unfold(samples), unfold(acc), unfold(state)
+    # the kernels' spins are int32; the kept rows were widened as they were
+    # copied out, and the final words are widened here
+    return unfold(samples), unfold(acc), unfold(state.to(torch.int64))
 
 
 def _gibbs_logp(target, words: torch.Tensor) -> torch.Tensor:

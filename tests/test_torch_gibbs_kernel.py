@@ -71,7 +71,7 @@ def test_operand_kernel_matches_jax(kind, h, w):
     assert ref.chain_ties(_t(init), torch.from_numpy(u), spec, _t(parity0)).shape[0] == 0
     np.testing.assert_array_equal(got_s.numpy(), np.asarray(want_s))
     np.testing.assert_array_equal(got_f.numpy(), np.asarray(want_f))
-    assert got_s.dtype == torch.int64 and got_f.dtype == torch.int32
+    assert got_s.dtype == torch.int32 and got_f.dtype == torch.int32
 
 
 @pytest.mark.parametrize("kind,h,w", CASES)
@@ -98,6 +98,7 @@ def test_fused_kernel_matches_jax(kind, h, w, lat_b):
         assert ties.shape[0] == 0
     np.testing.assert_array_equal(got_s.numpy(), np.asarray(want_s))
     np.testing.assert_array_equal(got_f.numpy(), np.asarray(want_f))
+    assert got_s.dtype == torch.int32 and got_f.dtype == torch.int32
 
 
 @pytest.mark.parametrize("kind,h,w", CASES[1:3])
@@ -168,3 +169,74 @@ def test_wrapper_validation_and_cpu_launch_counts():
     glass = ref.SpinGlassLogit(torch.ones(4, 4), torch.ones(4, 4))
     with pytest.raises(ValueError, match="j_right"):
         gibbs.gibbs_chain(init_t, u_t, glass, par)
+
+
+# --- the band kernel's launch plan (pure Python, what the card would run) ---
+
+# The H100's limits as ``band_limits`` reads them from ``csrc/gibbs.cu``:
+# 132 blocks a launch, and the most rows a band of each width may have
+# (``band_max_rows`` with 232,400 bytes of shared memory a block).
+H100_BLOCKS = 132
+H100_ROWS = {1024: 112, 7: 16384, 5: 21845, 256: 452, 3000: 37, 3828: 29, 3829: 29,
+             4096: 27, 200_000: 0}
+
+
+def _assert_plan(groups, b, h, w, max_blocks, max_rows):
+    """Groups cover lattices 0..B-1 once, in order (so lattice i keeps its
+    site base (i % lat_b) H W), each within one cooperative launch, with
+    bands that tile the lattice and fit a block."""
+    covered = [i for g in groups for i in range(g.b0, g.b0 + g.lattices)]
+    assert covered == list(range(b))
+    sizes = [g.lattices for g in groups]
+    assert max(sizes) - min(sizes) <= 1
+    for g in groups:
+        assert g.lattices * g.bands <= max_blocks
+        assert (g.bands - 1) * g.rows < h <= g.bands * g.rows
+        assert 1 <= g.rows <= max_rows
+
+
+@pytest.mark.parametrize("b,h,w,n_groups,bands,rows", [
+    (4, 1024, 1024, 1, 32, 32),   # the main path: 4 x 32 bands of 32 rows
+    (16, 1024, 1024, 2, 16, 64),  # two launches of 8 lattices
+    (3, 5, 7, 1, 5, 1),
+    (1, 3, 5, 1, 3, 1),
+    (8, 256, 256, 1, 16, 16),
+    (2, 3000, 3000, 2, 131, 23),  # one lattice a launch
+])
+def test_plan_groups_main_shapes(b, h, w, n_groups, bands, rows):
+    limits = dict(max_blocks=H100_BLOCKS, max_rows=H100_ROWS[w])
+    groups = gibbs.plan_groups(b, h, w, **limits)
+    _assert_plan(groups, b, h, w, **limits)
+    assert len(groups) == n_groups
+    assert (groups[0].bands, groups[0].rows) == (bands, rows)
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_plan_groups_random_shapes(seed):
+    rs = np.random.default_rng(seed)
+    max_blocks = int(rs.integers(1, 300))
+    for _ in range(200):
+        b, h, w = (int(x) for x in (rs.integers(1, 70), rs.integers(2, 3000),
+                                    rs.integers(2, 3000)))
+        limits = dict(max_blocks=max_blocks, max_rows=int(rs.integers(0, 200)))
+        try:
+            groups = gibbs.plan_groups(b, h, w, **limits)
+        except ValueError:
+            rows = limits["max_rows"]
+            assert rows == 0 or -(-h // rows) > max_blocks
+            continue
+        _assert_plan(groups, b, h, w, **limits)
+
+
+def test_plan_groups_per_lattice_limit():
+    """A lattice the card cannot hold in one launch raises, with the limit."""
+    assert H100_BLOCKS * H100_ROWS[4096] < 4096
+    with pytest.raises(ValueError, match="too large for one cooperative launch"):
+        gibbs.plan_groups(1, 4096, 4096, max_blocks=H100_BLOCKS, max_rows=H100_ROWS[4096])
+    with pytest.raises(ValueError, match="at most 0 rows"):
+        gibbs.plan_groups(1, 4, 200_000, max_blocks=H100_BLOCKS, max_rows=H100_ROWS[200_000])
+    # the largest square lattice one launch takes (README): 132 bands
+    (g,) = gibbs.plan_groups(1, 3828, 3828, max_blocks=H100_BLOCKS, max_rows=H100_ROWS[3828])
+    assert g.bands == H100_BLOCKS
+    with pytest.raises(ValueError, match="at most 132 bands"):
+        gibbs.plan_groups(1, 3829, 3829, max_blocks=H100_BLOCKS, max_rows=H100_ROWS[3829])

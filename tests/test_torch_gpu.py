@@ -170,6 +170,69 @@ def test_gibbs_launch_errors_raise(cuda):
     assert _build.library() is not None
 
 
+def _band_operands(rs, b, h, w, spin_glass, cuda):
+    """init, key words, a per-lattice t0b of mixed parities (one wraps
+    mod 2^32 inside the chunk) and a logit spec."""
+    init = torch.from_numpy(rs.integers(0, 2, size=(b, h, w))).to(cuda)
+    k0b, k1b = (_words(rs, (b,), 2**32).to(cuda) for _ in range(2))
+    t0b = torch.tensor([3, -4, 2**31 - 7, 10] * (b // 4 + 1), device=cuda)[:b]
+    return init, k0b, k1b, t0b, _lattice_logit(rs, h, w, spin_glass, cuda)
+
+
+@pytest.mark.parametrize("b,h,w,k,spin_glass,lat_b", [
+    (3, 5, 7, 24, False, 2),       # odd: neighbours across the wrap share a colour
+    (2, 3, 5, 17, False, 1),
+    (4, 64, 96, 1, False, 4),      # K = 1
+    (3, 33, 40, 30, True, 3),      # spin glass, bands of several rows
+    (2, 256, 256, 300, False, 2),  # past the flush of the uint8 flip counts
+])
+def test_band_kernel_matches_plain(cuda, b, h, w, k, spin_glass, lat_b):
+    rs = np.random.default_rng([b, h, w, k])
+    init, k0b, k1b, t0b, logit = _band_operands(rs, b, h, w, spin_glass, cuda)
+    gk.reset_launches()
+    s, f = gk._launch_gibbs_chain_fused(
+        init.int(), _build.to_u32_bits(k0b), _build.to_u32_bits(k1b), _build.to_u32_bits(t0b),
+        logit, n_steps=k, lat_b=lat_b,
+    )
+    rs_, rf = gref.gibbs_chain_fused_ref(init, k0b, k1b, t0b, logit, k, lat_b)
+    assert s.dtype == rs_.dtype == torch.int32 and f.dtype == rf.dtype == torch.int32
+    assert torch.equal(s, rs_) and torch.equal(f, rf)
+    assert gk.LAUNCHES["gibbs_chain_fused"] == 1
+
+
+def test_band_kernel_groups(cuda):
+    """16 lattices of 1024 x 1024 under lat_b = 4 take more than one
+    cooperative launch; each group keeps its lattices' site bases."""
+    rs = np.random.default_rng(16)
+    init, k0b, k1b, t0b, logit = _band_operands(rs, 16, 1024, 1024, False, cuda)
+    groups = gk.plan_groups(16, 1024, 1024, **gk.band_limits(cuda.index, 1024))
+    assert len(groups) > 1
+    gk.reset_launches()
+    s, f = gk.gibbs_chain_fused(init, k0b, k1b, t0b, logit, n_steps=4, lat_b=4)
+    assert gk.LAUNCHES["gibbs_chain_fused"] == len(groups)
+    rs_, rf = gref.gibbs_chain_fused_ref(init, k0b, k1b, t0b, logit, 4, 4)
+    assert torch.equal(s, rs_) and torch.equal(f, rf)
+
+
+def test_band_kernel_refusals_raise(cuda):
+    init = torch.zeros(1, 2000, 8, dtype=torch.int32, device=cuda)
+    words = torch.zeros(1, dtype=torch.int32, device=cuda)
+    logit = gref.IsingLogit(0.3)
+    # more blocks than the card holds at once: the cooperative launch is refused
+    with pytest.raises(RuntimeError, match="failed to launch"):
+        gk._launch_gibbs_chain_fused(init, words, words, words, logit, n_steps=2, lat_b=1,
+                                     groups=[gk.Group(0, 1, 1000, 2)])
+    # a band of more rows than a block holds (csrc/gibbs.cu:band_max_rows)
+    rows = gk.band_limits(cuda.index, 8)["max_rows"]
+    with pytest.raises(RuntimeError, match="failed to launch"):
+        gk._launch_gibbs_chain_fused(init, words, words, words, logit, n_steps=2, lat_b=1,
+                                     groups=[gk.Group(0, 1, 1, rows + 1)])
+    # a lattice past the per-lattice limit
+    big = torch.zeros(1, 8192, 8192, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="too large for one cooperative launch"):
+        gk.gibbs_chain_fused(big, words, words, words, logit, n_steps=2, lat_b=1)
+
+
 @pytest.mark.parametrize("name", ["ising", "spin_glass"])
 @pytest.mark.parametrize("randomness", ["host", "cim", "fused"])
 @pytest.mark.parametrize("backend", ["scan", "pallas"])

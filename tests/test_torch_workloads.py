@@ -149,6 +149,7 @@ def _check_cell(jax_runs, lattice, randomness, execution, collect, num_chains, s
         np.float32(N) * np.float32(acc.size)
     )
     assert got["n_steps"] == N
+    return h.result
 
 
 @partitionable
@@ -170,6 +171,28 @@ def test_gibbs_engine_grid(jax_runs, randomness, execution, collect, num_chains,
 @pytest.mark.parametrize("step0", [0, 7])
 def test_gibbs_engine_lattices(jax_runs, lattice, randomness, execution, num_chains, step0):
     _check_cell(jax_runs, lattice, randomness, execution, "all", num_chains, step0, 4)
+
+
+@partitionable
+@pytest.mark.parametrize("lattice", ["ising", "odd"])
+@pytest.mark.parametrize("randomness", ["host", "cim", "fused"])
+@pytest.mark.parametrize("execution", ["scan", "pallas"])
+@pytest.mark.parametrize("collect", ["thin:3", "last"])
+def test_gibbs_results_keep_their_dtypes(jax_runs, lattice, randomness, execution, collect):
+    """The kernels write int32 spins; the engine's results stay int64 words
+    and int32 counts (the kept rows and the final words widened), equal to
+    JAX's Pallas-interpret run, and to the port's scan run."""
+    got = _check_cell(jax_runs, lattice, randomness, execution, collect, CHAINS, 7, 5)
+    assert got.samples.dtype == torch.int64 and got.final_words.dtype == torch.int64
+    assert got.accept_count.dtype == torch.int32 and got.final_logp.dtype == torch.float32
+    _, model = _models(lattice)
+    scan = ts.MHEngine(
+        ts.EngineConfig(**_cfg(randomness, execution="scan", num_chains=CHAINS, collect=collect)),
+        device="cpu",
+    ).submit(ts.RunPlan(target=model, n_steps=N, init_words=_init(lattice), seed=SEED, step0=7))
+    for f in FIELDS:
+        a, b = getattr(got, f), getattr(scan.result, f)
+        assert a.dtype == b.dtype and torch.equal(a, b), f
 
 
 @partitionable
