@@ -14,6 +14,11 @@ Builds the CUDA kernels from ``src/repro_torch/csrc`` and, on the card:
      the row is staged in shared memory) and V = 256,000 (minitron 4B's:
      the row is gathered from global memory);
   4. does the same for ``mh_chain_fused`` with a per-column step base;
+     then holds both at the shapes the chain-tile design must get right:
+     C = 1, ragged chain and step tiles, K = 0 and 1, nbits 1, 8, 16, 18
+     and 32, V at, below and above the longest staged row, odd V with odd
+     rows, cc < C with step bases wrapping past 2^31, B = 1, with a word
+     past 2^31 in every case;
   5. holds ``gibbs_chain`` and ``gibbs_chain_fused`` (``csrc/gibbs.cu``)
      against their plain versions with tolerance 0 on an odd 7 x 9 Ising
      lattice and a 6 x 8 spin glass, with a per-lattice parity and step
@@ -67,9 +72,14 @@ Builds the CUDA kernels from ``src/repro_torch/csrc`` and, on the card:
  12. times each kernel with CUDA events beside its plain version and its
      two bounds, at every shape above (``msxor`` with its input read from
      HBM: the launches rotate among copies that together exceed the L2;
-     ``gibbs_chain_fused`` also by the profiler's device time and with its
-     kernel launches per call), times ``sample_tokens``, and profiles one
-     segment of each main path (the whole Gibbs ``fused`` main path);
+     the MH kernels, ``gibbs_chain_fused`` and ``msxor`` also by the
+     profiler's device time), the MH kernels' row staging alone (K = 0),
+     checks that the MH wrappers put no device kernel or copy but
+     ``mh_chain_kernel`` in the profiler's trace, exactly one a call, times
+     ``sample_tokens``, and profiles one segment of each main path (the
+     whole Gibbs ``fused`` main path, the MH ``fused`` path at 4 and 16
+     chunks, which must make the same host-to-device copies: none in the
+     chunk loop);
  13. reads the instruction mix of the band kernel's per-site loops from
      the library's SASS (``cuobjdump``) and the issue-limited time it
      sets at the main shape.
@@ -87,6 +97,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
@@ -97,34 +108,43 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 ALU_OPS_PER_S = 67e12
 # 32-bit integer add, bitwise and shift results per clock per SM at compute
 # capability 9.0 (CUDA C++ Programming Guide, "Arithmetic Instructions"
-# throughput table): int_bound_ms is operations over this times the SMs
-# times the card's maximum SM clock (nvidia-smi clocks.max.sm)
+# throughput table), on the integer ALU
 INT_OPS_PER_CLOCK_PER_SM = 64
 # Results per clock per SM of the other units a warp scheduler feeds on
 # compute capability 9.0: the multiply-add unit, which also takes integer
 # adds and shifts issued as IMAD, and the four schedulers' issue slots
-# (one warp instruction a clock each)
+# (one warp instruction a clock each).  int_bound_ms is the larger of the
+# operations only the ALU does (logic, rotates, compares, selects) over
+# its rate and all integer operations over both units' rates, times the
+# SMs and the card's maximum SM clock (nvidia-smi clocks.max.sm)
 FMA_OPS_PER_CLOCK_PER_SM = 64
 ISSUE_PER_CLOCK_PER_SM = 128
 # Threefry-2x32-20 block: key schedule 2, initial adds 2, 20 rounds of
 # add/rotate/xor, 5 key injections of 3 adds
 THREEFRY_OPS = 2 + 2 + 20 * 3 + 5 * 3
+THREEFRY_ALU_OPS = 1 + 20 * 2  # of which ALU only: k0 ^ k1 ^ parity, rotates, XORs
 # the same block where only x0 is kept and the key and salt word are the
 # same for every site of a half-sweep (the band kernel's draw): the counter
 # add; round 1's add and xor (x1's rotate is common); rounds 2-19; round
 # 20's add (its x1 is not used); 4 key injections of 2 adds (the constant
 # folded into the key word) and the last one's add to x0
 THREEFRY_SITE_OPS = 1 + 2 + 18 * 3 + 1 + 4 * 2 + 1
+THREEFRY_SITE_ALU_OPS = 1 + 18 * 2  # round 1's XOR, rounds 2-19's rotates and XORs
+KEY_SCHEDULE_OPS, KEY_SCHEDULE_ALU_OPS = 2, 1  # of THREEFRY_OPS: k0 ^ k1 ^ parity
+FLIP_PLANE_OPS = 3  # a flip bit-plane's compare, shift and OR, all ALU
 STEP_OPS = 20  # XOR-propose, lookup, subtract, exp, compares, selects, count
 STEP_FP_OPS = 6  # of which float: the subtract, min, exp, flush, u < e, isfinite
+STEP_ALU_OPS = 12  # and of the integer ones all but the lookup's address and the count
 # one active Gibbs site of the operand kernel: four neighbour spins and
 # sums, the logit, 1/(1+exp), the compare, select and flip count
 GIBBS_OPS = 20
 GIBBS_FP_OPS = 18  # of which float: all but the select and the flip count
+GIBBS_ALU_OPS = 1  # the select
 # one active site of the band kernel beside its draw (integer): the shift
 # to 24 bits, the neighbour count (3 adds), the threshold compare, the
 # flip test and count
 BAND_SITE_INT_OPS = 7
+BAND_SITE_ALU_OPS = 3  # of which ALU only: the shift, the compare, the flip test
 # and the spin glass's float work a site: four spins (2 each), four
 # products, four sums, the doubling, the sigmoid (negate, exp, add,
 # divide) and the threshold (scale, ceil, convert)
@@ -176,25 +196,105 @@ def time_ms(torch, fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def device_ms(torch, fn, reps, match):
-    """Device time per call of the kernels whose name contains ``match``,
-    from the profiler's trace of ``reps`` calls after a warm-up; raises if
-    the trace holds no such kernel."""
+# Profiler sessions: all of them, those run again because their trace
+# came back empty or short of the kernels the run launched, what the empty
+# and short ones held, and the least (kernel start - its launch call's
+# start) over every traced launch: below 0, it is how far the profiler
+# placed a kernel before its own launch on the host's clock; and the lead
+# runs' launches whose kernel the trace lacks
+PROFILER = dict(sessions=0, rerun=0, incomplete=[], min_kernel_minus_launch_us=None,
+                lead_launches_lost=0)
+# The card idle between the lead run and the measured one, and after it.
+# The profiler keeps only kernels inside its capture window on the host's
+# clock, and on the H100's machine it placed kernels up to milliseconds
+# off their launches (tools/profiler_clock.py; PERF.md, Open questions)
+PAD_S = 0.1
+
+
+class Device(NamedTuple):
+    """A kernel or copy on the card, from the profiler's trace."""
+    name: str
+    self_device_time_total: float  # microseconds
+
+
+def traced(torch, run, match=None, launched=None, cpu=False, attempts=5):
+    """Profile ``run`` twice in one session, ``PAD_S`` of idle card after
+    each: the first run (the lead) warms up and is left out, because the
+    card's profiler has lost the first kernel of a session (PERF.md, Open
+    questions).  Returns the device records (name, microseconds) of the
+    kernels and copies launched by the second run, by the CUDA runtime's
+    correlation ids, and its wall milliseconds.  With ``match`` and
+    ``launched`` (a function that reads a kernel launch count), they must
+    hold exactly as many kernels whose name contains ``match`` as the count
+    grew by in the second run: a session whose trace is short is recorded,
+    with the launches whose kernels it lacks, and run again, at most
+    ``attempts`` times in all; the script fails if none is complete or one
+    holds more kernels than were launched."""
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
+    on_card = torch.autograd.DeviceType.CUDA
+    for _ in range(attempts):
+        PROFILER["sessions"] += 1
+        with profile(activities=activities) as prof:
+            run()
+            torch.cuda.synchronize()
+            time.sleep(PAD_S)
+            mark_ns = time.time_ns()
+            n0 = launched() if launched else 0
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            time.sleep(PAD_S)
+        want = launched() - n0 if launched else 0
+        raw = prof.profiler.kineto_results.events()
+        kernel_ids = {e.correlation_id() for e in raw if e.device_type() == on_card}
+        PROFILER["lead_launches_lost"] += sum(
+            e.device_type() != on_card and "Launch" in e.name() and e.start_ns() <= mark_ns
+            and e.correlation_id() not in kernel_ids for e in raw)
+        host = sorted((e for e in raw if e.device_type() != on_card and e.start_ns() > mark_ns),
+                      key=lambda e: e.start_ns())
+        ids = {e.correlation_id() for e in host} - {0}
+        on = [e for e in raw if e.device_type() == on_card and e.correlation_id() in ids]
+        device = [Device(e.name(), e.duration_ns() / 1e3) for e in on]
+        start = {e.correlation_id(): e.start_ns() for e in on}
+        calls = [e for e in host if "Launch" in e.name()]
+        lead = [(start[c.correlation_id()] - c.start_ns()) / 1e3
+                for c in calls if c.correlation_id() in start]
+        low = PROFILER["min_kernel_minus_launch_us"]
+        PROFILER["min_kernel_minus_launch_us"] = min(
+            lead + ([] if low is None else [low]), default=None)
+        found = sum(match in e.name for e in device) if match else 0
+        check(found <= want, f"the trace holds {found} {match} for {want} launches")
+        if device and found == want:
+            break
+        PROFILER["rerun"] += 1
+        PROFILER["incomplete"].append(dict(
+            match=match, launched=want, found=found, events=len(device),
+            runtime_launches=len(calls),
+            launches_without_kernel=[i for i, c in enumerate(calls)
+                                     if c.correlation_id() not in start],
+            kernel_minus_launch_us=[min(lead), max(lead)] if lead else None,
+            names=sorted({e.name[:50] for e in device}),
+            device_us=[round(e.self_device_time_total, 1) for e in device]))
+        emit(phase="profiler_incomplete", **PROFILER["incomplete"][-1])
+    check(device and found == want, f"{attempts} profiler sessions: {len(device)} device "
+          f"events, {found} {match} for {want} launches in the last")
+    return device, wall_ms
+
+
+def device_ms(torch, fn, reps, match, launched):
+    """Device time per call of ``fn``: the summed time of the kernels whose
+    name contains ``match`` in the profiler's trace of ``reps`` calls, over
+    ``reps``; the trace must hold every kernel the calls launched, as
+    ``launched`` counts them (``traced``)."""
+    def run():
         for _ in range(reps):
             fn()
-        torch.cuda.synchronize()
-    seen = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            seen[e.name[:60]] = seen.get(e.name[:60], 0.0) + e.self_device_time_total
-    total_us = sum(us for name, us in seen.items() if match in name)
-    check(total_us > 0, f"the profiler's trace holds no {match}: {sorted(seen)}")
-    return total_us / 1e3 / reps
+
+    events = traced(torch, run, match, launched)[0]
+    return sum(e.self_device_time_total for e in events if match in e.name) / reps / 1e3
 
 
 @contextlib.contextmanager
@@ -325,10 +425,11 @@ def main() -> int:
     print(card, flush=True)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     clock_hz = max_sm_clock_hz()
-    int_ops_per_s = INT_OPS_PER_CLOCK_PER_SM * sms * clock_hz
+    int_ops_per_s = (INT_OPS_PER_CLOCK_PER_SM + FMA_OPS_PER_CLOCK_PER_SM) * sms * clock_hz
+    alu_ops_per_s = INT_OPS_PER_CLOCK_PER_SM * sms * clock_hz
 
-    def int_bound_ms(ops):
-        return ops / int_ops_per_s * 1e3
+    def int_bound_ms(ops, alu_ops):
+        return max(ops / int_ops_per_s, alu_ops / alu_ops_per_s) * 1e3
 
     # 1. build -----------------------------------------------------------
     t0 = time.perf_counter()
@@ -343,7 +444,8 @@ def main() -> int:
         wall_s=time.perf_counter() - t0, ptxas=ptxas, card=card,
         kind=torch.cuda.get_device_name(0), torch=torch.__version__,
         cuda=torch.version.cuda, sms=sms, max_sm_clock_mhz=clock_hz / 1e6,
-        int_ops_per_s=int_ops_per_s, band_limits_1024=gk.band_limits(dev.index, LAT),
+        int_ops_per_s=int_ops_per_s, alu_ops_per_s=alu_ops_per_s,
+        band_limits_1024=gk.band_limits(dev.index, LAT),
     )
 
     # 2. cipher ----------------------------------------------------------
@@ -379,23 +481,28 @@ def main() -> int:
     max_err = {name: 0.0 for name in wrapper_of}
     cases = []  # (kernel, where, args, kw): every shape held and timed
 
-    def hold(name, where, args, kw):
+    def hold(name, where, args, kw, record=True):
         """The kernel against its plain version on the same operands, at
         tolerance 0; records the case for timing.  Returns (mismatched
         words, largest difference, accept or flip count per step)."""
         s_, a = wrapper_of[name](*args, **kw)
         rs, ra = plain_of[name](*args, **kw)
-        err = max(float((s_ - rs).abs().max()), float((a - ra).abs().max()))
+        err = max((float((x - y).abs().max()) for x, y in ((s_, rs), (a, ra)) if x.numel()),
+                  default=0.0)
         diff = int((s_ != rs).sum()) + int((a != ra).sum())
         ties = ties_of[name](*args) if diff and name in ties_of else []
         max_err[name] = max(max_err[name], err)
         check(diff == 0, f"{name} differs from its plain version at {where}: "
               f"{diff} words, max |err| {err}, tie events {len(ties)}")
-        cases.append((name, where, args, kw))
-        return diff, err, float(a.sum()) / a.numel() / s_.shape[0]
+        check(s_.dtype == rs.dtype and s_.shape == rs.shape, f"{name} at {where}: "
+              f"samples {s_.dtype} {tuple(s_.shape)}, plain {rs.dtype} {tuple(rs.shape)}")
+        if record:
+            cases.append((name, where, args, kw))
+        return diff, err, float(a.sum()) / max(a.numel() * s_.shape[0], 1)
 
     def from_launch(args):
-        """A recorded launch's int32-coded words back to int64 words."""
+        """A recorded launch's int32-coded words back to int64 words (the
+        Gibbs launches; the MH launches take the int64 words as they are)."""
         return tuple(
             _build.from_u32_bits(a) if getattr(a, "dtype", None) == torch.int32 else a
             for a in args
@@ -423,6 +530,52 @@ def main() -> int:
         emit(phase="mh_chain_fused", B=b, V=v, C=C, K=K, nbits=nbits, mismatches=diff,
              max_abs_err=err, accept_rate=rate,
              t0_min=int(t0c.min()), t0_max=int(t0c.max()))
+
+    # the chain-tile design at the shapes it must get right: one chain a
+    # row, ragged chain and step tiles, K = 0 and 1, every nbits template
+    # and the generic one, rows at and around the shared-memory limit,
+    # unaligned rows and their first and last words, folded columns with
+    # step bases wrapping past 2^31
+    limit = mh.staged_vocab(dev.index)
+    for where, (b, v, c, k, nbits, cc) in {
+        "C=1 (sample_tokens)": (B, V, 1, K, 16, 1),
+        "ragged C and K": (B, 301, 300, 37, 16, 300),
+        "K=0": (4, 500, 100, 0, 8, 100),
+        "K=1": (4, 500, 100, 1, 8, 100),
+        "nbits 1": (3, 2, 70, 20, 1, 70),
+        "nbits 8": (4, 256, 64, 32, 8, 64),
+        "nbits 16": (B, V, C, 16, 16, C),
+        "nbits 18": (B_WIDE, 70_001, C, 12, 18, C),
+        "nbits 32": (2, 1001, 50, 20, 32, 25),
+        "V at the staged limit": (3, limit, 40, 9, 16, 40),
+        "V below the staged limit": (3, limit - 1, 40, 9, 16, 40),
+        "V above the staged limit": (3, limit + 1, 40, 9, 16, 40),
+        "odd V, odd b": (5, 1003, 33, 19, 10, 33),
+        "cc < C": (3, 777, 96, 21, 16, 24),
+        "B=1 (gmm)": (1, 256, 64, 32, 8, 64),
+        "row ends": (5, 1003, 64, 30, 3, 64),
+        "row ends at the staged limit": (4, limit, 64, 30, 3, 64),
+    }.items():
+        table = table_of(b, v)
+        init = torch.randint(0, v, (b, c), generator=gen, device=dev)
+        if "row ends" in where:  # the ragged head and tail of unaligned rows
+            j = torch.arange(c, device=dev) % 8
+            init[:] = torch.where(torch.arange(c, device=dev) % 2 == 0, j, v - 1 - j)
+        init[0, 0] = 2**32 - 1  # outside the table: -inf until a finite move
+        flips = torch.randint(0, 2**nbits, (k, b, c), generator=gen, device=dev)
+        u = torch.randint(0, 2**16, (k, b, c), generator=gen, device=dev) / 2**16
+        k0c, k1c = (
+            torch.randint(0, 2**32, (c,), generator=gen, device=dev) for _ in range(2)
+        )
+        t0c = 2**31 - 5 + torch.randint(0, 9, (c,), generator=gen, device=dev)
+        d1, e1, r1 = hold("mh_chain", where, (table, init, flips, u, nbits), {}, record=False)
+        kw = dict(nbits=nbits, n_steps=k, cc=cc, p_u32=p_u32)
+        d2, e2, r2 = hold("mh_chain_fused", where, (table, init, k0c, k1c, t0c), kw,
+                          record=False)
+        emit(phase="mh_tile_shapes", where=where, B=b, V=v, C=c, K=k, nbits=nbits, cc=cc,
+             staged=v <= limit, mismatches=[d1, d2], max_abs_err=[e1, e2],
+             accept_rate=[r1, r2])
+    del table, init, flips, u
 
     # 5. the Gibbs kernels against their plain versions ---------------------
     for h, w, glass in ((7, 9, False), (6, 8, True)):
@@ -890,15 +1043,26 @@ def main() -> int:
         k = kw["n_steps"] if kw else args[2].shape[0]
         nbits = kw["nbits"] if kw else args[4]
         steps = k * b * c
-        nbytes = 4 * (b * v + 2 * b * c + steps)  # table, init, accept, samples
+        # the table, int64 init words and samples, int32 accept counts
+        nbytes = 4 * b * v + 12 * b * c + 8 * steps
         if name == "mh_chain":
-            nbytes += 8 * steps  # flip words and uniforms
+            nbytes += 12 * steps  # int64 flip words and float32 uniforms
             ops = STEP_OPS * steps
+            alu = STEP_ALU_OPS * steps
         else:
-            nbytes += 12 * c  # per-column key words and step base
-            ops = steps * ((nbits + 2) * THREEFRY_OPS + 3 * nbits + STEP_OPS)
+            nbytes += 24 * c  # int64 per-column key words and step base
+            # a chain-step's nbits flip draws and its uniform keep only x0,
+            # and the B rows of a column share its step key (a block with
+            # the draws' key schedule), each plane's salt word and x1's
+            # first rotate; the column key's schedule is once a column
+            keys = k * c
+            ops = (steps * ((nbits + 1) * THREEFRY_SITE_OPS + FLIP_PLANE_OPS * nbits + STEP_OPS)
+                   + keys * (THREEFRY_OPS + 2 * (nbits + 1)) + KEY_SCHEDULE_OPS * c)
+            alu = (steps * ((nbits + 1) * THREEFRY_SITE_ALU_OPS + FLIP_PLANE_OPS * nbits
+                            + STEP_ALU_OPS)
+                   + keys * (THREEFRY_ALU_OPS + (nbits + 1)) + KEY_SCHEDULE_ALU_OPS * c)
         shape = dict(B=b, V=v, C=c, K=k, nbits=nbits, **({"cc": kw["cc"]} if kw else {}))
-        return nbytes, ops, ops - STEP_FP_OPS * steps, shape
+        return nbytes, ops, ops - STEP_FP_OPS * steps, alu, shape
 
     def gibbs_cost(name, args, kw):
         fused = name == "gibbs_chain_fused"
@@ -915,23 +1079,26 @@ def main() -> int:
             nbytes += 4 * k * sites  # the uniforms
             ops = GIBBS_OPS * active
             int_ops = (GIBBS_OPS - GIBBS_FP_OPS) * active
+            alu = GIBBS_ALU_OPS * active
         else:
             nbytes += 8 * b  # the key words
             # a draw and the flip per active site, a step key per lattice
             # and half-sweep; the Ising flip is a table lookup, the spin
             # glass's is float work
             int_ops = (THREEFRY_SITE_OPS + BAND_SITE_INT_OPS) * active + THREEFRY_OPS * k * b
+            alu = ((THREEFRY_SITE_ALU_OPS + BAND_SITE_ALU_OPS) * active
+                   + THREEFRY_ALU_OPS * k * b)
             glass = isinstance(logit, gref.SpinGlassLogit)
             ops = int_ops + (GLASS_SITE_FP_OPS * active if glass else 0)
-        return nbytes, ops, int_ops, dict(B=b, H=h, W=w, K=k, active_site_steps=active,
+        return nbytes, ops, int_ops, alu, dict(B=b, H=h, W=w, K=k, active_site_steps=active,
                                           **({"lat_b": kw["lat_b"]} if kw else {}))
 
     shapes = {name: [] for name in wrapper_of}
     for name, where, args, kw in cases:
         cost = gibbs_cost if name.startswith("gibbs") else mh_cost
-        nbytes, ops, int_ops, shape = cost(name, args, kw)
+        nbytes, ops, int_ops, alu, shape = cost(name, args, kw)
         bound, bound_by = bound_ms(nbytes, ops)
-        coded = tuple(
+        coded = args if name.startswith("mh") else tuple(  # the Gibbs launches' int32 words
             _build.to_u32_bits(a) if getattr(a, "dtype", None) == torch.int64 else a
             for a in args
         )
@@ -941,8 +1108,8 @@ def main() -> int:
             ms=time_ms(torch, lambda: wrapper_of[name](*args, **kw), 5 if big else 20),
             kernel_ms=time_ms(torch, lambda: launch_of[name](*coded, **kw), 5 if big else 20),
             plain_ms=time_ms(torch, lambda: plain_of[name](*args, **kw), 2 if big else 3),
-            bound_ms=bound, bound_by=bound_by, int_bound_ms=int_bound_ms(int_ops),
-            bytes=nbytes, ops=ops, int_ops=int_ops,
+            bound_ms=bound, bound_by=bound_by, int_bound_ms=int_bound_ms(int_ops, alu),
+            bytes=nbytes, ops=ops, int_ops=int_ops, alu_ops=alu,
         )
         if name == "gibbs_chain_fused":
             gk.reset_launches()
@@ -950,8 +1117,43 @@ def main() -> int:
             row["kernel_launches_per_call"] = gk.LAUNCHES[name]
             row["device_ms"] = device_ms(
                 torch, lambda: launch_of[name](*coded, **kw), 5 if big else 20,
-                "gibbs_band_kernel")
+                "gibbs_band_kernel", lambda: gk.LAUNCHES[name])
+        if name.startswith("mh"):
+            row["device_ms"] = device_ms(
+                torch, lambda: launch_of[name](*coded, **kw), 20, "mh_chain_kernel",
+                lambda: mh.LAUNCHES[name])
         shapes[name].append(row)
+        emit(phase="timing", kernel=name, **row)
+
+    # the MH kernels at the main shape: the row staging alone (one launch at
+    # K = 0), and one wrapper call is one device kernel, with no conversion
+    for name in ("mh_chain", "mh_chain_fused"):
+        where, args, kw = next((w, a, k) for n, w, a, k in cases if n == name)
+        args0 = list(args)
+        if name == "mh_chain":
+            args0[2], args0[3] = args[2][:0], args[3][:0]
+        kw0 = dict(kw, n_steps=0) if kw else kw
+        main = shapes[name][0]
+        main["staging_device_ms"] = device_ms(
+            torch, lambda: launch_of[name](*args0, **kw0), 20, "mh_chain_kernel",
+            lambda: mh.LAUNCHES[name])
+        calls, grew = 20, []
+
+        def run():
+            n0 = mh.LAUNCHES[name]
+            for _ in range(calls):
+                wrapper_of[name](*args, **kw)
+            grew.append(mh.LAUNCHES[name] - n0)
+
+        names = [e.name for e in traced(torch, run, "mh_chain_kernel",
+                                        lambda: mh.LAUNCHES[name])[0]]
+        check(grew[-1] == calls and len(names) == calls,
+              f"{calls} {name} calls counted {grew[-1]} launches and ran {len(names)} device "
+              f"kernels and copies ({sorted(set(names))}), not {calls} mh_chain_kernel")
+        main["device_kernels"] = sorted(set(names))
+        emit(phase="mh_one_kernel", kernel=name, where=where, calls=calls,
+             device_kernels=main["device_kernels"], kernels_in_trace=len(names),
+             staging_device_ms=main["staging_device_ms"], device_ms=main["device_ms"])
 
     # 13. the band kernel's per-site loops in SASS ------------------------------
     # Each active site takes one iteration of a draw loop (its Threefry
@@ -1003,8 +1205,9 @@ def main() -> int:
             ms=main["ms"], kernel_ms=main["kernel_ms"], plain_ms=main["plain_ms"],
             bound_ms=main["bound_ms"], bound_by=main["bound_by"],
             int_bound_ms=main["int_bound_ms"], library_ms=None,
-            **{k: main[k] for k in ("device_ms", "kernel_launches_per_call",
-                                    "issue_bound_ms") if k in main},
+            **{k: main[k] for k in ("device_ms", "staging_device_ms", "device_kernels",
+                                    "kernel_launches_per_call", "issue_bound_ms")
+               if k in main},
             main_path=path, main_shape=main["where"],
             launches_by_path={p: n[name] for p, n in launches_by_path.items()
                               if n.get(name)},
@@ -1033,13 +1236,14 @@ def main() -> int:
             plain_ms=time_ms(torch, lambda: (
                 xref.msxor_uniform_ref if to_uniform else xref.msxor_fold_ref)(nxt(), n_stages),
                 5 if big else 20),
-            bound_ms=bound, bound_by=bound_by, int_bound_ms=int_bound_ms(int_ops),
+            bound_ms=bound, bound_by=bound_by, int_bound_ms=int_bound_ms(int_ops, int_ops),
             bytes=nbytes, ops=ops, int_ops=int_ops,
         ))
         # the launch from Python takes longer than the kernel at the Fig. 9
         # shape; the profiler's device time is the kernel's own
         dev_ms = device_ms(torch, lambda: xk._launch_msxor(
-            nxt(), n_stages=n_stages, to_uniform=to_uniform), 20, "msxor_kernel")
+            nxt(), n_stages=n_stages, to_uniform=to_uniform), 20, "msxor_kernel",
+            lambda: xk.LAUNCHES["msxor"])
         msxor_shapes[-1].update(device_ms=dev_ms,
                                 device_rate_TBps=nbytes / dev_ms / 1e9,
                                 device_over_bound=dev_ms / bound)
@@ -1069,34 +1273,50 @@ def main() -> int:
     emit(phase="cim_breakdown", chunk_steps=K, operand_draw_ms=draw_ms,
          kernel_ms=kernels[0]["ms"], main_path_ms_per_chunk={
              r: path_s[r] * 1e3 / (N_STEPS // K) for r in path_s})
-    from torch.profiler import ProfilerActivity, profile
 
-    def profiled(run, **record):
-        """One warm-up run, then one run under the profiler: wall time,
-        device busy time and share, and the kernels that took the most."""
-        run()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            run()
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        by_kernel = {}
-        for e in prof.events():
-            if e.device_type == torch.autograd.DeviceType.CUDA:
-                by_kernel[e.name] = by_kernel.get(e.name, 0.0) + e.self_device_time_total / 1e3
+    def profiled(run, match, launched, **record):
+        """One run under the profiler after a lead run, whose trace holds
+        every kernel named ``match`` that it launched (``traced``):
+        wall time, device busy time and share, the kernels that took the
+        most, and the host-to-device copies; returns the record."""
+        events, wall_ms = traced(torch, run, match, launched, cpu=True)
+        by_kernel, calls = {}, {}
+        for e in events:
+            by_kernel[e.name] = by_kernel.get(e.name, 0.0) + e.self_device_time_total / 1e3
+            calls[e.name] = calls.get(e.name, 0) + 1
         busy_ms = sum(by_kernel.values())
         top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:4]
-        emit(phase="profile", **record, wall_ms_profiled=wall_ms, device_busy_ms=busy_ms,
-             device_busy_share=busy_ms / wall_ms,
-             top_kernels_ms=[[name[:100], ms] for name, ms in top])
+        out = dict(phase="profile", **record, wall_ms_profiled=wall_ms, device_busy_ms=busy_ms,
+                   device_busy_share=busy_ms / wall_ms,
+                   top_kernels_ms=[[name[:100], ms] for name, ms in top],
+                   htod_copies=sum(n for name, n in calls.items() if "HtoD" in name),
+                   mh_kernel_launches=sum(n for name, n in calls.items()
+                                          if "mh_chain_kernel" in name))
+        emit(**out)
+        return out
 
-    for randomness in ("cim", "fused"):
+    mh_profiles = {}
+    for randomness, n_steps in (("cim", 256), ("fused", 256), ("fused", N_STEPS)):
         eng = samplers.MHEngine(samplers.EngineConfig(randomness=randomness))
         plan = samplers.RunPlan(
-            target=samplers.TableTarget(logits), n_steps=256, init_words=init, seed=SEED
+            target=samplers.TableTarget(logits), n_steps=n_steps, init_words=init, seed=SEED
         )
-        profiled(lambda: eng.submit(plan), randomness=randomness, n_steps=256)
+        mh_profiles[randomness, n_steps] = profiled(
+            lambda: eng.submit(plan), "mh_chain_kernel", lambda: sum(mh.LAUNCHES.values()),
+            randomness=randomness, n_steps=n_steps)
+    # the fused chunk loop copies nothing from the host: a submit of 16
+    # chunks makes as many host-to-device copies as one of 4 (the set-up's)
+    short, full = mh_profiles["fused", 256], mh_profiles["fused", N_STEPS]
+    check(short["mh_kernel_launches"] == 256 // K and full["mh_kernel_launches"] == N_STEPS // K,
+          f"fused submits launched {short['mh_kernel_launches']} and "
+          f"{full['mh_kernel_launches']} MH kernels")
+    check(full["htod_copies"] == short["htod_copies"],
+          f"the fused chunk loop copies from the host: {short['htod_copies']} copies in "
+          f"{256 // K} chunks, {full['htod_copies']} in {N_STEPS // K}")
+    emit(phase="mh_fused_chunk_loop", chunks=[256 // K, N_STEPS // K],
+         htod_copies=[short["htod_copies"], full["htod_copies"]],
+         htod_copies_in_chunk_loop=0, wall_ms_profiled=full["wall_ms_profiled"],
+         device_busy_share=full["device_busy_share"])
 
     # the Gibbs paths: per-chunk wall time against the kernel call alone
     by_name = {k["name"]: k for k in kernels}
@@ -1116,11 +1336,17 @@ def main() -> int:
     ):
         wl = workloads.build("ising", prng.PRNGKey(SEED, device=dev), randomness=randomness,
                              backend="pallas", beta=BETA, **kw)
-        profiled(lambda: wl.run(prng.PRNGKey(SEED + 1, device=dev)), workload="ising",
+        # the operand kernel's entry point launches one kernel a half-sweep
+        name = g_kernel_of[randomness]
+        match, per_call = (("gibbs_band_kernel", 1) if randomness == "fused"
+                           else ("gibbs_sweep_kernel", kw["chunk_steps"]))
+        profiled(lambda: wl.run(prng.PRNGKey(SEED + 1, device=dev)), match,
+                 lambda: gk.LAUNCHES[name] * per_call, workload="ising",
                  randomness=randomness, lattice=f"{kw['height']}x{kw['width']}",
                  B=kw["batch"], n_steps=kw["n_steps"], chunk_steps=kw["chunk_steps"])
         del wl
 
+    emit(phase="profiler_sessions", **PROFILER)
     emit(phase="total", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({

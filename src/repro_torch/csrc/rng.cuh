@@ -68,14 +68,26 @@ __device__ __forceinline__ float uniform_at(uint32_t s0, uint32_t s1,
          (1.0f / 16777216.0f);
 }
 
-// Flip word: bit i is (draw of stream FLIP_SALT + i) < p_u32.
+// Flip word: bit i is (draw of stream FLIP_SALT + i) < p_u32.  NB is nbits
+// when it is known at compile time (the planes are then fully unrolled, so
+// their independent blocks overlap), else 0 and the loop is unrolled by 4.
+template <int NB = 0>
 __device__ __forceinline__ uint32_t flips_at(uint32_t s0, uint32_t s1,
                                              uint32_t site, int nbits,
                                              uint32_t p_u32) {
   uint32_t word = 0u;
-  for (int i = 0; i < nbits; ++i) {
-    const uint32_t d = raw_draw(s0, s1, site, kFlipSalt + static_cast<uint32_t>(i));
-    word |= static_cast<uint32_t>(d < p_u32) << i;
+  if (NB > 0) {
+#pragma unroll
+    for (int i = 0; i < NB; ++i) {
+      const uint32_t d = raw_draw(s0, s1, site, kFlipSalt + static_cast<uint32_t>(i));
+      word |= static_cast<uint32_t>(d < p_u32) << i;
+    }
+  } else {
+#pragma unroll 4
+    for (int i = 0; i < nbits; ++i) {
+      const uint32_t d = raw_draw(s0, s1, site, kFlipSalt + static_cast<uint32_t>(i));
+      word |= static_cast<uint32_t>(d < p_u32) << i;
+    }
   }
   return word;
 }

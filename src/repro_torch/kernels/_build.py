@@ -7,9 +7,10 @@ and the objects are linked into one shared library under
 hash of the sources and flags, and loaded with ``ctypes``.  Nothing is
 built when a module is imported, so the CPU tests never need ``nvcc``.
 
-uint32 data crosses the C interface as int32 tensors holding the same
-32 bits (``to_u32_bits`` / ``from_u32_bits``); on the Python side the
-port carries uint32 words as int64.
+On the Python side the port carries uint32 words as int64.  The MH and
+MSXOR kernels read and write those int64 tensors as they are (the low 32
+bits); the Gibbs kernels and the cipher take their words as int32 tensors
+holding the same 32 bits (``to_u32_bits`` / ``from_u32_bits``).
 """
 
 from __future__ import annotations
@@ -42,13 +43,16 @@ _U = ctypes.c_uint32
 _F = ctypes.c_float
 _L = ctypes.c_longlong
 _SIGNATURES = {
-    # table, init, flips, u, samples, accept, B, V, C, K, mask, stream
+    # table (f32), init (i64), flips (i64), u (f32), samples (i64),
+    # accept (i32), B, V, C, K, mask, stream
     "repro_mh_chain": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _U, _P),
-    # table, init, k0c, k1c, t0c, samples, accept,
+    # table (f32), init, k0c, k1c, t0c (i64), samples (i64), accept (i32),
     # B, V, C, K, nbits, cc, p_u32, mask, stream
     "repro_mh_chain_fused": (
         _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _U, _U, _P
     ),
+    # out: the longest row the MH kernel stages in shared memory
+    "repro_mh_staged_vocab": (_P,),
     # k0, k1, x0, x1, y0, y1, n, stream
     "repro_threefry2x32": (_P, _P, _P, _P, _P, _P, _I, _P),
     # init, u, parity0, beta, field, samples, flips, B, H, W, K, stream

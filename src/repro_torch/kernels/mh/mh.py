@@ -9,12 +9,15 @@ launch fails; for CPU tensors it runs the plain version in ``ref.py``,
 which plays the role of the Pallas interpret mode.  There is no other
 fallback.
 
-Words are uint32 values held in int64 tensors on both sides of the
-wrapper; they cross into the kernel as int32 tensors with the same bits.
-``LAUNCHES`` counts the kernel launches of each wrapper.
+Words are uint32 values held in int64 tensors, and the kernel reads and
+writes them so (the low 32 bits), so a wrapper call on the card is one
+kernel launch and nothing else.  ``LAUNCHES`` counts the kernel launches
+of each wrapper.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -23,7 +26,7 @@ from repro_torch.kernels.mh.ref import mh_chain_fused_ref, mh_chain_ref
 
 LAUNCHES = {"mh_chain": 0, "mh_chain_fused": 0}
 
-_INT = (torch.int32, torch.int64)
+_WORDS = (torch.int64,)
 
 
 def reset_launches() -> None:
@@ -60,6 +63,18 @@ def _check_grid(b: int, c: int, v: int, k: int) -> None:
         raise ValueError(f"MH kernel cannot take B={b}, C={c}, V={v}, K={k}")
 
 
+def staged_vocab(device_index: int) -> int:
+    """The longest table row (V) the kernel stages in shared memory on a
+    card, as ``csrc/mh.cu`` reckons it; a longer row is gathered from
+    global memory."""
+    lib = _build.library()
+    out = ctypes.c_int()
+    with torch.cuda.device(device_index):
+        err = lib.repro_mh_staged_vocab(ctypes.byref(out))
+    _build.check(lib, err, "repro_mh_staged_vocab")
+    return out.value
+
+
 def mh_chain(
     table: torch.Tensor,   # (B, V) float32
     init: torch.Tensor,    # (B, C) uint32 words (int64)
@@ -74,28 +89,26 @@ def mh_chain(
     dev = _check_table(table, nbits)
     b, v = table.shape
     k, c = flips.shape[0], init.shape[-1]
-    _check("init", init, (b, c), _INT, dev)
-    _check("flips", flips, (k, b, c), _INT, dev)
+    _check("init", init, (b, c), _WORDS, dev)
+    _check("flips", flips, (k, b, c), _WORDS, dev)
     _check("u", u, (k, b, c), (torch.float32,), dev)
     if dev.type == "cpu":
         return mh_chain_ref(table, init, flips, u, nbits)
     _check_grid(b, c, v, k)
-    samples, accept = _launch_mh_chain(
-        table, _build.to_u32_bits(init), _build.to_u32_bits(flips),
-        u.contiguous(), nbits,
+    return _launch_mh_chain(
+        table, init.contiguous(), flips.contiguous(), u.contiguous(), nbits
     )
-    return _build.from_u32_bits(samples), accept
 
 
-def _launch_mh_chain(table, init32, flips32, u, nbits: int):
-    """One launch of ``mh_chain_kernel`` with ``OperandDraw`` on int32-coded words."""
+def _launch_mh_chain(table, init, flips, u, nbits: int):
+    """One launch of ``mh_chain_kernel`` with ``OperandDraw``."""
     lib = _build.library()
-    k, b, c = flips32.shape
-    samples = torch.empty((k, b, c), dtype=torch.int32, device=table.device)
+    k, b, c = flips.shape
+    samples = torch.empty((k, b, c), dtype=torch.int64, device=table.device)
     accept = torch.empty((b, c), dtype=torch.int32, device=table.device)
     with torch.cuda.device(table.device):
         err = lib.repro_mh_chain(
-            table.data_ptr(), init32.data_ptr(), flips32.data_ptr(), u.data_ptr(),
+            table.data_ptr(), init.data_ptr(), flips.data_ptr(), u.data_ptr(),
             samples.data_ptr(), accept.data_ptr(), b, table.shape[1], c, k,
             (1 << nbits) - 1, torch.cuda.current_stream(table.device).cuda_stream,
         )
@@ -123,9 +136,9 @@ def mh_chain_fused(
     dev = _check_table(table, nbits)
     b, v = table.shape
     c = init.shape[-1]
-    _check("init", init, (b, c), _INT, dev)
+    _check("init", init, (b, c), _WORDS, dev)
     for name, x in (("k0c", k0c), ("k1c", k1c), ("t0c", t0c)):
-        _check(name, x, (c,), _INT, dev)
+        _check(name, x, (c,), _WORDS, dev)
     if not 0 < cc <= c or not 0 <= p_u32 <= 0xFFFFFFFF:
         raise ValueError(f"need 0 < cc <= C={c} and p_u32 in uint32, got {cc}, {p_u32}")
     if dev.type == "cpu":
@@ -134,26 +147,22 @@ def mh_chain_fused(
             p_u32=p_u32,
         )
     _check_grid(b, c, v, n_steps)
-    samples, accept = _launch_mh_chain_fused(
-        table, _build.to_u32_bits(init), _build.to_u32_bits(k0c),
-        _build.to_u32_bits(k1c), _build.to_u32_bits(t0c), nbits=nbits,
-        n_steps=n_steps, cc=cc, p_u32=p_u32,
+    return _launch_mh_chain_fused(
+        table, init.contiguous(), k0c.contiguous(), k1c.contiguous(),
+        t0c.contiguous(), nbits=nbits, n_steps=n_steps, cc=cc, p_u32=p_u32,
     )
-    return _build.from_u32_bits(samples), accept
 
 
-def _launch_mh_chain_fused(
-    table, init32, k0c32, k1c32, t0c32, *, nbits, n_steps, cc, p_u32
-):
-    """One launch of ``mh_chain_kernel`` with ``FusedDraw`` on int32-coded words."""
+def _launch_mh_chain_fused(table, init, k0c, k1c, t0c, *, nbits, n_steps, cc, p_u32):
+    """One launch of ``mh_chain_kernel`` with ``FusedDraw``."""
     lib = _build.library()
-    b, c = init32.shape
-    samples = torch.empty((n_steps, b, c), dtype=torch.int32, device=table.device)
+    b, c = init.shape
+    samples = torch.empty((n_steps, b, c), dtype=torch.int64, device=table.device)
     accept = torch.empty((b, c), dtype=torch.int32, device=table.device)
     with torch.cuda.device(table.device):
         err = lib.repro_mh_chain_fused(
-            table.data_ptr(), init32.data_ptr(), k0c32.data_ptr(),
-            k1c32.data_ptr(), t0c32.data_ptr(), samples.data_ptr(),
+            table.data_ptr(), init.data_ptr(), k0c.data_ptr(),
+            k1c.data_ptr(), t0c.data_ptr(), samples.data_ptr(),
             accept.data_ptr(), b, table.shape[1], c, n_steps, nbits, cc, p_u32,
             (1 << nbits) - 1, torch.cuda.current_stream(table.device).cuda_stream,
         )

@@ -7,6 +7,7 @@ mask their ragged edge themselves, so nothing is padded here.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import rng
@@ -25,10 +26,14 @@ def mh_sample_fused(
     """One chunk with in-kernel randomness (``fused``).  ``t0`` is an int
     or a per-column (C,) tensor of absolute-step bases — a runtime operand,
     so columns at different stream offsets share one launch; ``cc`` is the
-    per-chain column count."""
+    per-chain column count.  An int is filled in on the device: a copy from
+    the host would wait for the card, and the engine's chunk loop could not
+    run ahead."""
     c = init.shape[-1]
-    t0c = torch.as_tensor(t0, dtype=torch.int64, device=init.device)
-    t0c = t0c.expand(c).contiguous()
+    if isinstance(t0, (int, np.integer)):
+        t0c = torch.full((c,), int(t0), dtype=torch.int64, device=init.device)
+    else:
+        t0c = torch.as_tensor(t0, dtype=torch.int64, device=init.device).expand(c).contiguous()
     return mh_chain_fused(
         table, init, k0c, k1c, t0c, nbits=nbits, n_steps=n_steps, cc=cc,
         p_u32=rng.threshold_u32(p_bfr),

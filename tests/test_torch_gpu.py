@@ -74,6 +74,61 @@ def test_kernels_match_plain(cuda, v):
     assert mh.LAUNCHES == {"mh_chain": 1, "mh_chain_fused": 1}
 
 
+# (B, V, C, K, nbits, cc) the chain-tile kernel must get right; V as an
+# offset from the longest staged row where it is a string
+MH_SHAPES = {
+    "C=1": (8, 49_155, 1, 40, 16, 1),
+    "ragged C and K": (64, 301, 300, 37, 16, 300),
+    "K=0": (4, 500, 100, 0, 8, 100),
+    "K=1": (4, 500, 100, 1, 8, 100),
+    "nbits 1": (3, 2, 70, 20, 1, 70),
+    "nbits 18": (2, 70_001, 64, 12, 18, 64),
+    "nbits 32": (2, 1001, 50, 20, 32, 25),
+    "V at the staged limit": (3, "0", 40, 9, 16, 40),
+    "V below the staged limit": (3, "-1", 40, 9, 16, 40),
+    "V above the staged limit": (3, "+1", 40, 9, 16, 40),
+    "odd V, odd b": (5, 1003, 33, 19, 10, 33),
+    "cc < C": (3, 777, 96, 21, 16, 24),
+    "B=1": (1, 256, 64, 32, 8, 64),
+    "row ends": (5, 1003, 64, 30, 3, 64),
+    "row ends at the staged limit": (4, "0", 64, 30, 3, 64),
+}
+
+
+def _row_ends(b, c, v):
+    """(B, C) words at both ends of a row: the ragged head and tail of an
+    unaligned row are the first and last words, and 3-bit flips keep a
+    chain among them (or move it past V, to -inf)."""
+    j = torch.arange(c) % 8
+    return torch.where(torch.arange(c) % 2 == 0, j, v - 1 - j).expand(b, c).contiguous()
+
+
+@pytest.mark.parametrize("case", list(MH_SHAPES))
+def test_mh_kernels_hold_at_tile_shapes(cuda, case):
+    """Both MH kernels against their plain versions at tolerance 0, with
+    words past 2^31 and per-column step bases near 2^31 (wrapping)."""
+    b, v, c, k, nbits, cc = MH_SHAPES[case]
+    if isinstance(v, str):
+        v = mh.staged_vocab(cuda.index) + int(v)
+    rs = np.random.default_rng(sum(map(ord, case)))
+    table = torch.from_numpy((rs.normal(size=(b, v)) * 3).astype(np.float32)).to(cuda)
+    init = (_row_ends(b, c, v) if "row ends" in case else _words(rs, (b, c), v)).to(cuda)
+    init[0, 0] = 2**32 - 1  # outside the table: -inf until a finite move
+    flips = _words(rs, (k, b, c), 2**nbits).to(cuda)
+    u = rs.integers(0, 2**16, size=(k, b, c)) / 2**16
+    u = torch.from_numpy(u.astype(np.float32)).to(cuda)
+    s, a = mh.mh_chain(table, init, flips, u, nbits)
+    rs_, ra = ref.mh_chain_ref(table, init, flips, u, nbits)
+    assert s.dtype == torch.int64 and tuple(s.shape) == (k, b, c)
+    assert torch.equal(s, rs_) and torch.equal(a, ra)
+    k0c, k1c = (_words(rs, (c,), 2**32).to(cuda) for _ in range(2))
+    t0c = torch.from_numpy(2**31 - 5 + rs.integers(0, 9, size=c)).to(cuda)
+    kw = dict(nbits=nbits, n_steps=k, cc=cc, p_u32=rng.threshold_u32(0.45))
+    s, a = mh.mh_chain_fused(table, init, k0c, k1c, t0c, **kw)
+    rs_, ra = ref.mh_chain_fused_ref(table, init, k0c, k1c, t0c, **kw)
+    assert torch.equal(s, rs_) and torch.equal(a, ra)
+
+
 def test_launch_errors_raise(cuda):
     table = torch.zeros(70_000, 2, device=cuda).t()  # not contiguous
     init = torch.zeros(2, 4, dtype=torch.int64, device=cuda)

@@ -90,6 +90,68 @@ def test_fused_kernel_matches_pallas(b, v, c, k, nbits, cc):
     np.testing.assert_array_equal(np.asarray(ja), ta.numpy())
 
 
+@pytest.mark.parametrize("t0", [2**31 - 3, "per-column"])
+def test_sample_fused_t0_int_or_per_column(monkeypatch, t0):
+    """``mh_sample_fused`` takes an int step base (filled in on the device,
+    never copied from the host) or a per-column tensor, as the JAX entry
+    point does."""
+    b, v, c, k, nbits, cc = 2, 200, 12, 9, 8, 4
+    rs = np.random.default_rng(41)
+    table = (rs.normal(size=(b, v)) * 3).astype(np.float32)
+    init = rs.integers(0, v, size=(b, c)).astype(np.uint32)
+    k0c, k1c = (rs.integers(0, 2**32, size=c, dtype=np.uint64).astype(np.uint32) for _ in range(2))
+    if t0 == "per-column":
+        t0 = rs.integers(2**31 - 9, 2**31, size=c).astype(np.int32)
+        jt0, tt0 = jnp.asarray(t0), _t(t0)
+    else:
+        jt0 = tt0 = t0
+        real = torch.as_tensor
+
+        def no_host_copy(x, *a, **kw):
+            assert not isinstance(x, int), "an int t0 went through a host copy"
+            return real(x, *a, **kw)
+
+        monkeypatch.setattr(ops.torch, "as_tensor", no_host_copy)
+    js, ja = jops.mh_sample_fused(
+        jnp.asarray(table), jnp.asarray(init), jnp.asarray(k0c), jnp.asarray(k1c),
+        n_steps=k, t0=jt0, nbits=nbits, p_bfr=0.45, cc=cc,
+    )
+    ts_, ta = ops.mh_sample_fused(
+        _t(table), _t(init), _t(k0c), _t(k1c), n_steps=k, t0=tt0, nbits=nbits,
+        p_bfr=0.45, cc=cc,
+    )
+    np.testing.assert_array_equal(np.asarray(js).astype(np.int64), ts_.numpy())
+    np.testing.assert_array_equal(np.asarray(ja), ta.numpy())
+
+
+def test_words_past_2_31_carry_through():
+    """The wrappers' int64 contract: uint32 words held in int64, values at
+    and past 2^31 carried through unchanged (a word outside the table has
+    log-prob -inf until a finite move), samples int64 (K, B, C), accept
+    int32 (B, C); equal to the Pallas kernel on the same uint32 words."""
+    b, v, c, k, nbits = 2, 50, 6, 12, 32
+    rs = np.random.default_rng(7)
+    table = (rs.normal(size=(b, v)) * 3).astype(np.float32)
+    init = rs.integers(0, v, size=(b, c)).astype(np.uint32)
+    init[0, :3] = [2**31, 2**32 - 1, 2**31 + 5]
+    flips = np.zeros((k, b, c), np.uint32)
+    flips[5, 0, 1] = (2**32 - 1) ^ 7  # to word 7, inside the table
+    flips[3, 1, 2] = 2**31  # out of the table: rejected
+    u = rs.random(size=(k, b, c)).astype(np.float32)
+    js, ja = jmh.mh_chain_pallas(
+        jnp.asarray(table), jnp.asarray(init), jnp.asarray(flips), jnp.asarray(u),
+        nbits=nbits, block_c=c, interpret=True,
+    )
+    ts_, ta = mh.mh_chain(_t(table), _t(init), _t(flips), _t(u), nbits)
+    assert ts_.dtype == torch.int64 and tuple(ts_.shape) == (k, b, c)
+    assert ta.dtype == torch.int32 and tuple(ta.shape) == (b, c)
+    np.testing.assert_array_equal(np.asarray(js).astype(np.int64), ts_.numpy())
+    np.testing.assert_array_equal(np.asarray(ja), ta.numpy())
+    assert ts_[:, 0, 0].tolist() == [2**31] * k
+    assert ts_[:5, 0, 1].tolist() == [2**32 - 1] * 5 and ts_[5:, 0, 1].tolist() == [7] * 7
+    assert int(ts_.max()) == 2**32 - 1 and int(ts_.min()) >= 0
+
+
 def test_denormal_accept_is_rejected():
     """Δ ≈ -95 with u = 0: exp(Δ) is a denormal, which XLA flushes to 0,
     so the step must be rejected — in the JAX kernel and in the port."""
@@ -143,6 +205,22 @@ class TestWrapperChecks:
             table = table.t().contiguous().t()
         with pytest.raises(ValueError):
             mh.mh_chain(table, init, flips, u, nbits)
+
+    @pytest.mark.parametrize("name", ["init", "flips"])
+    def test_rejects_int32_words(self, name):
+        args = dict(zip(("table", "init", "flips", "u"), self._args()))
+        args[name] = args[name].to(torch.int32)
+        with pytest.raises(ValueError, match=name):
+            mh.mh_chain(*args.values(), 4)
+
+    @pytest.mark.parametrize("name", ["init", "k0c", "k1c", "t0c"])
+    def test_fused_rejects_int32_words(self, name):
+        table, init, _, _ = self._args()
+        cols = {n: torch.zeros(3, dtype=torch.int64) for n in ("k0c", "k1c", "t0c")}
+        args = dict(init=init, **cols)
+        args[name] = args[name].to(torch.int32)
+        with pytest.raises(ValueError, match=name):
+            mh.mh_chain_fused(table, *args.values(), nbits=4, n_steps=2, cc=3, p_u32=7)
 
     def test_fused_rejects_bad_cc(self):
         table, init, _, _ = self._args()
