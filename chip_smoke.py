@@ -19,15 +19,19 @@ Builds the CUDA kernels from ``src/repro_torch/csrc`` and, on the card:
      and 32, V at, below and above the longest staged row, odd V with odd
      rows, cc < C with step bases wrapping past 2^31, B = 1, with a word
      past 2^31 in every case;
-  5. holds ``gibbs_chain`` and ``gibbs_chain_fused`` (``csrc/gibbs.cu``)
-     against their plain versions with tolerance 0 on an odd 7 x 9 Ising
-     lattice and a 6 x 8 spin glass, with a per-lattice parity and step
-     base that differ between lattices; then ``gibbs_chain_fused`` (the
-     persistent band kernel) on odd 5 x 7 and 3 x 5 lattices, at K = 1,
-     on a spin glass cut into bands of several rows, past the flush of its
-     uint8 flip counts (K = 300), and on 16 lattices of 1024 x 1024 under
-     lat_b = 4 (more than one cooperative launch), all with per-lattice
-     step bases of mixed parity;
+  5. holds ``gibbs_chain`` and ``gibbs_chain_fused`` (``csrc/gibbs.cu``,
+     the band kernel under its two draws) against their plain versions
+     with tolerance 0 on an odd 7 x 9 Ising lattice and a 6 x 8 spin
+     glass, with a per-lattice parity and step base that differ between
+     lattices; then ``gibbs_chain_fused`` on odd 5 x 7 and 3 x 5 lattices,
+     at K = 1, on a spin glass cut into bands of several rows, past the
+     flush of its uint8 flip counts (K = 300), and on 16 lattices of
+     1024 x 1024 under lat_b = 4 (more than one cooperative launch), all
+     with per-lattice step bases of mixed parity; then ``gibbs_chain`` at
+     its timed shapes (``OPERAND_SHAPES``: 1024 x 1024 x 4 for both
+     models, 256 x 256, odd 255 x 257, 16 lattices of 1024 x 1024 in two
+     launches) with u off the cipher's 2^-24 grid and parities of both
+     colours; each call must launch once per lattice group;
   6. drives the MH main path, ``engine.submit(RunPlan)`` on a (64, 49155)
      table with 256 chains per row, for ``cim`` and ``fused`` with the
      executor chosen by ``auto``, counting each kernel's launches, and
@@ -41,7 +45,9 @@ Builds the CUDA kernels from ``src/repro_torch/csrc`` and, on the card:
      ``fused`` on 1024 x 1024 lattices (B = 4, beta = 0.4407, 1,024
      half-sweeps in 64-step chunks, ``thin:16``) for ``ising`` and
      ``spin_glass``; ``cim`` and ``host`` on a 256 x 256 Ising lattice
-     (B = 1, 16-step chunks); ``num_chains=4`` under ``fused`` (256 x 256,
+     (B = 1, 16-step chunks); ``host`` at the full width (1024 x 1024,
+     B = 4, 64 half-sweeps in 16-step chunks, ``thin:16``: the operand
+     kernel's main path); ``num_chains=4`` under ``fused`` (256 x 256,
      B = 2).  Each path's first launch is held against the plain version
      there; ``submit(513) + resume(511)`` must equal ``submit(1024)``, a
      small lattice must give the same result on the card and the CPU, and
@@ -72,14 +78,14 @@ Builds the CUDA kernels from ``src/repro_torch/csrc`` and, on the card:
  12. times each kernel with CUDA events beside its plain version and its
      two bounds, at every shape above (``msxor`` with its input read from
      HBM: the launches rotate among copies that together exceed the L2;
-     the MH kernels, ``gibbs_chain_fused`` and ``msxor`` also by the
-     profiler's device time), the MH kernels' row staging alone (K = 0),
+     every kernel also by the profiler's device time, the Gibbs ones with
+     their launches a call), the MH kernels' row staging alone (K = 0),
      checks that the MH wrappers put no device kernel or copy but
      ``mh_chain_kernel`` in the profiler's trace, exactly one a call, times
      ``sample_tokens``, and profiles one segment of each main path (the
-     whole Gibbs ``fused`` main path, the MH ``fused`` path at 4 and 16
-     chunks, which must make the same host-to-device copies: none in the
-     chunk loop);
+     whole Gibbs ``fused`` and full-width ``host`` paths, the MH ``fused``
+     path at 4 and 16 chunks, which must make the same host-to-device
+     copies: none in the chunk loop);
  13. reads the instruction mix of the band kernel's per-site loops from
      the library's SASS (``cuobjdump``) and the issue-limited time it
      sets at the main shape.
@@ -157,6 +163,15 @@ SEED = 2024
 
 LAT, LAT_B, G_CHUNK, G_THIN = 1024, 4, 64, "thin:16"  # the Gibbs main path
 OP_LAT, OP_CHUNK, OP_STEPS = 256, 16, 256             # cim / host Gibbs paths
+HOST_FULL_STEPS = 64  # the full-width host path: LAT x LAT x LAT_B, OP_CHUNK chunks
+# the operand kernel's timed shapes: (where, B, H, W, K, spin glass)
+OPERAND_SHAPES = (
+    ("1024x1024 B=4 K=16 ising", LAT_B, LAT, LAT, OP_CHUNK, False),
+    ("1024x1024 B=4 K=16 spin glass", LAT_B, LAT, LAT, OP_CHUNK, True),
+    ("256x256 B=1 K=16 ising", 1, OP_LAT, OP_LAT, OP_CHUNK, False),
+    ("255x257 B=2 K=16 ising (odd periodic)", 2, 255, 257, OP_CHUNK, False),
+    ("1024x1024 B=16 K=4 ising (two groups)", 16, LAT, LAT, 4, False),
+)
 MC_LAT, MC_B, MC_CHAINS = 256, 2, 4                   # num_chains=4 Gibbs path
 BETA = 0.4407  # the 2-D Ising critical coupling
 FIG9_M, BIG_M = 400_000, 1 << 24  # the Fig. 9 draw's columns, a size past the L2
@@ -378,6 +393,54 @@ def bound_ms(nbytes, ops):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def gibbs_cost(name, args, kw):
+    """Bytes and operations a Gibbs kernel call needs (each input read
+    once, each output written once; the active site-steps of these
+    parities): (bytes, all ops, integer ops, ALU-only ops, shape)."""
+    fused = name == "gibbs_chain_fused"
+    init_, logit, start = args[0], args[4 if fused else 2], args[3]
+    b, h, w = init_.shape
+    k = kw["n_steps"] if fused else args[1].shape[0]
+    sites = b * h * w
+    colour = {0: (h * w + 1) // 2, 1: h * w // 2}  # sites of each colour
+    active = sum(colour[(p0 + j) % 2] for p0 in start.tolist() for j in range(k))
+    nbytes = 4 * (2 * sites + k * sites + b)  # init, flips, samples, parity/t0
+    if hasattr(logit, "j_right"):  # a SpinGlassLogit
+        nbytes += 8 * h * w  # the couplings
+    if name == "gibbs_chain":
+        nbytes += 4 * k * sites  # the uniforms
+        ops = GIBBS_OPS * active
+        int_ops = (GIBBS_OPS - GIBBS_FP_OPS) * active
+        alu = GIBBS_ALU_OPS * active
+    else:
+        nbytes += 8 * b  # the key words
+        # a draw and the flip per active site, a step key per lattice
+        # and half-sweep; the Ising flip is a table lookup, the spin
+        # glass's is float work
+        int_ops = (THREEFRY_SITE_OPS + BAND_SITE_INT_OPS) * active + THREEFRY_OPS * k * b
+        alu = ((THREEFRY_SITE_ALU_OPS + BAND_SITE_ALU_OPS) * active
+               + THREEFRY_ALU_OPS * k * b)
+        glass = hasattr(logit, "j_right")
+        ops = int_ops + (GLASS_SITE_FP_OPS * active if glass else 0)
+    return nbytes, ops, int_ops, alu, dict(B=b, H=h, W=w, K=k, active_site_steps=active,
+                                      **({"lat_b": kw["lat_b"]} if kw else {}))
+
+
+def operand_uniforms(torch, gen, shape):
+    """float32 uniforms off the cipher's 2^-24 grid where they can be
+    (below 1/2): float64 draws rounded to float32."""
+    return torch.rand(shape, generator=gen, device=gen.device, dtype=torch.float64).float()
+
+
+def lattice_logit(torch, gref, gen, h, w, glass):
+    """The Ising spec at the critical coupling, or a spin glass with ±1
+    couplings drawn from ``gen``."""
+    if not glass:
+        return gref.IsingLogit(BETA, 0.05)
+    j = (torch.randint(0, 2, (2, h, w), generator=gen, device=gen.device) * 2 - 1).float()
+    return gref.SpinGlassLogit(j[0].contiguous(), j[1].contiguous(), field=0.1)
+
+
 def max_sm_clock_hz() -> float:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
@@ -582,11 +645,7 @@ def main() -> int:
         b, k = 3, 24
         init = torch.randint(0, 2, (b, h, w), generator=gen, device=dev)
         u = torch.rand((k, b, h, w), generator=gen, device=dev)
-        if glass:
-            j = (torch.randint(0, 2, (2, h, w), generator=gen, device=dev) * 2 - 1).float()
-            logit = gref.SpinGlassLogit(j[0].contiguous(), j[1].contiguous(), field=0.1)
-        else:
-            logit = gref.IsingLogit(BETA, 0.05)
+        logit = lattice_logit(torch, gref, gen, h, w, glass)
         parity0 = torch.tensor([0, 1, 1], device=dev)
         t0b = torch.tensor([3, 2**31 - 7, -4], device=dev)  # differ, and wrap mod 2^32
         k0b, k1b = (torch.randint(0, 2**32, (b,), generator=gen, device=dev) for _ in range(2))
@@ -611,11 +670,7 @@ def main() -> int:
         init = torch.randint(0, 2, (b, h, w), generator=gen, device=dev)
         k0b, k1b = (torch.randint(0, 2**32, (b,), generator=gen, device=dev) for _ in range(2))
         t0b = torch.tensor([3, -4, 2**31 - 7, 10] * (b // 4 + 1), device=dev)[:b]
-        if glass:
-            j = (torch.randint(0, 2, (2, h, w), generator=gen, device=dev) * 2 - 1).float()
-            logit = gref.SpinGlassLogit(j[0].contiguous(), j[1].contiguous(), field=0.1)
-        else:
-            logit = gref.IsingLogit(BETA, 0.05)
+        logit = lattice_logit(torch, gref, gen, h, w, glass)
         groups = gk.plan_groups(b, h, w, **gk.band_limits(dev.index, w))
         gk.reset_launches()
         diff, err, rate = hold("gibbs_chain_fused", where, (init, k0b, k1b, t0b, logit),
@@ -626,6 +681,25 @@ def main() -> int:
              t0b_parity=[int(x) % 2 for x in t0b.tolist()], groups=[g._asdict() for g in groups],
              launches=launched, mismatches=diff, max_abs_err=err, flips_per_site_step=rate)
         del init
+
+    # the operand draw of the band kernel at its timed shapes, with u off
+    # the cipher's 2^-24 grid (float64 draws rounded to float32): the flip
+    # is u < p in floats
+    for where, b, h, w, k, glass in OPERAND_SHAPES:
+        init = torch.randint(0, 2, (b, h, w), generator=gen, device=dev)
+        u = operand_uniforms(torch, gen, (k, b, h, w))
+        parity0 = torch.arange(b, device=dev) % 2
+        logit = lattice_logit(torch, gref, gen, h, w, glass)
+        groups = gk.plan_groups(b, h, w, **gk.band_limits(dev.index, w))
+        gk.reset_launches()
+        diff, err, rate = hold("gibbs_chain", where, (init, u, logit, parity0), {})
+        launched = gk.LAUNCHES["gibbs_chain"]
+        check(launched == len(groups), f"{where}: {launched} launches for {len(groups)} groups")
+        emit(phase="gibbs_operand_kernel", lattice=where, B=b, K=k,
+             parity0=parity0.tolist()[:4], groups=[g._asdict() for g in groups],
+             launches=launched, mismatches=diff, max_abs_err=err, flips_per_site_step=rate,
+             off_grid_uniforms=int((u * 2**24 != torch.floor(u * 2**24)).sum()))
+        del init, u
 
     # 6. the MH main path -----------------------------------------------------
     logits = table_of(B, V)
@@ -784,17 +858,20 @@ def main() -> int:
               f"{path}: final_logp is not a finite log-probability")
         stat = wl.series(res)
         check(bool(np.isfinite(stat).all()), f"{path}: non-finite {wl.meta['statistic']}")
+        kept = stat.shape[0] - wl.kept_burn_in()
         g_path_s[path] = warm_seconds
         emit(phase="main_path_gibbs", path=path, workload=name, randomness=randomness,
              execution="pallas", lattice=f"{h}x{w}", B=b, num_chains=chains,
              n_steps=wl.n_steps, chunk_steps=wl.engine.config.chunk_steps,
              collect=wl.engine.config.collect, launches=launches,
-             kernel_launches=launches[kernel] if kernel == "gibbs_chain_fused" else wl.n_steps,
+             kernel_launches=launches[kernel],
              first_launch_mismatches=diff, max_abs_err=err, seconds=seconds,
              warm_seconds=warm_seconds, warm_runs_seconds=warm,
              site_steps_per_s=wl.n_steps * chains * b * h * w / warm_seconds, flip_rate=rate,
              statistic=wl.meta["statistic"], stat_mean=float(stat.mean()),
-             stat_last=stat[-1].tolist()[:8], diagnostics=wl.diagnostics(res))
+             stat_last=stat[-1].tolist()[:8],
+             diagnostics=wl.diagnostics(res) if kept >= 4  # split R-hat needs 4 rows
+             else f"{kept} kept rows after burn-in, too few for the diagnostics")
         return wl, res, kernel, launches[kernel]
 
     main_kw = dict(height=LAT, width=LAT, batch=LAT_B, n_steps=N_STEPS, chunk_steps=G_CHUNK,
@@ -817,9 +894,12 @@ def main() -> int:
     gibbs_path("main_path_gibbs_spin_glass_fused", "spin_glass", "fused", **main_kw)
     op_kw = dict(height=OP_LAT, width=OP_LAT, batch=1, n_steps=OP_STEPS, chunk_steps=OP_CHUNK)
     for randomness in ("cim", "host"):
-        path = f"main_path_gibbs_ising_{randomness}"
-        _, _, kernel, n = gibbs_path(path, "ising", randomness, **op_kw)
-        g_main.setdefault(kernel, (path, n))
+        gibbs_path(f"main_path_gibbs_ising_{randomness}", "ising", randomness, **op_kw)
+    # the operand kernel's main path: host uniforms at the full width
+    host_kw = dict(height=LAT, width=LAT, batch=LAT_B, n_steps=HOST_FULL_STEPS,
+                   chunk_steps=OP_CHUNK, collect=G_THIN)
+    _, _, kernel, n = gibbs_path("main_path_gibbs_ising_host_full", "ising", "host", **host_kw)
+    g_main[kernel] = ("main_path_gibbs_ising_host_full", n)
     mc_kw = dict(height=MC_LAT, width=MC_LAT, batch=MC_B, n_steps=OP_STEPS,
                  chunk_steps=G_CHUNK, num_chains=MC_CHAINS)
     wl, multi, _, _ = gibbs_path("num_chains_gibbs_fused", "ising", "fused", **mc_kw)
@@ -1064,35 +1144,6 @@ def main() -> int:
         shape = dict(B=b, V=v, C=c, K=k, nbits=nbits, **({"cc": kw["cc"]} if kw else {}))
         return nbytes, ops, ops - STEP_FP_OPS * steps, alu, shape
 
-    def gibbs_cost(name, args, kw):
-        fused = name == "gibbs_chain_fused"
-        init_, logit, start = args[0], args[4 if fused else 2], args[3]
-        b, h, w = init_.shape
-        k = kw["n_steps"] if fused else args[1].shape[0]
-        sites = b * h * w
-        colour = {0: (h * w + 1) // 2, 1: h * w // 2}  # sites of each colour
-        active = sum(colour[(p0 + j) % 2] for p0 in start.tolist() for j in range(k))
-        nbytes = 4 * (2 * sites + k * sites + b)  # init, flips, samples, parity/t0
-        if isinstance(logit, gref.SpinGlassLogit):
-            nbytes += 8 * h * w  # the couplings
-        if name == "gibbs_chain":
-            nbytes += 4 * k * sites  # the uniforms
-            ops = GIBBS_OPS * active
-            int_ops = (GIBBS_OPS - GIBBS_FP_OPS) * active
-            alu = GIBBS_ALU_OPS * active
-        else:
-            nbytes += 8 * b  # the key words
-            # a draw and the flip per active site, a step key per lattice
-            # and half-sweep; the Ising flip is a table lookup, the spin
-            # glass's is float work
-            int_ops = (THREEFRY_SITE_OPS + BAND_SITE_INT_OPS) * active + THREEFRY_OPS * k * b
-            alu = ((THREEFRY_SITE_ALU_OPS + BAND_SITE_ALU_OPS) * active
-                   + THREEFRY_ALU_OPS * k * b)
-            glass = isinstance(logit, gref.SpinGlassLogit)
-            ops = int_ops + (GLASS_SITE_FP_OPS * active if glass else 0)
-        return nbytes, ops, int_ops, alu, dict(B=b, H=h, W=w, K=k, active_site_steps=active,
-                                          **({"lat_b": kw["lat_b"]} if kw else {}))
-
     shapes = {name: [] for name in wrapper_of}
     for name, where, args, kw in cases:
         cost = gibbs_cost if name.startswith("gibbs") else mh_cost
@@ -1111,13 +1162,14 @@ def main() -> int:
             bound_ms=bound, bound_by=bound_by, int_bound_ms=int_bound_ms(int_ops, alu),
             bytes=nbytes, ops=ops, int_ops=int_ops, alu_ops=alu,
         )
-        if name == "gibbs_chain_fused":
+        if name.startswith("gibbs"):
             gk.reset_launches()
             wrapper_of[name](*args, **kw)
             row["kernel_launches_per_call"] = gk.LAUNCHES[name]
             row["device_ms"] = device_ms(
                 torch, lambda: launch_of[name](*coded, **kw), 5 if big else 20,
                 "gibbs_band_kernel", lambda: gk.LAUNCHES[name])
+            row["device_over_bound"] = row["device_ms"] / bound
         if name.startswith("mh"):
             row["device_ms"] = device_ms(
                 torch, lambda: launch_of[name](*coded, **kw), 20, "mh_chain_kernel",
@@ -1162,7 +1214,7 @@ def main() -> int:
     # writes 4 sites (of both colours) an iteration.  The interior rows'
     # loops are the main shape's.
     loops = sass_loops(str(Path(_build._nvcc()).with_name("cuobjdump")), info["path"],
-                       "gibbs_band_kernel", "IsingLogit")
+                       "gibbs_band_kernel", "FusedDraw", "IsingLogit")
     draws = [i for i, loop in enumerate(loops) if loop["rotates"] >= 19]
     check(draws, f"no Threefry loop (19 rotates) in the band kernel's SASS: {loops}")
     write = next((i for i in range(draws[-1] + 1, len(loops))
@@ -1179,7 +1231,7 @@ def main() -> int:
     g_path = g_main["gibbs_chain_fused"][0]
     g_row = next(x for x in shapes["gibbs_chain_fused"] if x["where"] == f"{g_path} first launch")
     g_row["issue_bound_ms"] = g_row["active_site_steps"] * clocks / (sms * clock_hz) * 1e3
-    emit(phase="sass_band_kernel", kernel="gibbs_band_kernel<IsingLogit>",
+    emit(phase="sass_band_kernel", kernel="gibbs_band_kernel<FusedDraw, IsingLogit>",
          draw_loop=loops[draws[-1]], write_loop=loops[write], store_loop=loops[store],
          per_active_site=per_site, issue_clocks_per_site_per_sm=clocks,
          active_site_steps=g_row["active_site_steps"], issue_bound_ms=g_row["issue_bound_ms"],
@@ -1326,22 +1378,23 @@ def main() -> int:
         / (N_STEPS // G_CHUNK),
         "ising_cim": g_path_s["main_path_gibbs_ising_cim"] * 1e3 / (OP_STEPS // OP_CHUNK),
         "ising_host": g_path_s["main_path_gibbs_ising_host"] * 1e3 / (OP_STEPS // OP_CHUNK),
+        "ising_host_full": g_path_s["main_path_gibbs_ising_host_full"] * 1e3
+        / (HOST_FULL_STEPS // OP_CHUNK),
     }, gibbs_chain_fused_ms=by_name["gibbs_chain_fused"]["ms"],
         gibbs_chain_fused_kernel_ms=by_name["gibbs_chain_fused"]["kernel_ms"],
         gibbs_chain_fused_device_ms=by_name["gibbs_chain_fused"]["device_ms"],
         gibbs_chain_ms=by_name["gibbs_chain"]["ms"],
-        gibbs_chain_kernel_ms=by_name["gibbs_chain"]["kernel_ms"])
+        gibbs_chain_kernel_ms=by_name["gibbs_chain"]["kernel_ms"],
+        gibbs_chain_device_ms=by_name["gibbs_chain"]["device_ms"])
+    # both entry points launch the band kernel once per lattice group
     for randomness, kw in (
-        ("fused", main_kw), ("cim", dict(op_kw, n_steps=64)),
+        ("fused", main_kw), ("cim", dict(op_kw, n_steps=64)), ("host", host_kw),
     ):
         wl = workloads.build("ising", prng.PRNGKey(SEED, device=dev), randomness=randomness,
                              backend="pallas", beta=BETA, **kw)
-        # the operand kernel's entry point launches one kernel a half-sweep
         name = g_kernel_of[randomness]
-        match, per_call = (("gibbs_band_kernel", 1) if randomness == "fused"
-                           else ("gibbs_sweep_kernel", kw["chunk_steps"]))
-        profiled(lambda: wl.run(prng.PRNGKey(SEED + 1, device=dev)), match,
-                 lambda: gk.LAUNCHES[name] * per_call, workload="ising",
+        profiled(lambda: wl.run(prng.PRNGKey(SEED + 1, device=dev)), "gibbs_band_kernel",
+                 lambda: gk.LAUNCHES[name], workload="ising",
                  randomness=randomness, lattice=f"{kw['height']}x{kw['width']}",
                  B=kw["batch"], n_steps=kw["n_steps"], chunk_steps=kw["chunk_steps"])
         del wl

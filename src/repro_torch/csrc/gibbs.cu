@@ -1,41 +1,38 @@
-// Checkerboard Gibbs kernels for Hopper (sm_90a).
+// Checkerboard Gibbs kernel for Hopper (sm_90a).
 //
-// Replaces the two Pallas TPU kernels of src/repro/kernels/gibbs/gibbs.py:
-//   * gibbs_sweep_kernel   <- _gibbs_kernel (gibbs.py:37, launched by
-//     gibbs_chain_pallas): K half-sweeps with the uniforms given as a
-//     (K, B, H, W) operand and a per-lattice starting parity (randomness
+// One kernel, gibbs_band_kernel<Draw, Logit>, replaces both Pallas TPU
+// kernels of src/repro/kernels/gibbs/gibbs.py; the draw policy says where
+// the uniforms come from:
+//   * OperandDraw <- _gibbs_kernel (gibbs.py:37, launched by
+//     gibbs_chain_pallas): the uniforms given as a (K, B, H, W) float32
+//     operand and a per-lattice starting parity parity0[b] (randomness
 //     "host" and "cim"); entries repro_gibbs_chain[_spin_glass];
-//   * gibbs_band_kernel    <- _gibbs_fused_kernel (gibbs.py:136, launched by
+//   * FusedDraw   <- _gibbs_fused_kernel (gibbs.py:136, launched by
 //     gibbs_chain_pallas_fused): the uniforms drawn in-kernel from the
 //     Threefry counter cipher (rng.cuh), given per-lattice key words and a
-//     per-lattice absolute-step base t0b; entries
+//     per-lattice absolute-step base t0b[b]; entries
 //     repro_gibbs_chain_fused[_spin_glass].
 // The conditional, which a Pallas kernel traces as a closure and a CUDA
-// kernel must know, is a template argument: Logit = IsingLogit (scalars
-// beta, field) or SpinGlassLogit ((H, W) couplings j_right, j_down in
-// global memory, and field).  Both keep the JAX models' operation order;
-// every product in them is exact, so only the order of the sums matters.
+// kernel must know, is the other template argument: Logit = IsingLogit
+// (scalars beta, field) or SpinGlassLogit ((H, W) couplings j_right,
+// j_down in global memory, and field).  Both keep the JAX models'
+// operation order; every product in them is exact, so only the order of
+// the sums matters.
 //
 // One half-sweep k of site (b, h, w), as in the Pallas kernels and in the
-// plain version repro_torch/kernels/gibbs/ref.py:
-//   active = (h + w) % 2 == parity_k   (parity0[b] + k, or t0b[b] + k, mod 2)
+// plain versions repro_torch/kernels/gibbs/ref.py:
+//   active = (h + w) % 2 == (s[b] + k) % 2       (s = parity0, or t0b)
 //   p      = 1 / (1 + expf(-logit(state_{k-1})))   on active sites
 //   next   = active ? (u < p) : state_{k-1}; flips[b, h, w] += next != state
 // Spins are {0, 1}; samples and flips are written as int32.
 //
-// gibbs_sweep_kernel (operand uniforms).  It must read the uniforms and
-// write the samples, 8 bytes per site-step, and does a few dozen
-// operations per site: bound by bytes.  One launch per half-sweep, one
-// thread per site, reading state k-1 from device memory (init for k = 0)
-// and writing every site of state k; never updating in place keeps odd
-// periodic lattices right.  Kept simple: its path is set by the torch
-// draw of the uniforms, not by the kernel.
-//
-// gibbs_band_kernel (fused draw).  It must write the samples, 4 bytes per
-// site-step, and runs one Threefry-20 block (about 80 32-bit integer
-// adds, rotates and xors) per active site-step: bound by integer issue,
-// the samples' stores a third of that.  The design, as the TPU kernel's
-// one grid step per lattice with a fori_loop over half-sweeps inside:
+// What bounds it.  OperandDraw must read the uniforms and write the
+// samples, 8 bytes a site-step, and does a few dozen operations an active
+// site: bound by bytes.  FusedDraw must write the samples, 4 bytes a
+// site-step, and runs one Threefry-20 block (about 80 32-bit integer adds,
+// rotates and xors) an active site-step: bound by integer issue, the
+// samples' stores a third of that.  The design, as the TPU kernels' one
+// grid step per lattice with a fori_loop over half-sweeps inside:
 //   * One cooperative launch per call (per group of lattices that fits the
 //     card), 1,024 threads a block, one block per SM.  Block (i, j) owns
 //     band j (rows [j R, j R + R)) of lattice b0 + i and loops over all K
@@ -59,13 +56,28 @@
 //     for k = 0) through L2.  A band writes its two edge rows of state k,
 //     then raises its ready flag to k + 1 (release); a band starts
 //     half-sweep k when both neighbour bands' flags reach k (acquire).
-//     A grid-wide barrier in their place was slower at the main shape.
+//     A grid-wide barrier in their place was slower at the fused kernel's
+//     main shape.
 //   * The rest of the band leaves with 16-byte streaming stores (evict
 //     first) while the next half-sweep computes; samples are int32, never
 //     widened.
-//   * The step key is derived once per block and half-sweep, and the
-//     inactive colour draws nothing (JAX draws those values and discards
-//     them: every active site's counter is unchanged).
+//   * FusedDraw derives the step key once per block and half-sweep, and
+//     the inactive colour draws nothing (JAX draws those values and
+//     discards them: every active site's counter is unchanged).
+//   * OperandDraw reads each active site's u once, by a streaming load
+//     (evict first), the loads of kBatch = 4 sites issued before the first
+//     is used.  No thread loads the inactive colour's u, but it shares
+//     32-byte sectors with the active colour's: the whole operand crosses
+//     HBM once, as its bound counts.  u takes no shared memory.  Timed on
+//     the H100 and not kept (PERF.md): a bulk prefetch of the band's next
+//     u into L2 (5-19 % slower at 1024 x 1024), the first batch of
+//     edge-row u loaded before the halo wait (1-9 % slower), one load at
+//     a time (13 % slower at 1024 x 1024) and batches of 2 or 8.
+//   * The flip test.  FusedDraw's uniform is (raw >> 8) 2^-24, so u < p is
+//     the exact integer test (raw >> 8) < ceil(p 2^24).  An operand u is
+//     any float32, off that grid, so OperandDraw tests u < p in floats.
+//     The Ising specialisation tables the flip code (threshold or p) for
+//     each count of up neighbours, made by the per-site formula.
 //
 // Built by repro_torch/kernels/_build.py with --fmad=false and without fast
 // math (expf, never __expf).  Every entry point returns a cudaError_t.
@@ -79,10 +91,10 @@
 
 namespace {
 
-constexpr int kThreads = 256;       // gibbs_sweep_kernel
-constexpr int kBandThreads = 1024;  // gibbs_band_kernel: one block per SM
+constexpr int kBandThreads = 1024;  // one block per SM
 constexpr int kFlushEvery = 255;    // half-sweeps a uint8 flip count holds
-constexpr int kBandSlots = 64;      // active sites a band thread holds (a uint64)
+constexpr int kBandSlots = 64;      // active sites a thread holds (a uint64)
+constexpr int kBatch = 4;  // OperandDraw: active sites whose u loads are issued together
 
 __device__ __forceinline__ float sigmoid(float x) { return 1.0f / (1.0f + expf(-x)); }
 
@@ -98,7 +110,7 @@ struct Nbrs {
   int h, w, hn, ww, W;
 };
 
-// The flip u < p as an integer test, exact: u = (raw >> 8) * 2^-24 and
+// The flip u < p as an integer test, exact for u = (raw >> 8) * 2^-24:
 // p * 2^24 is exact, so u < p iff (raw >> 8) < ceil(p * 2^24).
 __device__ __forceinline__ uint32_t threshold(float p) {
   return static_cast<uint32_t>(ceilf(p * 16777216.0f));
@@ -106,22 +118,23 @@ __device__ __forceinline__ uint32_t threshold(float p) {
 
 // IsingModel.conditional_logit: 2 (beta * (((N + S) + W) + E) + field).
 // On {0, 1} spins the neighbour sum is exactly 2 c - 4 for c up
-// neighbours, so the band kernel looks p up in a table of five
-// thresholds made by this same formula (fill_table).
+// neighbours, so the kernel looks the flip code up in a table of five,
+// made by this same formula (fill_table).
 struct IsingLogit {
   float beta, field;
   __device__ __forceinline__ float operator()(const Nbrs& n) const {
     const float nb = ((spin(n.sn) + spin(n.ss)) + spin(n.sw)) + spin(n.se);
     return 2.0f * (beta * nb + field);
   }
+  template <class Draw>
   __device__ void fill_table(uint32_t* table) const {
     if (threadIdx.x < 5) {
       const uint32_t c = threadIdx.x;  // up neighbours
-      table[c] = threshold(sigmoid((*this)(Nbrs{c > 0, c > 1, c > 2, c > 3})));
+      table[c] = Draw::code(sigmoid((*this)(Nbrs{c > 0, c > 1, c > 2, c > 3})));
     }
   }
-  __device__ __forceinline__ uint32_t flip_threshold(const Nbrs& n,
-                                                     const uint32_t* table) const {
+  template <class Draw>
+  __device__ __forceinline__ uint32_t flip_code(const Nbrs& n, const uint32_t* table) const {
     return table[n.sn + n.ss + n.sw + n.se];
   }
 };
@@ -140,76 +153,142 @@ struct SpinGlassLogit {
                      __ldg(j_down + n.hn * n.W + n.w) * spin(n.sn);
     return 2.0f * (nb + field);
   }
+  template <class Draw>
   __device__ void fill_table(uint32_t*) const {}
-  __device__ __forceinline__ uint32_t flip_threshold(const Nbrs& n, const uint32_t*) const {
-    return threshold(sigmoid((*this)(n)));
+  template <class Draw>
+  __device__ __forceinline__ uint32_t flip_code(const Nbrs& n, const uint32_t*) const {
+    return Draw::code(sigmoid((*this)(n)));
   }
 };
 
-// ---- gibbs_sweep_kernel: uniforms as a (K, B, H, W) operand ---------------
-
-// Half-sweep k of all B lattices: grid (ceil(H*W / kThreads), B).
-template <class Logit>
-__global__ void __launch_bounds__(kThreads)
-gibbs_sweep_kernel(const uint32_t* __restrict__ prev, uint32_t* __restrict__ next,
-                   int32_t* __restrict__ flips, const Logit logit,
-                   const float* __restrict__ uk, const int32_t* __restrict__ parity0,
-                   int H, int W, int k) {
-  const int b = blockIdx.y;
-  const int hw = H * W;
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= hw) return;
-  const uint32_t parity = (static_cast<uint32_t>(parity0[b]) + static_cast<uint32_t>(k)) & 1u;
-  const int h = i / W;
-  const int w = i - h * W;
-  const size_t idx = static_cast<size_t>(b) * hw + i;
-  const uint32_t* lat = prev + static_cast<size_t>(b) * hw;
-  const uint32_t state = lat[i];
-  uint32_t nxt = state;
-  if (static_cast<uint32_t>((h + w) & 1) == parity) {
-    const int hn = h == 0 ? H - 1 : h - 1, hs = h == H - 1 ? 0 : h + 1;
-    const int ww = w == 0 ? W - 1 : w - 1, we = w == W - 1 ? 0 : w + 1;
-    const Nbrs n{lat[hn * W + w], lat[hs * W + w], lat[h * W + ww], lat[h * W + we],
-                 h, w, hn, ww, W};
-    nxt = uk[idx] < sigmoid(logit(n)) ? 1u : 0u;
-  }
-  next[idx] = nxt;
-  flips[idx] = (k == 0 ? 0 : flips[idx]) + (nxt != state ? 1 : 0);
-}
-
-// K launches on the stream, half-sweep k reading state k-1 and writing
-// samples[k]; stops at the first launch that fails.
-template <class Logit>
-cudaError_t launch_sweeps(const uint32_t* init, const float* u, const int32_t* parity0,
-                          const Logit& logit, uint32_t* samples, int32_t* flips, int B,
-                          int H, int W, int K, void* stream) {
-  const int hw = H * W;
-  const dim3 grid((hw + kThreads - 1) / kThreads, B);
-  const size_t plane = static_cast<size_t>(B) * hw;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  for (int k = 0; k < K; ++k) {
-    const uint32_t* prev = k == 0 ? init : samples + static_cast<size_t>(k - 1) * plane;
-    gibbs_sweep_kernel<Logit><<<grid, kThreads, 0, s>>>(
-        prev, samples + static_cast<size_t>(k) * plane, flips, logit,
-        u + static_cast<size_t>(k) * plane, parity0, H, W, k);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-  }
-  return cudaGetLastError();
-}
-
-// ---- gibbs_band_kernel: fused draw, one persistent launch -----------------
-
 struct BandArgs {
   const int32_t* init;  // (B, H, W) {0, 1}
-  const uint32_t* k0b;  // (B,) per-lattice key words
-  const uint32_t* k1b;
-  const int32_t* t0b;   // (B,) per-lattice absolute-step base
   int32_t* samples;     // (K, B, H, W)
   int32_t* flips;       // (B, H, W)
   int* ready;           // (lattices * bands,) zeroed: half-sweeps published
-  int B, H, W, K, lat_b;
+  int B, H, W, K;
   int b0, bands, rows;  // the group's first lattice; bands a lattice, rows a band
+};
+
+// Calls f(i, lr, h, w) for this thread's active sites in band rows
+// lr = lr0 + r * dr, r < nrows: slot s = threadIdx.x + i * blockDim.x is
+// pair jj of the slot's row, site w = ((parity ^ h) & 1) + 2 jj, so that
+// (h + w) % 2 == parity.
+template <class F>
+__device__ __forceinline__ void for_each_active(int lr0, int nrows, int dr, int r0, int W,
+                                                uint32_t parity, F&& f) {
+  const int half = (W + 1) >> 1;
+  const int dl = blockDim.x / half, dj = blockDim.x - dl * half;
+  int r = threadIdx.x / half, jj = threadIdx.x - r * half;
+  for (int i = 0; r < nrows; ++i) {
+    const int lr = lr0 + r * dr;
+    const int h = r0 + lr;
+    const int w = static_cast<int>((parity ^ static_cast<uint32_t>(h)) & 1u) + 2 * jj;
+    if (w < W) f(i, lr, h, w);
+    r += dl;
+    jj += dj;
+    if (jj >= half) {
+      jj -= half;
+      ++r;
+    }
+  }
+}
+
+// A thread's active sites in band rows lr = lr0 + r * dr (r < nrows), in
+// for_each_active's order, kBatch at a time: batch() gives the next
+// kBatch slots' band row lr (-1 past the last) and column w, and moves on.
+struct Slots {
+  int half, dl, dj, r, jj;
+  __device__ __forceinline__ explicit Slots(int W) : half((W + 1) >> 1) {
+    dl = blockDim.x / half;
+    dj = blockDim.x - dl * half;
+    r = threadIdx.x / half;
+    jj = threadIdx.x - r * half;
+  }
+  __device__ __forceinline__ void batch(int lr0, int nrows, int dr, int r0, int W,
+                                        uint32_t parity, int (&lr)[kBatch], int (&w)[kBatch]) {
+#pragma unroll
+    for (int g = 0; g < kBatch; ++g) {
+      const int l = lr0 + r * dr;
+      const int c = static_cast<int>((parity ^ static_cast<uint32_t>(r0 + l)) & 1u) + 2 * jj;
+      lr[g] = r < nrows && c < W ? l : -1;
+      w[g] = c;
+      r += dl;
+      jj += dj;
+      if (jj >= half) {
+        jj -= half;
+        ++r;
+      }
+    }
+  }
+};
+
+// Where the uniforms come from.  draw.block(a, b) gives a block's state
+// for lattice b: t0, the starting parity (half-sweep k updates the colour
+// (t0 + k) % 2); prepare(k, key), run by thread 0 before half-sweep k
+// (after the neighbours may read half-sweep k-1's edge rows); sweep(k,
+// key), the draw of half-sweep k.  A site's flip is u < p, p given as
+// code(p).  kBatched: update_rows walks the sites kBatch at a time and
+// loads their u (Sweep::load(site), site h W + w of the plane) first;
+// else it calls Sweep::flip(site, code) site by site.
+
+// _gibbs_kernel: u[k, b, h, w] from a (K, B, H, W) float32 operand.
+struct OperandDraw {
+  static constexpr bool kBatched = true;
+  const float* u;
+  const int32_t* parity0;  // (B,)
+  __device__ static __forceinline__ uint32_t code(float p) { return __float_as_uint(p); }
+  struct Sweep {
+    const float* uk;  // plane (k, b) of u
+    __device__ __forceinline__ float load(int site) const { return __ldcs(uk + site); }
+  };
+  struct Block {
+    const float* ub;  // plane (0, b) of u
+    size_t plane;     // B H W floats: half-sweep k to k + 1
+    uint32_t t0;
+    __device__ void prepare(int, uint32_t (*)[2]) const {}
+    __device__ __forceinline__ Sweep sweep(int k, uint32_t (*)[2]) const {
+      return {ub + static_cast<size_t>(k) * plane};
+    }
+  };
+  __device__ Block block(const BandArgs& a, int b) const {
+    const size_t hw = static_cast<size_t>(a.H) * a.W;
+    return {u + static_cast<size_t>(b) * hw, static_cast<size_t>(a.B) * hw,
+            static_cast<uint32_t>(parity0[b])};
+  }
+};
+
+// _gibbs_fused_kernel: the uniform of lattice b's site at half-sweep k is
+// uniform_at(step_key(k0b[b], k1b[b], t0b[b] + k), (b % lat_b) H W + h W + w).
+struct FusedDraw {
+  static constexpr bool kBatched = false;
+  const uint32_t* k0b;  // (B,) per-lattice key words
+  const uint32_t* k1b;
+  const int32_t* t0b;   // (B,) per-lattice absolute-step base
+  int lat_b;
+  __device__ static __forceinline__ uint32_t code(float p) { return threshold(p); }
+  struct Sweep {
+    uint32_t s0, s1, site0;
+    __device__ __forceinline__ bool flip(int site, uint32_t code) const {
+      return (repro::raw_draw(s0, s1, site0 + static_cast<uint32_t>(site), repro::kUSalt) >>
+              8) < code;
+    }
+  };
+  struct Block {
+    uint32_t k0, k1, t0, site0;
+    // the step key of half-sweep k into key[k % 2]
+    __device__ void prepare(int k, uint32_t (*key)[2]) const {
+      repro::step_key(k0, k1, t0 + static_cast<uint32_t>(k), key[k & 1][0], key[k & 1][1]);
+    }
+    __device__ __forceinline__ Sweep sweep(int k, uint32_t (*key)[2]) const {
+      return {key[k & 1][0], key[k & 1][1], site0};
+    }
+  };
+  __device__ Block block(const BandArgs& a, int b) const {
+    const uint32_t hw = static_cast<uint32_t>(a.H) * static_cast<uint32_t>(a.W);
+    return {k0b[b], k1b[b], static_cast<uint32_t>(t0b[b]),
+            static_cast<uint32_t>(b % lat_b) * hw};
+  }
 };
 
 __host__ __device__ constexpr size_t round16(size_t n) { return (n + 15) & ~size_t{15}; }
@@ -250,52 +329,54 @@ __device__ __forceinline__ void publish(int* flag, int v) {
   asm volatile("st.release.gpu.global.s32 [%0], %1;" ::"l"(flag), "r"(v) : "memory");
 }
 
-// Calls f(i, lr, h, w) for this thread's active sites in band rows
-// lr = lr0 + r * dr, r < nrows: slot s = threadIdx.x + i * blockDim.x is
-// pair jj of the slot's row, site w = ((parity ^ h) & 1) + 2 jj, so that
-// (h + w) % 2 == parity.
-template <class F>
-__device__ __forceinline__ void for_each_active(int lr0, int nrows, int dr, int r0, int W,
-                                                uint32_t parity, F&& f) {
-  const int half = (W + 1) >> 1;
-  const int dl = blockDim.x / half, dj = blockDim.x - dl * half;
-  int r = threadIdx.x / half, jj = threadIdx.x - r * half;
-  for (int i = 0; r < nrows; ++i) {
-    const int lr = lr0 + r * dr;
-    const int h = r0 + lr;
-    const int w = static_cast<int>((parity ^ static_cast<uint32_t>(h)) & 1u) + 2 * jj;
-    if (w < W) f(i, lr, h, w);
-    r += dl;
-    jj += dj;
-    if (jj >= half) {
-      jj -= half;
-      ++r;
-    }
-  }
-}
-
 // Band rows lr = lr0 + r * dr (r < nrows) of state k, from state k-1 in
 // the band and halo.  An active site's vertical neighbours in the band
 // have the other colour and do not change in this half-sweep; its
 // horizontal ones may share its colour across an odd wrap, so each row is
 // computed whole (into registers) before any of it is written.
-template <class Logit>
+template <class Draw, class Logit>
 __device__ __forceinline__ void update_rows(const Logit& logit, const uint32_t* table,
-                                            uint8_t* band, const uint8_t* halo,
-                                            uint8_t* cnt, int lr0, int nrows, int dr,
-                                            int rows, int r0, int H, int W, uint32_t parity,
-                                            uint32_t s0, uint32_t s1, uint32_t site0) {
+                                            const typename Draw::Sweep& draw, uint8_t* band,
+                                            const uint8_t* halo, uint8_t* cnt, int lr0,
+                                            int nrows, int dr, int rows, int r0, int H, int W,
+                                            uint32_t parity) {
   uint64_t bits = 0;
-  for_each_active(lr0, nrows, dr, r0, W, parity, [&](int i, int lr, int h, int w) {
+  const auto site_bit = [&](int lr, int h, int w, auto&& flip) {
     const int row = lr * W;
     const int ww = w == 0 ? W - 1 : w - 1, we = w == W - 1 ? 0 : w + 1;
     const Nbrs nb{lr == 0 ? halo[w] : band[row - W + w],
                   lr == rows - 1 ? halo[W + w] : band[row + W + w],
                   band[row + ww], band[row + we], h, w, h == 0 ? H - 1 : h - 1, ww, W};
-    const uint32_t m = repro::raw_draw(s0, s1, site0 + static_cast<uint32_t>(h * W + w),
-                                       repro::kUSalt) >> 8;
-    bits |= static_cast<uint64_t>(m < logit.flip_threshold(nb, table)) << i;
-  });
+    return static_cast<uint64_t>(flip(logit.template flip_code<Draw>(nb, table)));
+  };
+  if constexpr (Draw::kBatched) {
+    // every u of a batch is loaded before the first is used: kBatch loads
+    // in flight a thread where one would leave the card's latency bare
+    Slots slots(W);
+    for (int i0 = 0; slots.r < nrows; i0 += kBatch) {
+      int lr[kBatch], w[kBatch];
+      float u[kBatch];
+      slots.batch(lr0, nrows, dr, r0, W, parity, lr, w);
+#pragma unroll
+      for (int g = 0; g < kBatch; ++g) {
+        u[g] = lr[g] >= 0 ? draw.load((r0 + lr[g]) * W + w[g]) : 1.0f;
+      }
+#pragma unroll
+      for (int g = 0; g < kBatch; ++g) {  // straight-line: a slot past the end
+        const bool ok = lr[g] >= 0;       // computes site (0, 0) and is masked
+        const int l = ok ? lr[g] : 0, c = ok ? w[g] : 0;
+        const uint64_t bit = site_bit(l, r0 + l, c, [&](uint32_t code) {
+          return u[g] < __uint_as_float(code);  // OperandDraw::code(p) = p
+        });
+        bits |= (ok ? bit : 0) << (i0 + g);
+      }
+    }
+  } else {
+    for_each_active(lr0, nrows, dr, r0, W, parity, [&](int i, int lr, int h, int w) {
+      bits |= site_bit(lr, h, w, [&](uint32_t code) { return draw.flip(h * W + w, code); })
+              << i;
+    });
+  }
   __syncthreads();
   for_each_active(lr0, nrows, dr, r0, W, parity, [&](int i, int lr, int, int w) {
     const int idx = lr * W + w;
@@ -306,12 +387,12 @@ __device__ __forceinline__ void update_rows(const Logit& logit, const uint32_t* 
   __syncthreads();
 }
 
-template <class Logit>
+template <class Draw, class Logit>
 __global__ void __launch_bounds__(kBandThreads, 1)
-gibbs_band_kernel(const Logit logit, const BandArgs a) {
+gibbs_band_kernel(const Logit logit, const Draw draw, const BandArgs a) {
   extern __shared__ __align__(16) uint8_t smem[];
-  __shared__ uint32_t key[2][2];  // step keys of half-sweeps k and k + 1
-  __shared__ uint32_t table[5];   // Ising flip thresholds
+  __shared__ uint32_t key[2][2];  // FusedDraw: step keys of half-sweeps k and k + 1
+  __shared__ uint32_t table[5];   // Ising flip codes
   const int H = a.H, W = a.W, T = blockDim.x, tid = threadIdx.x;
   const int li = blockIdx.x / a.bands, j = blockIdx.x - li * a.bands;
   const int b = a.b0 + li;
@@ -330,19 +411,18 @@ gibbs_band_kernel(const Logit logit, const BandArgs a) {
   const int first = li * a.bands;
   const int up_blk = first + (j == 0 ? a.bands - 1 : j - 1);
   const int down_blk = first + (j == a.bands - 1 ? 0 : j + 1);
-  const uint32_t site0 = static_cast<uint32_t>(b % a.lat_b) * static_cast<uint32_t>(hw);
-  const uint32_t k0 = a.k0b[b], k1 = a.k1b[b], t0 = static_cast<uint32_t>(a.t0b[b]);
+  const typename Draw::Block blk = draw.block(a, b);
   const int last = (rows - 1) * W;
   const bool vec = base % 4 == 0 && W % 4 == 0;  // 16-byte stores line up
 
-  logit.fill_table(table);
-  if (tid == 0) repro::step_key(k0, k1, t0, key[0][0], key[0][1]);
+  logit.template fill_table<Draw>(table);
+  if (tid == 0) blk.prepare(0, key);
   for (int i = tid; i < n; i += T) {
     band[i] = a.init[base + i] != 0;
     cnt[i] = 0;
   }
   for (int k = 0; k < a.K; ++k) {
-    const uint32_t t = t0 + static_cast<uint32_t>(k), parity = t & 1u;
+    const uint32_t parity = (blk.t0 + static_cast<uint32_t>(k)) & 1u;
     const int32_t* prev = k == 0 ? a.init : a.samples + static_cast<size_t>(k - 1) * plane;
     int32_t* out = a.samples + static_cast<size_t>(k) * plane + base;
 
@@ -353,15 +433,15 @@ gibbs_band_kernel(const Logit logit, const BandArgs a) {
       wait_ready(a.ready + down_blk, k);
     }
     __syncthreads();
-    const uint32_t s0 = key[k & 1][0], s1 = key[k & 1][1];
+    const typename Draw::Sweep sweep = blk.sweep(k, key);
     for (int c = tid; c < 2 * W; c += T) {
       halo[c] = __ldcg(prev + (c < W ? up + c : down + (c - W))) != 0;
     }
     __syncthreads();
 
     // 2. the band's edge rows of state k, stored and published first
-    update_rows(logit, table, band, halo, cnt, 0, rows > 1 ? 2 : 1, rows - 1, rows, r0, H, W,
-                parity, s0, s1, site0);
+    update_rows<Draw>(logit, table, sweep, band, halo, cnt, 0, rows > 1 ? 2 : 1, rows - 1,
+                      rows, r0, H, W, parity);
     for (int c = tid; c < W; c += T) {
       out[c] = band[c];
       out[last + c] = band[last + c];
@@ -370,13 +450,13 @@ gibbs_band_kernel(const Logit logit, const BandArgs a) {
     if (tid == 0) {
       __threadfence();
       publish(a.ready + blockIdx.x, k + 1);
-      repro::step_key(k0, k1, t + 1u, key[(k + 1) & 1][0], key[(k + 1) & 1][1]);
+      blk.prepare(k + 1, key);
     }
 
     // 3. the interior rows, while the neighbours take the edges
     if (rows > 2) {
-      update_rows(logit, table, band, halo, cnt, 1, rows - 2, 1, rows, r0, H, W, parity, s0,
-                  s1, site0);
+      update_rows<Draw>(logit, table, sweep, band, halo, cnt, 1, rows - 2, 1, rows, r0, H, W,
+                        parity);
     }
     if (vec) {
       const uchar4* src = reinterpret_cast<const uchar4*>(band);
@@ -399,32 +479,41 @@ gibbs_band_kernel(const Logit logit, const BandArgs a) {
   }
 }
 
+template <class Draw, class Logit>
+cudaError_t static_smem(size_t& most) {
+  cudaFuncAttributes attr{};
+  const cudaError_t err = cudaFuncGetAttributes(&attr, gibbs_band_kernel<Draw, Logit>);
+  if (attr.sharedSizeBytes > most) most = attr.sharedSizeBytes;
+  return err;
+}
+
 // What the card gives the band kernel: its SMs (one block each) and the
-// dynamic shared memory a block may use (the opt-in limit less the larger
-// static use of the two specialisations).
+// dynamic shared memory a block may use (the opt-in limit less the largest
+// static use of the four specialisations).
 cudaError_t band_capacity(int& sms, size_t& smem) {
   int dev = 0, optin = 0;
-  cudaFuncAttributes ising{}, glass{};
+  size_t fixed = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err == cudaSuccess) err = cudaFuncGetAttributes(&ising, gibbs_band_kernel<IsingLogit>);
-  if (err == cudaSuccess) err = cudaFuncGetAttributes(&glass, gibbs_band_kernel<SpinGlassLogit>);
-  const size_t fixed = ising.sharedSizeBytes > glass.sharedSizeBytes ? ising.sharedSizeBytes
-                                                                      : glass.sharedSizeBytes;
+  if (err == cudaSuccess) err = static_smem<OperandDraw, IsingLogit>(fixed);
+  if (err == cudaSuccess) err = static_smem<OperandDraw, SpinGlassLogit>(fixed);
+  if (err == cudaSuccess) err = static_smem<FusedDraw, IsingLogit>(fixed);
+  if (err == cudaSuccess) err = static_smem<FusedDraw, SpinGlassLogit>(fixed);
   smem = static_cast<size_t>(optin) - fixed;
   return err;
 }
 
 // One cooperative launch of gibbs_band_kernel over `lattices` lattices
-// from b0, `bands` bands of `rows` rows each.  Refused (an error, nothing
-// run) if a band is too large for a block or the card cannot hold every
-// block at once.
-template <class Logit>
-cudaError_t launch_bands(const Logit& logit, const BandArgs& a, int lattices, void* stream) {
-  const auto kernel = gibbs_band_kernel<Logit>;
+// from a.b0, a.bands bands of a.rows rows each.  Refused (an error,
+// nothing run) if a band is too large for a block or the card cannot hold
+// every block at once.
+template <class Draw, class Logit>
+cudaError_t launch_bands(const Logit& logit, const Draw& draw, const BandArgs& a,
+                         int lattices, void* stream) {
+  const auto kernel = gibbs_band_kernel<Draw, Logit>;
   int sms = 0, per_sm = 0;
   size_t avail = 0;
   cudaError_t err = band_capacity(sms, avail);
@@ -440,36 +529,40 @@ cudaError_t launch_bands(const Logit& logit, const BandArgs& a, int lattices, vo
   const int blocks = lattices * a.bands;
   if (blocks > per_sm * sms) return cudaErrorCooperativeLaunchTooLarge;
   Logit l = logit;
+  Draw d = draw;
   BandArgs args = a;
-  void* params[] = {&l, &args};
+  void* params[] = {&l, &d, &args};
   return cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel), dim3(blocks),
                                      dim3(kBandThreads), params, smem,
                                      static_cast<cudaStream_t>(stream));
 }
 
-BandArgs band_args(const int32_t* init, const uint32_t* k0b, const uint32_t* k1b,
-                   const int32_t* t0b, int32_t* samples, int32_t* flips, int* ready, int B,
-                   int H, int W, int K, int lat_b, int b0, int bands, int rows) {
-  return {init, k0b, k1b, t0b, samples, flips, ready, B, H, W, K, lat_b, b0, bands, rows};
+BandArgs band_args(const int32_t* init, int32_t* samples, int32_t* flips, int* ready, int B,
+                   int H, int W, int K, int b0, int bands, int rows) {
+  return {init, samples, flips, ready, B, H, W, K, b0, bands, rows};
 }
 
 }  // namespace
 
 extern "C" {
 
-int repro_gibbs_chain(const uint32_t* init, const float* u, const int32_t* parity0,
-                      float beta, float field, uint32_t* samples, int32_t* flips, int B,
-                      int H, int W, int K, void* stream) {
-  return launch_sweeps(init, u, parity0, IsingLogit{beta, field}, samples, flips, B, H, W,
-                       K, stream);
+int repro_gibbs_chain(const int32_t* init, const float* u, const int32_t* parity0,
+                      float beta, float field, int32_t* samples, int32_t* flips, int* ready,
+                      int B, int H, int W, int K, int b0, int lattices, int bands, int rows,
+                      void* stream) {
+  return launch_bands(IsingLogit{beta, field}, OperandDraw{u, parity0},
+                      band_args(init, samples, flips, ready, B, H, W, K, b0, bands, rows),
+                      lattices, stream);
 }
 
-int repro_gibbs_chain_spin_glass(const uint32_t* init, const float* u,
+int repro_gibbs_chain_spin_glass(const int32_t* init, const float* u,
                                  const int32_t* parity0, const float* j_right,
-                                 const float* j_down, float field, uint32_t* samples,
-                                 int32_t* flips, int B, int H, int W, int K, void* stream) {
-  return launch_sweeps(init, u, parity0, SpinGlassLogit{j_right, j_down, field}, samples,
-                       flips, B, H, W, K, stream);
+                                 const float* j_down, float field, int32_t* samples,
+                                 int32_t* flips, int* ready, int B, int H, int W, int K,
+                                 int b0, int lattices, int bands, int rows, void* stream) {
+  return launch_bands(SpinGlassLogit{j_right, j_down, field}, OperandDraw{u, parity0},
+                      band_args(init, samples, flips, ready, B, H, W, K, b0, bands, rows),
+                      lattices, stream);
 }
 
 // What the band kernel can take on the current device for lattices W
@@ -492,9 +585,8 @@ int repro_gibbs_chain_fused(const int32_t* init, const uint32_t* k0b, const uint
                             int32_t* flips, int* ready, int B, int H, int W, int K,
                             int lat_b, int b0, int lattices, int bands, int rows,
                             void* stream) {
-  return launch_bands(IsingLogit{beta, field},
-                      band_args(init, k0b, k1b, t0b, samples, flips, ready, B, H, W, K,
-                                lat_b, b0, bands, rows),
+  return launch_bands(IsingLogit{beta, field}, FusedDraw{k0b, k1b, t0b, lat_b},
+                      band_args(init, samples, flips, ready, B, H, W, K, b0, bands, rows),
                       lattices, stream);
 }
 
@@ -505,9 +597,8 @@ int repro_gibbs_chain_fused_spin_glass(const int32_t* init, const uint32_t* k0b,
                                        int* ready, int B, int H, int W, int K, int lat_b,
                                        int b0, int lattices, int bands, int rows,
                                        void* stream) {
-  return launch_bands(SpinGlassLogit{j_right, j_down, field},
-                      band_args(init, k0b, k1b, t0b, samples, flips, ready, B, H, W, K,
-                                lat_b, b0, bands, rows),
+  return launch_bands(SpinGlassLogit{j_right, j_down, field}, FusedDraw{k0b, k1b, t0b, lat_b},
+                      band_args(init, samples, flips, ready, B, H, W, K, b0, bands, rows),
                       lattices, stream);
 }
 

@@ -1,15 +1,16 @@
-"""Wrappers of the checkerboard Gibbs kernels (``csrc/gibbs.cu``).
+"""Wrappers of the checkerboard Gibbs kernel (``csrc/gibbs.cu``).
 
 ``gibbs_chain`` replaces ``repro.kernels.gibbs.gibbs.gibbs_chain_pallas``
-(the Pallas ``_gibbs_kernel``: uniforms as operands; ``gibbs_sweep_kernel``,
-one launch per half-sweep) and ``gibbs_chain_fused`` replaces
-``gibbs_chain_pallas_fused`` (``_gibbs_fused_kernel``: uniforms drawn
-in-kernel from the counter cipher; ``gibbs_band_kernel``, one cooperative
-launch per group of lattices, each block keeping a band of rows in shared
-memory for all K half-sweeps).  For CUDA tensors each wrapper checks its
-inputs, launches its kernel on the current stream and raises if a launch
-fails or is refused; for CPU tensors it runs the plain version in
-``ref.py``.  There is no other fallback.
+(the Pallas ``_gibbs_kernel``: uniforms as operands) and
+``gibbs_chain_fused`` replaces ``gibbs_chain_pallas_fused``
+(``_gibbs_fused_kernel``: uniforms drawn in-kernel from the counter
+cipher).  Both launch ``gibbs_band_kernel`` (``OperandDraw`` and
+``FusedDraw``): one cooperative launch per group of lattices, each block
+keeping a band of rows in shared memory for all K half-sweeps.  For CUDA
+tensors each wrapper checks its inputs, launches the kernel on the
+current stream and raises if a launch fails or is refused; for CPU
+tensors it runs the plain version in ``ref.py``.  There is no other
+fallback.
 
 The conditional arrives as a logit spec, ``ref.IsingLogit`` or
 ``ref.SpinGlassLogit``; the kernel has one specialisation for each, and
@@ -17,9 +18,9 @@ any other spec raises ``ValueError``.  Spins are {0, 1} values; they go in
 as any integer tensor and come out as int32, never widened here (the
 engine widens the rows it keeps).  ``plan_groups`` splits a batch into
 the groups one cooperative launch can hold and raises for a lattice too
-large for the card's shared memory.  ``LAUNCHES`` counts kernel launches:
-one per ``gibbs_chain`` call (its K half-sweep launches together) and one
-per lattice group of a ``gibbs_chain_fused`` call.
+large for the card's shared memory (the per-lattice limit, the same for
+both entry points).  ``LAUNCHES`` counts kernel launches: one per lattice
+group of a call.
 """
 
 from __future__ import annotations
@@ -81,10 +82,10 @@ def _check_lattice(init: torch.Tensor, logit, k: int) -> torch.device:
     return init.device
 
 
-def _check_grid(b: int, h: int, w: int, k: int, max_b: int = 65535) -> None:
-    """Sizes the kernels' grids and 32-bit site indices can take."""
-    if not (b <= max_b and h * w < 2**31 and k < 2**31):
-        raise ValueError(f"Gibbs kernel cannot take B={b}, H={h}, W={w}, K={k}")
+def _check_grid(h: int, w: int, k: int) -> None:
+    """Sizes the kernel's 32-bit site indices and step counts can take."""
+    if not (h * w < 2**31 and k < 2**31):
+        raise ValueError(f"Gibbs kernel cannot take H={h}, W={w}, K={k}")
 
 
 def _spins32(init: torch.Tensor) -> torch.Tensor:
@@ -109,7 +110,7 @@ def gibbs_chain(
     _check("parity0", parity0, (b,), _INT, dev)
     if dev.type == "cpu":
         return gibbs_chain_ref(init, u, logit, parity0)
-    _check_grid(b, h, w, k)
+    _check_grid(h, w, k)
     return _launch_gibbs_chain(
         _spins32(init), u.contiguous(), logit, _build.to_u32_bits(parity0)
     )
@@ -125,21 +126,43 @@ def _logit_args(logit) -> tuple[str, tuple]:
     return "", (ctypes.c_float(logit.beta), ctypes.c_float(logit.field))
 
 
-def _launch_gibbs_chain(init32, u, logit, parity32):
-    """K launches of ``gibbs_sweep_kernel`` (one call)."""
-    lib = _build.library()
-    k, b, h, w = u.shape
-    samples = torch.empty((k, b, h, w), dtype=torch.int32, device=u.device)
-    flips = torch.empty((b, h, w), dtype=torch.int32, device=u.device)
+def _launch_gibbs_chain(init32, u, logit, parity32, groups=None):
+    """One cooperative launch of ``gibbs_band_kernel<OperandDraw>`` per
+    lattice group (``plan_groups`` on this card unless ``groups`` is
+    given)."""
     suffix, largs = _logit_args(logit)
-    with torch.cuda.device(u.device):
-        err = getattr(lib, "repro_gibbs_chain" + suffix)(
-            init32.data_ptr(), u.data_ptr(), parity32.data_ptr(), *largs,
-            samples.data_ptr(), flips.data_ptr(), b, h, w, k,
-            torch.cuda.current_stream(u.device).cuda_stream,
-        )
-    _build.check(lib, err, f"gibbs_sweep_kernel{suffix}")
-    LAUNCHES["gibbs_chain"] += 1
+    return _launch_bands(
+        "repro_gibbs_chain" + suffix, f"gibbs_band_kernel<OperandDraw>{suffix}", "gibbs_chain",
+        init32, (u.data_ptr(), parity32.data_ptr(), *largs), (), u.shape[0], groups,
+    )
+
+
+def _launch_bands(entry, kernel, counter, init32, lead, tail, n_steps, groups):
+    """The launches of one call: ``entry(init, *lead, samples, flips,
+    ready, B, H, W, K, *tail, b0, lattices, bands, rows, stream)`` once per
+    lattice group, each group with its own zeroed ready flags; counts each
+    launch in ``LAUNCHES[counter]``."""
+    lib = _build.library()
+    b, h, w = init32.shape
+    dev = init32.device
+    if groups is None:
+        groups = plan_groups(b, h, w, **band_limits(dev.index, w))
+    samples = torch.empty((n_steps, b, h, w), dtype=torch.int32, device=dev)
+    flips = torch.empty((b, h, w), dtype=torch.int32, device=dev)
+    ready = torch.zeros(
+        (len(groups), max(g.lattices * g.bands for g in groups)), dtype=torch.int32, device=dev
+    )
+    launch = getattr(lib, entry)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        for g, flags in zip(groups, ready):
+            err = launch(
+                init32.data_ptr(), *lead, samples.data_ptr(), flips.data_ptr(),
+                flags.data_ptr(), b, h, w, n_steps, *tail, g.b0, g.lattices, g.bands, g.rows,
+                stream,
+            )
+            _build.check(lib, err, kernel)
+            LAUNCHES[counter] += 1
     return samples, flips
 
 
@@ -225,7 +248,7 @@ def gibbs_chain_fused(
         raise ValueError(f"need 0 < lat_b <= B={b}, got {lat_b}")
     if dev.type == "cpu":
         return gibbs_chain_fused_ref(init, k0b, k1b, t0b, logit, n_steps, lat_b)
-    _check_grid(b, h, w, n_steps, max_b=2**31 - 1)
+    _check_grid(h, w, n_steps)
     return _launch_gibbs_chain_fused(
         _spins32(init), _build.to_u32_bits(k0b), _build.to_u32_bits(k1b),
         _build.to_u32_bits(t0b), logit, n_steps=n_steps, lat_b=lat_b,
@@ -234,28 +257,13 @@ def gibbs_chain_fused(
 
 def _launch_gibbs_chain_fused(init32, k0b32, k1b32, t0b32, logit, *, n_steps, lat_b,
                               groups=None):
-    """One cooperative launch of ``gibbs_band_kernel`` per lattice group
-    (``plan_groups`` on this card unless ``groups`` is given)."""
-    lib = _build.library()
-    b, h, w = init32.shape
-    dev = init32.device
-    if groups is None:
-        groups = plan_groups(b, h, w, **band_limits(dev.index, w))
-    samples = torch.empty((n_steps, b, h, w), dtype=torch.int32, device=dev)
-    flips = torch.empty((b, h, w), dtype=torch.int32, device=dev)
-    ready = torch.zeros(
-        (len(groups), max(g.lattices * g.bands for g in groups)), dtype=torch.int32, device=dev
-    )
+    """One cooperative launch of ``gibbs_band_kernel<FusedDraw>`` per
+    lattice group (``plan_groups`` on this card unless ``groups`` is
+    given)."""
     suffix, largs = _logit_args(logit)
-    launch = getattr(lib, "repro_gibbs_chain_fused" + suffix)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        for g, flags in zip(groups, ready):
-            err = launch(
-                init32.data_ptr(), k0b32.data_ptr(), k1b32.data_ptr(), t0b32.data_ptr(),
-                *largs, samples.data_ptr(), flips.data_ptr(), flags.data_ptr(),
-                b, h, w, n_steps, lat_b, g.b0, g.lattices, g.bands, g.rows, stream,
-            )
-            _build.check(lib, err, f"gibbs_band_kernel{suffix}")
-            LAUNCHES["gibbs_chain_fused"] += 1
-    return samples, flips
+    return _launch_bands(
+        "repro_gibbs_chain_fused" + suffix, f"gibbs_band_kernel<FusedDraw>{suffix}",
+        "gibbs_chain_fused", init32,
+        (k0b32.data_ptr(), k1b32.data_ptr(), t0b32.data_ptr(), *largs), (lat_b,), n_steps,
+        groups,
+    )

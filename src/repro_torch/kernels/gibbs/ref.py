@@ -1,10 +1,10 @@
 """Plain PyTorch versions of the two checkerboard Gibbs kernels.
 
 ``gibbs_chain_ref`` is the counterpart of ``repro.kernels.gibbs.ref`` and
-the plain version of ``csrc/gibbs.cu:gibbs_sweep_kernel``;
+the plain version of ``csrc/gibbs.cu:gibbs_band_kernel<OperandDraw>``;
 ``gibbs_chain_fused_ref`` draws the uniforms the fused kernel draws
 in-kernel, through ``repro_torch.kernels.rng``, and runs the same
-half-sweeps: the plain version of ``gibbs_band_kernel``.  Both return
+half-sweeps: the plain version of ``gibbs_band_kernel<FusedDraw>``.  Both return
 int32 spins and flip counts, as the kernels do.  The CPU path of the
 wrappers and the card-side parity checks run these.
 

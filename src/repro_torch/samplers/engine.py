@@ -460,11 +460,12 @@ def _run_pallas_gibbs_chains(keys, target, backend, n_steps, chunk, step0, init,
     else:
 
         def run_chunk(state, start, n):
-            u = torch.stack([
-                backend.chunk(k, step0 + start, n, (b, h, w), 1, need_flips=False)[1]
-                for k in keys
-            ])  # (C, n, B, H, W)
-            u = u.transpose(0, 1).reshape(n, c_chains * b, h, w)
+            us = [backend.chunk(k, step0 + start, n, (b, h, w), 1, need_flips=False)[1]
+                  for k in keys]  # C blocks of (n, B, H, W)
+            # one chain's block goes to the kernel as it is; C > 1 are
+            # interleaved chain-major into the lattice axis (one copy)
+            u = us[0] if c_chains == 1 else (
+                torch.stack(us, dim=1).reshape(n, c_chains * b, h, w))
             return gibbs_ops.gibbs_sweep(state, u, logit, parity0=(step0 + start) % 2)
 
     samples, acc, state = _drive_pallas_chunks(

@@ -286,8 +286,10 @@ def test_kernel_launch_counts_stay_zero_on_cpu():
 
 
 def test_port_imports_no_jax():
-    """The port and its chip check import neither jax nor the JAX package."""
-    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    """The port, its chip check and the card's tools import neither jax nor
+    the JAX package."""
+    files = (sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+             + sorted((ROOT / "tools").glob("*.py")))
     assert len(files) > 10
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))

@@ -21,6 +21,7 @@ from repro.kernels.gibbs import ops as jops
 from repro.kernels.gibbs.gibbs import gibbs_chain_pallas, gibbs_chain_pallas_fused
 from repro.workloads.ising import IsingModel as JIsing
 from repro.workloads.spin_glass import SpinGlass as JGlass
+from repro_torch import samplers, workloads
 from repro_torch.kernels.gibbs import gibbs, ops, ref
 
 B, K = 2, 24
@@ -177,8 +178,8 @@ def test_wrapper_validation_and_cpu_launch_counts():
 # 132 blocks a launch, and the most rows a band of each width may have
 # (``band_max_rows`` with 232,400 bytes of shared memory a block).
 H100_BLOCKS = 132
-H100_ROWS = {1024: 112, 7: 16384, 5: 21845, 256: 452, 3000: 37, 3828: 29, 3829: 29,
-             4096: 27, 200_000: 0}
+H100_ROWS = {1024: 112, 7: 16384, 5: 21845, 256: 452, 257: 451, 3000: 37, 3828: 29,
+             3829: 29, 4096: 27, 200_000: 0}
 
 
 def _assert_plan(groups, b, h, w, max_blocks, max_rows):
@@ -202,6 +203,8 @@ def _assert_plan(groups, b, h, w, max_blocks, max_rows):
     (1, 3, 5, 1, 3, 1),
     (8, 256, 256, 1, 16, 16),
     (2, 3000, 3000, 2, 131, 23),  # one lattice a launch
+    (1, 256, 256, 1, 128, 2),     # the operand paths (host, cim): 128 bands of 2 rows
+    (2, 255, 257, 1, 64, 4),      # odd periodic
 ])
 def test_plan_groups_main_shapes(b, h, w, n_groups, bands, rows):
     limits = dict(max_blocks=H100_BLOCKS, max_rows=H100_ROWS[w])
@@ -240,3 +243,34 @@ def test_plan_groups_per_lattice_limit():
     assert g.bands == H100_BLOCKS
     with pytest.raises(ValueError, match="at most 132 bands"):
         gibbs.plan_groups(1, 3829, 3829, max_blocks=H100_BLOCKS, max_rows=H100_ROWS[3829])
+
+
+@pytest.mark.parametrize("num_chains,copied", [(1, False), (2, True)])
+def test_engine_hands_the_drawn_uniforms_over(monkeypatch, num_chains, copied):
+    """With one chain the kernel gets the (n, B, H, W) block the randomness
+    backend drew, not a copy; with more, one interleaved copy."""
+    drawn, given = [], []
+    chunk = samplers.randomness.HostRandomness.chunk
+
+    def record_chunk(self, *args, **kw):
+        out = chunk(self, *args, **kw)
+        drawn.append(out[1])
+        return out
+
+    def record_sweep(state, u, logit, parity0=0):
+        given.append(u)
+        return real_sweep(state, u, logit, parity0)
+
+    real_sweep = ops.gibbs_sweep
+    monkeypatch.setattr(samplers.randomness.HostRandomness, "chunk", record_chunk)
+    monkeypatch.setattr(ops, "gibbs_sweep", record_sweep)
+    wl = workloads.build("ising", np.array([0, 5], np.uint32), randomness="host",
+                         backend="pallas", batch=2, height=5, width=7, n_steps=10,
+                         chunk_steps=4, num_chains=num_chains, device="cpu")
+    wl.engine.submit(wl.plan(np.array([0, 9])))
+    assert len(given) == 3 and len(drawn) == 3 * num_chains
+    for i, u in enumerate(given):
+        assert u.is_contiguous() and u.shape == (u.shape[0], 2 * num_chains, 5, 7)
+        assert (u is not drawn[i * num_chains]) == copied
+        chains = torch.stack(drawn[i * num_chains:(i + 1) * num_chains], dim=1)
+        assert torch.equal(u, chains.reshape(u.shape))

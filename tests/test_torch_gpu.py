@@ -183,27 +183,63 @@ def _lattice_logit(rs, h, w, spin_glass, device):
     return gref.SpinGlassLogit(*j, field=0.1)
 
 
-@pytest.mark.parametrize("h,w,spin_glass", [(7, 9, False), (8, 6, True), (64, 96, False)])
-def test_gibbs_kernels_match_plain(cuda, h, w, spin_glass):
+def _tie_uniforms(rs, init, logit, parity0, k):
+    """(K, B, H, W) uniforms at every site's flip probability p of its
+    half-sweep, or one ULP below or above it: each active site's flip is a
+    tie, decided by the float compare u < p alone."""
+    u = torch.empty((k, *init.shape), device=init.device)
+    state = init
+    for step in range(k):
+        p = gref.sigmoid(logit(state))
+        pick = torch.from_numpy(rs.integers(0, 3, size=tuple(init.shape))).to(init.device)
+        u[step] = torch.where(pick == 0, p, torch.nextafter(p, 2 * pick - 3.0))
+        state = gref.gibbs_chain_ref(state, u[step:step + 1], logit, parity0 + step)[0][0]
+    return u
+
+
+@pytest.mark.parametrize("h,w,spin_glass,uniforms", [
+    (7, 9, False, "grid"), (8, 6, True, "grid"), (64, 96, False, "grid"),
+    (7, 9, False, "off grid"), (8, 6, True, "off grid"),  # u any float32
+    (7, 9, False, "p +- 1 ulp"), (8, 6, True, "p +- 1 ulp"),
+    (64, 96, False, "two groups"),  # a forced multi-group launch
+])
+def test_gibbs_kernels_match_plain(cuda, h, w, spin_glass, uniforms):
     """Odd lattice, spin glass with couplings, per-lattice parity and t0
-    that differ between lattices and wrap mod 2^32 inside the chunk."""
+    that differ between lattices and wrap mod 2^32 inside the chunk.  The
+    operand kernel tests u < p in floats: u on the 2^-24 grid (numpy's
+    float32 draw), off it (float64 draws rounded to float32), or within
+    one ULP of p at every site; one kernel launch per lattice group."""
     rs = np.random.default_rng(h * w)
     b, k = 3, 20
     init = torch.from_numpy(rs.integers(0, 2, size=(b, h, w))).to(cuda)
-    u = torch.from_numpy(rs.random(size=(k, b, h, w), dtype=np.float32)).to(cuda)
     logit = _lattice_logit(rs, h, w, spin_glass, cuda)
-    gk.reset_launches()
     parity0 = torch.tensor([0, 1, 1], device=cuda)
-    s, f = gk.gibbs_chain(init, u, logit, parity0)
+    if uniforms == "off grid":
+        u = torch.from_numpy(rs.random(size=(k, b, h, w)).astype(np.float32)).to(cuda)
+        assert bool((u * 2**24 != torch.floor(u * 2**24)).any())
+    elif uniforms == "p +- 1 ulp":
+        u = _tie_uniforms(rs, init, logit, parity0, k)
+    else:
+        u = torch.from_numpy(rs.random(size=(k, b, h, w), dtype=np.float32)).to(cuda)
+    groups = gk.plan_groups(b, h, w, **gk.band_limits(cuda.index, w))
+    gk.reset_launches()
+    if uniforms == "two groups":
+        groups = [gk.Group(0, 1, 8, 8), gk.Group(1, 2, 4, 16)]
+        s, f = gk._launch_gibbs_chain(init.int(), u, logit, _build.to_u32_bits(parity0),
+                                      groups=groups)
+    else:
+        s, f = gk.gibbs_chain(init, u, logit, parity0)
     rs_, rf = gref.gibbs_chain_ref(init, u, logit, parity0)
     assert torch.equal(s, rs_) and torch.equal(f, rf)
+    assert gk.LAUNCHES["gibbs_chain"] == len(groups)
     lat = torch.arange(b, device=cuda)
     t0b = torch.tensor([3, 2**31 - 7, -4], device=cuda)
     kw = dict(n_steps=k, lat_b=2)
     s, f = gk.gibbs_chain_fused(init, lat * 7, lat * 3 + 1, t0b, logit, **kw)
     rs_, rf = gref.gibbs_chain_fused_ref(init, lat * 7, lat * 3 + 1, t0b, logit, **kw)
     assert torch.equal(s, rs_) and torch.equal(f, rf)
-    assert gk.LAUNCHES == {"gibbs_chain": 1, "gibbs_chain_fused": 1}
+    assert gk.LAUNCHES["gibbs_chain_fused"] == len(gk.plan_groups(
+        b, h, w, **gk.band_limits(cuda.index, w)))
 
 
 def test_gibbs_launch_errors_raise(cuda):
@@ -214,14 +250,21 @@ def test_gibbs_launch_errors_raise(cuda):
         gk.gibbs_chain(init, u, object(), parity0)
     with pytest.raises(ValueError):
         gk.gibbs_chain(init, u.cpu(), gref.IsingLogit(0.3), parity0)
-    # a grid the card refuses (B > 65535) fails at launch and raises
-    b = 70_000
+    # a band of more rows than a block holds (csrc/gibbs.cu:band_max_rows)
+    # is refused at launch and raises
+    init32 = torch.zeros(1, 2000, 8, dtype=torch.int32, device=cuda)
+    u1 = torch.zeros(1, 1, 2000, 8, device=cuda)
+    words = torch.zeros(1, dtype=torch.int32, device=cuda)
+    rows = gk.band_limits(cuda.index, 8)["max_rows"]
     with pytest.raises(RuntimeError, match="failed to launch"):
-        gk._launch_gibbs_chain(
-            torch.zeros(b, 2, 2, dtype=torch.int32, device=cuda),
-            torch.zeros(1, b, 2, 2, device=cuda), gref.IsingLogit(0.3),
-            torch.zeros(b, dtype=torch.int32, device=cuda),
-        )
+        gk._launch_gibbs_chain(init32, u1, gref.IsingLogit(0.3), words,
+                               groups=[gk.Group(0, 1, 1, rows + 1)])
+    # a lattice past the per-lattice limit (132 bands on the H100), as for
+    # the fused entry point
+    big = torch.zeros(1, 8192, 8192, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="too large for one cooperative launch"):
+        gk.gibbs_chain(big, torch.zeros(1, 1, 8192, 8192, device=cuda), gref.IsingLogit(0.3),
+                       words)
     assert _build.library() is not None
 
 
