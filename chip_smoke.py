@@ -90,6 +90,37 @@ Builds the CUDA kernels from ``src/repro_torch/csrc`` and, on the card:
      the library's SASS (``cuobjdump``) and the issue-limited time it
      sets at the main shape.
 
+Phases 14-19 run between 11 and 12, so that the kernel records of 12
+count their launches:
+
+ 14. ``kernel_entry_points`` (B = 64, V = 49,155, C = 256, K = 64):
+     ``mh_sample_with_rng`` (one ``mh_chain`` launch) equals ``mh_sample``
+     on ``generate_randomness``'s block (32-bit flips and uniforms) and
+     the plain version; ``sample_tokens_fused`` equals
+     ``engine.sample_tokens`` with ``execution="pallas"``;
+ 15. ``resume_mh``: ``run_resumable`` on the MH main path (1,024 steps,
+     ``thin:64``, a checkpoint every 256 steps) under ``fused`` and
+     ``cim``, once whole under telemetry (bytes and seconds per save) and
+     once killed after its second save and finished by a second call;
+     both equal one unsegmented submit at tolerance 0; the wall time of
+     each beside the submit's;
+ 16. ``resume_gibbs``: the same for ``ising`` 1024 x 1024 x 4 under
+     ``fused`` (1,024 half-sweeps, ``thin:256``) against ``wl.run``;
+ 17. ``checkpoint_roundtrip``: ``RunHandle.save``, then
+     ``load_checkpoint_tree`` and ``load_checkpoint(device=)`` give back
+     the handle's arrays; a corrupted leaf is refused on ``verify=True``;
+     a plan with another key is refused by its fingerprint;
+ 18. ``telemetry``: the ``fused`` main path with telemetry on and off
+     gives the same words, a traced submit does not wait for the card and
+     records one ``engine.submit`` span, submits are timed with the
+     tracer off and on in turns, the exported JSONL trace validates, and
+     the counters ``checkpoint_saves_total`` and ``resume_segments_total``
+     equal the saves made;
+ 19. ``chains_mesh``: a one-rank ``nccl`` ``DeviceMesh`` on the card
+     shards MH ``fused`` with ``num_chains=4`` (C = 1,024 columns), equal
+     to the unsharded run word for word; ``make_chains_mesh()`` is None
+     on one card.
+
 Each phase prints one JSON line; any failure raises and exits non-zero.
 The second-to-last line lists the kernels; the last line is the device
 record.  Without a CUDA device, or without the repository around it, it
@@ -99,6 +130,8 @@ exits non-zero and prints no result.
 import contextlib
 import itertools
 import json
+import shutil
+import socket
 import subprocess
 import sys
 import time
@@ -179,6 +212,9 @@ FIG9_M, BIG_M = 400_000, 1 << 24  # the Fig. 9 draw's columns, a size past the L
 # L2, so that each launch reads its input from HBM as its bound assumes
 COLD_BYTES = 200e6
 FIG17_N = 100_000  # benchmarks/table_fig17_sampling.py:N_SAMPLES
+RESUME_THIN, RESUME_EVERY = "thin:64", 256       # the resumable MH runs (N_STEPS steps)
+G_RESUME_THIN, G_RESUME_EVERY = "thin:256", 256  # the resumable Gibbs run
+TELEMETRY_REPS = 15  # fused MH submits timed with telemetry off and on, in turns
 
 
 def emit(**record):
@@ -461,16 +497,26 @@ def main() -> int:
         print(f"chip_smoke: the port's sources are not under {SRC}", file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
-    from repro_torch import prng, samplers, workloads
+    from repro_torch import prng, samplers, telemetry, workloads
+    from repro_torch.checkpoint import (
+        checkpoint_nbytes,
+        latest_step,
+        load_checkpoint,
+        load_checkpoint_tree,
+        run_resumable,
+    )
     from repro_torch.core import bitcell, energy, msxor, targets
+    from repro_torch.distributed import sharding
     from repro_torch.core.macro import CIMMacro, MacroConfig
     from repro_torch.kernels import _build, rng
     from repro_torch.kernels.gibbs import gibbs as gk
     from repro_torch.kernels.gibbs import ref as gref
     from repro_torch.kernels.mh import mh, ref
+    from repro_torch.kernels.mh import ops as mh_ops
     from repro_torch.kernels.msxor import msxor as xk
     from repro_torch.kernels.msxor import ops as xops
     from repro_torch.kernels.msxor import ref as xref
+    from repro_torch.launch import mesh as tmesh
     from repro_torch.workloads import gmm as gmm_wl
 
     def reset_launches():
@@ -1111,6 +1157,287 @@ def main() -> int:
              tv_distance=tv, seconds=seconds,
              chain_steps_per_s=wl.n_steps * 64 / seconds, smoke_card_equals_cpu=same)
         del wl, res
+
+    # 14-19. the run-state layer: the kernel-level MH entry points,
+    # checkpointed resumable runs, checkpoints, telemetry and the chains
+    # mesh.  Checkpoints go under build/ (ignored by git) and are removed
+    fields = ("samples", "accept_count", "acceptance_rate", "final_words", "final_logp")
+
+    def same_result(a, b):
+        return a.n_steps == b.n_steps and all(
+            getattr(a, f).dtype == getattr(b, f).dtype and torch.equal(getattr(a, f), getattr(b, f))
+            for f in fields)
+
+    ckpt_root = ROOT / "build" / "chip_smoke_checkpoints"
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+    ckpt_root.mkdir(parents=True)
+
+    # 14. kernel_entry_points: mh_sample_with_rng and sample_tokens_fused
+    key = prng.PRNGKey(SEED + 2, device=dev)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    rng_samples, rng_acc = mh_ops.mh_sample_with_rng(key, logits, K, chains=C)
+    torch.cuda.synchronize()
+    rng_s = time.perf_counter() - t0
+    rng_launches = launches_now()
+    launches_by_path["kernel_entry_points_mh_sample_with_rng"] = rng_launches
+    check(rng_launches["mh_chain"] == 1, f"mh_sample_with_rng launched {rng_launches}")
+    rnd = mh_ops.generate_randomness(key, K, B, C, 0.45)
+    check(tuple(rnd.u.shape) == (K, B, C) and int(rnd.flips.max()) >= 2**16,
+          "generate_randomness did not draw a (K, B, C) block of 32-bit words")
+    start = torch.argmax(logits, dim=-1)[:, None].expand(B, C).contiguous()
+    block = mh_ops.mh_sample(logits, start, rnd.flips, rnd.u, nbits=16)
+    check(torch.equal(block[0], rng_samples) and torch.equal(block[1], rng_acc),
+          "mh_sample_with_rng differs from mh_sample on generate_randomness's block")
+    diff, err, rate = hold("mh_chain", "mh_sample_with_rng block",
+                           (logits, start, rnd.flips, rnd.u, 16), {}, record=False)
+    del rnd, block, rng_samples, rng_acc, start
+    reset_launches()
+    t0 = time.perf_counter()
+    tok_f, rate_f = mh_ops.sample_tokens_fused(key, logits, n_steps=K)
+    torch.cuda.synchronize()
+    tok_s = time.perf_counter() - t0
+    tok_launches = launches_now()
+    launches_by_path["kernel_entry_points_sample_tokens_fused"] = tok_launches
+    check(tok_launches["mh_chain"] > 0, "sample_tokens_fused launched no mh_chain")
+    tok_e, res_e = samplers.MHEngine(samplers.EngineConfig(execution="pallas")).sample_tokens(
+        key, logits, n_steps=K)
+    check(torch.equal(tok_f, tok_e) and torch.equal(rate_f, res_e.acceptance_rate),
+          "sample_tokens_fused differs from engine.sample_tokens(execution='pallas')")
+    emit(phase="kernel_entry_points", B=B, V=V, C=C, K=K, nbits=16, u_bits=32,
+         mh_sample_with_rng_launches=rng_launches, mh_sample_with_rng_s=rng_s,
+         equals_mh_sample_on_block=True, plain_mismatches=diff, max_abs_err=err,
+         accept_rate=rate, sample_tokens_fused_launches=tok_launches,
+         sample_tokens_fused_s=tok_s, sample_tokens_fused_equals_engine=True,
+         acceptance_rate=float(rate_f))
+
+    # 15-16. resumable runs: each killed after its second segment and
+    # finished by a second call on the same directory, and once
+    # uninterrupted under telemetry (the saves' bytes and seconds), both
+    # against one unsegmented run at tolerance 0
+    class Preempted(Exception):
+        pass
+
+    def die_after(segments, every):
+        def on_segment(done, total, handle):
+            if done == segments * every:
+                raise Preempted
+        return on_segment
+
+    def resume_phase(path, kernel, eng, plan, run_one, every):
+        """(record, the uninterrupted handle) of one resumable path."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one = run_one()
+        torch.cuda.synchronize()
+        one_s = time.perf_counter() - t0
+        tr = telemetry.enable()
+        reset_launches()
+        t0 = time.perf_counter()
+        whole = run_resumable(eng, plan, directory=str(ckpt_root / path), every=every)
+        torch.cuda.synchronize()
+        whole_s = time.perf_counter() - t0
+        launches = launches_now()
+        telemetry.disable()
+        launches_by_path[path] = launches
+        check(launches[kernel] > 0, f"{path} launched no {kernel}")
+        saves = [e for e in tr.events() if e.name == "checkpoint.save"]
+        segs = [e for e in tr.events() if e.name == "run_resumable.segment"]
+        n_seg = -(-int(plan.n_steps) // every)
+        check(len(saves) == len(segs) == n_seg, f"{path}: {len(saves)} saves, {len(segs)} "
+              f"segment logs for {n_seg} segments")
+        check(same_result(whole.result, one), f"{path}: run_resumable != one submit")
+        killed = ckpt_root / f"{path}_killed"
+        try:
+            run_resumable(eng, plan, directory=str(killed), every=every,
+                          on_segment=die_after(2, every))
+            check(False, f"{path}: the run was not killed")
+        except Preempted:
+            pass
+        check(latest_step(str(killed)) == int(plan.step0) + 2 * every,
+              f"{path}: the kill did not follow the second save")
+        t0 = time.perf_counter()
+        resumed = run_resumable(eng, plan, directory=str(killed), every=every)
+        torch.cuda.synchronize()
+        resumed_s = time.perf_counter() - t0
+        check(same_result(resumed.result, one), f"{path}: killed + resumed != one submit")
+        save_bytes = [e.meta["bytes"] for e in saves]
+        save_s = [e.dur_us / 1e6 for e in saves]
+        # the host's side of the segments' submits (kernels queued, not waited for)
+        submit_s = sum(e.dur_us for e in tr.events() if e.name == "engine.submit") / 1e6
+        record = dict(
+            n_steps=int(plan.n_steps), every=every, segments=n_seg, launches=launches,
+            kernel_launches=launches[kernel], unsegmented_s=one_s, resumable_s=whole_s,
+            overhead_s=whole_s - one_s, overhead_ratio=whole_s / one_s,
+            resumed_after_kill_s=resumed_s, save_bytes=save_bytes, save_s=save_s,
+            bytes_written=sum(save_bytes), seconds_in_saves=sum(save_s),
+            seconds_in_submits=submit_s,
+            seconds_elsewhere=whole_s - sum(save_s) - submit_s,  # copies to the host, waits
+            bytes_per_save=sum(save_bytes) / len(saves), seconds_per_save=sum(save_s) / len(saves),
+            final_checkpoint_bytes=checkpoint_nbytes(
+                str(ckpt_root / path / f"step_{int(plan.step0) + int(plan.n_steps):08d}")),
+            killed_after_segments=2, bit_exact=True)
+        return record, whole
+
+    resume_runs = {}
+    for randomness in ("fused", "cim"):
+        eng = samplers.MHEngine(samplers.EngineConfig(randomness=randomness))
+        plan = samplers.RunPlan(target=samplers.TableTarget(logits), n_steps=N_STEPS,
+                                init_words=init, seed=SEED, collect=RESUME_THIN)
+        record, whole = resume_phase(f"resume_mh_{randomness}", kernel_of[randomness], eng, plan,
+                                     lambda: eng.submit(plan).result, RESUME_EVERY)
+        resume_runs[randomness] = (eng, plan, whole)
+        check(tuple(whole.samples.shape) == (N_STEPS // int(RESUME_THIN[5:]), B, C),
+              "resume_mh: wrong kept shape")
+        emit(phase="resume_mh", randomness=randomness, B=B, V=V, C=C, nbits=16,
+             collect=RESUME_THIN, **record)
+    wl = workloads.build("ising", prng.PRNGKey(SEED, device=dev), randomness="fused",
+                         backend="pallas", beta=BETA, height=LAT, width=LAT, batch=LAT_B,
+                         n_steps=N_STEPS, chunk_steps=G_CHUNK, collect=G_RESUME_THIN)
+    g_key = prng.PRNGKey(SEED + 1, device=dev)
+    record, whole = resume_phase("resume_gibbs", "gibbs_chain_fused", wl.engine, wl.plan(g_key),
+                                 lambda: wl.run(g_key), G_RESUME_EVERY)
+    check(tuple(whole.samples.shape) == (N_STEPS // int(G_RESUME_THIN[5:]), LAT_B, LAT, LAT),
+          "resume_gibbs: wrong kept shape")
+    emit(phase="resume_gibbs", workload="ising", randomness="fused", lattice=f"{LAT}x{LAT}",
+         B=LAT_B, chunk_steps=G_CHUNK, collect=G_RESUME_THIN, **record)
+    del wl, whole
+
+    # 17. checkpoint_roundtrip: RunHandle.save and both loads, a corrupted
+    # leaf refused, a plan with another key refused by its fingerprint
+    eng, plan, whole = resume_runs["fused"]
+    handle = eng.submit(plan.replace(n_steps=256, collect=None))
+    directory = str(ckpt_root / "handle")
+    t0 = time.perf_counter()
+    path = handle.save(directory)
+    save_s = time.perf_counter() - t0
+    tree, manifest = load_checkpoint_tree(directory, handle.progress, verify=True)
+    host_equal = (np.array_equal(tree["words"], handle.final_words.cpu().numpy())
+                  and np.array_equal(tree["acc"], handle.accept_count.cpu().numpy())
+                  and np.array_equal(tree["logp"], handle.final_logp.cpu().numpy()))
+    check(host_equal, "load_checkpoint_tree differs from the saved handle")
+    check(manifest["extra"]["fingerprint"] == handle.plan.fingerprint(eng),
+          "the saved fingerprint is not the plan's")
+    like = {"acc": handle.accept_count, "logp": handle.final_logp, "words": handle.final_words}
+    back, _ = load_checkpoint(directory, handle.progress, like, device=dev)
+    check(all(back[k].device == v.device and back[k].dtype == v.dtype and torch.equal(back[k], v)
+              for k, v in like.items()), "load_checkpoint(device=) differs from the handle")
+    leaf = Path(path) / manifest["leaves"][-1]["file"]
+    raw = bytearray(leaf.read_bytes())
+    raw[-1] ^= 0x40
+    leaf.write_bytes(bytes(raw))
+    try:
+        load_checkpoint_tree(directory, handle.progress, verify=True)
+        check(False, "a corrupted leaf was read")
+    except IOError:
+        pass
+    try:
+        run_resumable(eng, plan.replace(seed=SEED + 7), directory=str(ckpt_root / "resume_mh_fused"),
+                      every=RESUME_EVERY)
+        check(False, "a plan with another key resumed a checkpoint")
+    except ValueError as e:
+        check("different run" in str(e), f"unexpected refusal: {e}")
+    emit(phase="checkpoint_roundtrip", step=handle.progress, save_s=save_s,
+         bytes=checkpoint_nbytes(path), leaves=[(e["key"], e["dtype"], e["shape"])
+                                                for e in manifest["leaves"]],
+         host_equal=True, device_equal=True, corrupted_leaf_refused=True,
+         other_key_refused=True)
+    del handle, back, whole
+
+    # 18. telemetry: the stream with telemetry on and off, one span a
+    # submit, no wait for the card inside a traced submit, the export
+    # validates, the counters count the saves
+    eng = samplers.MHEngine(samplers.EngineConfig(randomness="fused"))
+    plan = samplers.RunPlan(target=samplers.TableTarget(logits), n_steps=N_STEPS,
+                            init_words=init, seed=SEED)
+    off = eng.submit(plan).result
+    real_sync, waits = torch.cuda.synchronize, []
+    torch.cuda.synchronize = lambda *a, **k: (waits.append(1), real_sync(*a, **k))[1]
+    tr = telemetry.enable()
+    try:
+        on = eng.submit(plan).result
+    finally:
+        torch.cuda.synchronize = real_sync
+    check(not waits, f"a traced submit waited for the card {len(waits)} times")
+    check(same_result(on, off), "the stream differs with telemetry on")
+    wall = {"off": [], "on": []}
+    for _ in range(TELEMETRY_REPS):
+        for mode in ("off", "on"):
+            telemetry.TRACER.enabled = mode == "on"  # enable() would clear the trace
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng.submit(plan)
+            torch.cuda.synchronize()
+            wall[mode].append((time.perf_counter() - t0) * 1e3)
+    spans = [e for e in tr.events() if e.name == "engine.submit"]
+    check(len(spans) == 1 + TELEMETRY_REPS, f"{len(spans)} engine.submit spans for "
+          f"{1 + TELEMETRY_REPS} traced submits")
+    trace_path = str(ckpt_root / "run.trace.jsonl")
+    telemetry.REGISTRY.reset()
+    run_resumable(eng, plan, directory=str(ckpt_root / "telemetry"), every=RESUME_EVERY)
+    n_events = tr.export_jsonl(trace_path)
+    problems = telemetry.validate_jsonl(trace_path)
+    telemetry.disable()
+    check(problems == [], f"the exported trace is invalid: {problems[:3]}")
+    saves_total = telemetry.REGISTRY.counter("checkpoint_saves_total").value()
+    segments_total = telemetry.REGISTRY.counter("resume_segments_total").value()
+    n_saves = N_STEPS // RESUME_EVERY
+    check(saves_total == segments_total == n_saves, f"counters {saves_total}, {segments_total} "
+          f"for {n_saves} saves")
+    med = {m: sorted(v)[len(v) // 2] for m, v in wall.items()}
+    emit(phase="telemetry", randomness="fused", B=B, V=V, C=C, n_steps=N_STEPS,
+         bit_identical_on_off=True, waits_in_traced_submit=len(waits),
+         engine_submit_spans=len(spans), span_enqueue_ms_median=sorted(
+             e.dur_us / 1e3 for e in spans)[len(spans) // 2],
+         submit_wall_ms_median_off=med["off"], submit_wall_ms_median_on=med["on"],
+         submit_wall_ms_off=wall["off"], submit_wall_ms_on=wall["on"],
+         trace_events=n_events, trace_valid=True, checkpoint_saves_total=saves_total,
+         resume_segments_total=segments_total, saves_made=n_saves)
+    del off, on
+
+    # 19. chains_mesh: a one-rank nccl DeviceMesh shards num_chains=4
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    check(tmesh.make_chains_mesh() is None, "make_chains_mesh() built a mesh on one card")
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", world_size=1,
+                            rank=0, device_id=dev)
+    try:
+        mesh = DeviceMesh("cuda", [0], mesh_dim_names=("data",))
+        spec = sharding.spec_for(("chains",), shape=(4,), mesh=mesh)
+        check(spec == ("data",), f"the chains rule resolved to {spec}")
+        check(tmesh.make_chains_mesh() is None and tmesh.mesh_chip_count(mesh) == 1,
+              "make_chains_mesh() built a mesh on one rank")
+        cfg = samplers.EngineConfig(randomness="fused", num_chains=4)
+        plan = samplers.RunPlan(target=samplers.TableTarget(logits), n_steps=256,
+                                init_words=init.expand(4, B, C), seed=SEED)
+        unsharded = samplers.MHEngine(cfg).submit(plan).result
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        samplers.MHEngine(cfg).submit(plan)
+        torch.cuda.synchronize()
+        unsharded_s = time.perf_counter() - t0
+        reset_launches()
+        t0 = time.perf_counter()
+        sharded = samplers.MHEngine(cfg).submit(plan.replace(mesh=mesh)).result
+        torch.cuda.synchronize()
+        mesh_s = time.perf_counter() - t0
+        launches = launches_now()
+        launches_by_path["chains_mesh"] = launches
+        check(launches["mh_chain_fused"] > 0, "the sharded run launched no mh_chain_fused")
+        check(same_result(sharded, unsharded), "the sharded run differs from the unsharded one")
+    finally:
+        dist.destroy_process_group()
+    emit(phase="chains_mesh", backend="nccl", ranks=1, mesh_dims=["data"], spec=list(spec),
+         num_chains=4, B=B, V=V, C=C, kernel_C=4 * C, n_steps=256, launches=launches,
+         seconds=mesh_s, unsharded_seconds=unsharded_s, equals_unsharded=True,
+         make_chains_mesh_one_card=None)
+    del unsharded, sharded
+    shutil.rmtree(ckpt_root, ignore_errors=True)
 
     # 12. timing --------------------------------------------------------------
     # The table (12.6 MB at V = 49,155) stays in the 50 MB L2 between

@@ -118,6 +118,19 @@ class BitcellConfig:
         return float(bit_flip_rate(self.cvdd, self.temp_c))
 
 
+def pseudo_read_flip(key: torch.Tensor, stored_bits, p_bfr: float, *, shape=None):
+    """Block-wise RNG pseudo-read: every selected bit flips w.p. ``p_bfr``.
+
+    This is the proposal generator (paper §3.2): applied to the bitcells
+    that hold the current sample x^(i), it yields the candidate x*, the
+    stored bits XOR i.i.d. Bernoulli(p_bfr) flips, as uint8.  ``shape`` is
+    accepted for the JAX signature and unused."""
+    del shape
+    stored_bits = torch.as_tensor(stored_bits, device=key.device)
+    flips = prng.bernoulli(key, p_bfr, tuple(stored_bits.shape))
+    return stored_bits.to(torch.uint8) ^ flips.to(torch.uint8)
+
+
 def pseudo_read_fresh(key: torch.Tensor, p_bfr: float, *, shape) -> torch.Tensor:
     """Reset-then-pseudo-read (paper §4.2 step 1+2): bits ~ Bernoulli(p_bfr)
     as uint8, with the key's leading axes first."""

@@ -10,6 +10,7 @@ reproduces that dataflow on int64 tensors of uint32 words.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 DEFAULT_STAGES = 3  # paper: 3 stages adequate for p_BFR >= 0.4
@@ -79,3 +80,10 @@ def unpack_uint_to_bits(words: torch.Tensor, nbits: int) -> torch.Tensor:
     shifts = torch.arange(nbits, dtype=torch.int64, device=words.device)
     return ((words[..., None].to(torch.int64) >> shifts) & 1).to(torch.uint8)
 
+
+def empirical_lambda(bits) -> float:
+    """Monte-Carlo estimate of P(bit = 1) for validation benchmarks: the
+    float64 mean of ``bits`` (a tensor is copied to the host)."""
+    if isinstance(bits, torch.Tensor):
+        bits = bits.cpu().numpy()
+    return float(np.asarray(bits, dtype=np.float64).mean())

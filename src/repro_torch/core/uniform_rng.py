@@ -16,6 +16,7 @@ import dataclasses
 
 import torch
 
+from repro_torch import prng
 from repro_torch.core import bitcell, msxor
 
 
@@ -54,3 +55,21 @@ def uniform(
     debias_error(p, n).  Dividing by a power of two is exact."""
     words = uniform_words(key, shape, p_bfr, bit_width, n_stages)
     return words.to(torch.float32) / float(1 << bit_width)
+
+
+class AccurateUniformRNG:
+    """Stateful convenience wrapper: each ``draw`` splits its key
+    (``key, sub = prng.split(key)``) and draws ``uniform`` from ``sub``,
+    so draw n equals the JAX package's draw n bit for bit.  Draws land
+    on the key's device."""
+
+    def __init__(self, key, config: UniformRNGConfig = UniformRNGConfig()):
+        self._key = torch.as_tensor(key, dtype=torch.int64)
+        self.config = config
+
+    def draw(self, shape=()) -> torch.Tensor:
+        self._key, sub = prng.split(self._key)
+        return uniform(
+            sub, tuple(shape), self.config.p_bfr, self.config.bit_width,
+            self.config.n_stages,
+        )

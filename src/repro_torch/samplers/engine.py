@@ -27,7 +27,10 @@ with the same key they give identical sample streams; operands of step
 stream.
 
 Every entry runs on ``device`` — ``"cuda"`` unless the caller asks for
-the CPU.  Mesh sharding is not ported yet (ROADMAP.md queue 1, item 5).
+the CPU.  ``mesh`` (a 1-D ``torch.distributed`` ``DeviceMesh``, one
+process per device) shards the chain axis under the "chains" rule: each
+rank runs its slice of the chains on its own device and an all-gather
+gives every rank the whole result, word for word the unsharded run's.
 """
 
 from __future__ import annotations
@@ -481,6 +484,58 @@ def _run_pallas_gibbs_chains(keys, target, backend, n_steps, chunk, step0, init,
     return unfold(samples), unfold(acc), unfold(state.to(torch.int64))
 
 
+def _gather_chains(x: torch.Tensor, n: int, group) -> torch.Tensor:
+    """Every rank's (C/n, ...) block, concatenated along the chain axis in
+    rank order.  An empty block (``collect="last"``'s samples) needs no
+    collective."""
+    import torch.distributed as dist
+
+    out = torch.empty((n * x.shape[0], *x.shape[1:]), dtype=x.dtype, device=x.device)
+    if x.numel():
+        gather = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
+        gather(out, x.contiguous(), group=group)
+    return out
+
+
+def _shard_over_chains(body, mesh, num_chains: int, device: torch.device):
+    """Wrap ``body(keys, init)`` so each rank of ``mesh`` runs its slice
+    of the chains and all ranks get the whole result.
+
+    The "chains" axis resolves through ``distributed.sharding.spec_for``
+    with its divisibility filter: a chain count the mesh does not divide
+    runs replicated (every rank runs every chain), and no mesh is the
+    identity.  Chains never communicate, so the sharded run equals the
+    unsharded one word for word (the JAX package's ``shard_map``)."""
+    from repro_torch.distributed import sharding
+
+    if mesh is None:
+        return body
+    spec = sharding.spec_for(("chains",), shape=(num_chains,), mesh=mesh)
+    if not spec or spec[0] is None:
+        return body
+    if mesh.ndim != 1 or not isinstance(spec[0], str):
+        raise ValueError(
+            f"the chains axis shards over a 1-D mesh, got dimensions "
+            f"{mesh.mesh_dim_names}"
+        )
+    if mesh.device_type != device.type:
+        raise ValueError(
+            f"a {mesh.device_type} mesh cannot shard an engine on {device}: "
+            "build the mesh on the engine's device type"
+        )
+    n = mesh.size()
+    rank = mesh.get_local_rank(spec[0])
+    group = mesh.get_group(spec[0])
+    per = num_chains // n
+
+    def sharded(keys, init):
+        lo = rank * per
+        outs = body(keys[lo:lo + per], init[lo:lo + per])
+        return tuple(_gather_chains(x, n, group) for x in outs)
+
+    return sharded
+
+
 def _gibbs_logp(target, words: torch.Tensor) -> torch.Tensor:
     """Per-site conditional log-prob (pseudo-likelihood) of ``words``."""
     logit = target.conditional_logit(words)
@@ -582,12 +637,10 @@ class MHEngine:
         absolute step count, so a run resumed from ``(final_words,
         step0=s)`` continues one unsegmented run exactly.  ``init_logp``
         (solo MH scan only) seeds the carried log-prob.
+        ``mesh`` (a 1-D ``DeviceMesh``) shards the chain axis of a C-chain
+        run across its ranks (``_shard_over_chains``); a solo run ignores
+        it, as in the JAX package.
         """
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh sharding of the chain axis is not ported yet (ROADMAP.md "
-                "queue 1, item 5)"
-            )
         if n_steps < 1:
             raise ValueError(f"n_steps must be >= 1, got {n_steps}")
         step0 = int(step0)
@@ -607,7 +660,7 @@ class MHEngine:
         init = self._words(init_words)
         if self.config.num_chains > 1:
             return self._run_chains(
-                key, target, n_steps, init, base=chain_id, step0=step0,
+                key, target, n_steps, init, mesh, base=chain_id, step0=step0,
                 collect=collect,
             )
         key = chain_key(key, chain_id)
@@ -655,11 +708,12 @@ class MHEngine:
         )
 
     def _run_chains(
-        self, key, target, n_steps: int, init, base: int = 0, step0: int = 0,
+        self, key, target, n_steps: int, init, mesh=None, base: int = 0, step0: int = 0,
         collect: tuple[str, int] = ("all", 1),
     ) -> EngineResult:
         """C independent chains; ``base`` offsets the chain ids, so two
-        C-chain runs with bases 0 and C compose into the 2C-chain run."""
+        C-chain runs with bases 0 and C compose into the 2C-chain run.
+        ``mesh`` shards them across ranks (``_shard_over_chains``)."""
         cfg = self.config
         num_chains = cfg.num_chains
         # the leading axis is ALWAYS the chain axis — never guessed
@@ -673,38 +727,28 @@ class MHEngine:
         if cfg.update == "gibbs":
             execution = resolve_execution(cfg.execution, target, self.device, "gibbs")
             args = (target, self._backend, n_steps, cfg.chunk_steps, step0)
-            if execution == "scan":
-                runs = [
-                    _run_scan_gibbs(keys[c], *args, init[c], collect)
-                    for c in range(num_chains)
-                ]
-                samples, acc, words = (torch.stack(x) for x in zip(*runs))
-            else:
-                samples, acc, words = _run_pallas_gibbs_chains(keys, *args, init, collect)
-            return EngineResult(
-                samples=samples,
-                accept_count=acc,
-                acceptance_rate=_acceptance_rate(acc, n_steps),
-                final_words=words,
-                final_logp=_gibbs_logp(target, words),
-                n_steps=n_steps,
-            )
-        execution = resolve_execution(cfg.execution, target, self.device)
-        nbits = target.nbits
-        if execution == "scan":
-            runs = [
-                _run_scan(
-                    keys[c], target, self._backend, nbits, n_steps,
-                    cfg.chunk_steps, step0, init[c], collect,
-                )
-                for c in range(num_chains)
-            ]
-            samples, acc, words, logp = (torch.stack(x) for x in zip(*runs))
+
+            def body(ks, ini):
+                if execution == "pallas":
+                    return _run_pallas_gibbs_chains(ks, *args, ini, collect)
+                runs = [_run_scan_gibbs(k, *args, w, collect) for k, w in zip(ks, ini)]
+                return tuple(torch.stack(x) for x in zip(*runs))
+
+            body = _shard_over_chains(body, mesh, num_chains, self.device)
+            samples, acc, words = body(keys, init)
+            logp = _gibbs_logp(target, words)
         else:
-            samples, acc, words, logp = _run_pallas_chains(
-                keys, target, self._backend, nbits, n_steps, cfg.chunk_steps,
-                step0, init, collect,
-            )
+            execution = resolve_execution(cfg.execution, target, self.device)
+            args = (target, self._backend, target.nbits, n_steps, cfg.chunk_steps, step0)
+
+            def body(ks, ini):
+                if execution == "pallas":
+                    return _run_pallas_chains(ks, *args, ini, collect)
+                runs = [_run_scan(k, *args, w, collect) for k, w in zip(ks, ini)]
+                return tuple(torch.stack(x) for x in zip(*runs))
+
+            body = _shard_over_chains(body, mesh, num_chains, self.device)
+            samples, acc, words, logp = body(keys, init)
         return EngineResult(
             samples=samples,
             accept_count=acc,

@@ -6,24 +6,38 @@ A ``RunPlan`` is one validated run spec: what to sample (``target``,
 ``chain_id``) and the resume carry (``step0``, ``init_words``,
 ``init_logp``).  ``MHEngine.submit(plan)`` runs it and returns a
 ``RunHandle``, whose ``resume(n)`` continues the exact stream of one
-unsegmented run.  Checkpointing (``RunHandle.save``), mesh sharding and
-the telemetry span of ``submit`` wait for later slices of the port.
+unsegmented run and whose ``save(directory)`` checkpoints that carry
+(``repro_torch.checkpoint``, the JAX package's on-disk format).  ``mesh``
+shards the chain axis (``samplers/engine.py``).  With telemetry on, every
+submit runs under an ``engine.submit`` span that times the host's side
+of the call: the span never waits for the card.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import json
 from typing import Any
 
+import numpy as np
 import torch
 
-from repro_torch import prng
+from repro_torch import prng, telemetry
 from repro_torch.samplers.engine import (
     EngineResult,
     MHEngine,
     parse_collect,
     resolve_execution,
 )
+
+
+def fingerprint_digest(fingerprint: dict) -> str:
+    """A short stable identity of a :meth:`RunPlan.fingerprint` dict —
+    what the telemetry log lines print, so a checkpoint can be matched to
+    its run without the whole key."""
+    blob = json.dumps(fingerprint, sort_keys=True).encode()
+    return hashlib.sha256(blob).hexdigest()[:12]
 
 
 def carries_logp(engine: MHEngine, target) -> bool:
@@ -48,8 +62,8 @@ class RunPlan:
     ``key`` and ``seed`` are mutually exclusive: a key tensor of shape
     (2,), or an int seed resolved to ``prng.PRNGKey(seed)`` on the
     engine's device at submit time.  ``init_words`` is required.
-    ``step0``/``init_logp`` are the resume carry.  ``mesh`` is accepted
-    for the JAX package's signature and refused by the engine.
+    ``step0``/``init_logp`` are the resume carry.  ``mesh`` (a 1-D
+    ``DeviceMesh``) shards the chain axis of a multi-chain run.
     """
 
     target: Any
@@ -94,9 +108,10 @@ class RunPlan:
 
     def fingerprint(self, engine: MHEngine) -> dict:
         """A JSON-able identity of (engine axes, stream, state layout):
-        what must match for a resume to continue the same chain.  Leaves
-        out ``chunk_steps``/``block_c``/``execution``, which never change
-        the stream."""
+        what must match for a checkpointed resume to continue the same
+        chain — the JAX package's dict for the same plan.  Leaves out
+        ``chunk_steps``/``block_c``/``execution``, which never change the
+        stream."""
         cfg = engine.config
         key = self.resolved_key("cpu")
         return {
@@ -111,7 +126,7 @@ class RunPlan:
             "collect": self.collect if self.collect is not None else cfg.collect,
             "key": [int(w) & 0xFFFFFFFF for w in key.reshape(-1).tolist()],
             "target": type(self.target).__name__,
-            "state_shape": [int(s) for s in torch.as_tensor(self.init_words).shape],
+            "state_shape": [int(s) for s in np.shape(self.init_words)],
         }
 
 
@@ -173,10 +188,49 @@ class RunHandle:
         return self.engine.submit(self.resume_plan(n_steps, **overrides))
 
     def save(self, directory: str) -> str:
-        raise NotImplementedError(
-            "checkpointing is not ported yet (ROADMAP.md queue 1, item 5); "
-            "resume_plan() gives the carry to continue from"
+        """Checkpoint the resume carry (words/logp/accept) at this
+        handle's absolute step through ``repro_torch.checkpoint``, in the
+        JAX package's format and dtypes, with the plan's fingerprint; logs
+        a ``run_handle.save`` line.  Returns the checkpoint's path."""
+        from repro_torch.checkpoint import run_state, save_checkpoint  # checkpoint imports us
+
+        fingerprint = self.plan.fingerprint(self.engine)
+        with telemetry.span("checkpoint.handle_save", step=self.progress):
+            path = save_checkpoint(
+                directory,
+                self.progress,
+                run_state(
+                    words=self.final_words, logp=self.final_logp,
+                    acc=self.accept_count,
+                ),
+                extra={"fingerprint": fingerprint},
+            )
+        telemetry.log(
+            "run_handle.save",
+            fingerprint=fingerprint_digest(fingerprint),
+            step=self.progress,
+            n_steps=int(self.plan.n_steps),
+            path=path,
         )
+        return path
+
+
+def _submit_span(engine: MHEngine, plan: RunPlan, compiled: bool):
+    """The ``engine.submit`` telemetry span, with the JAX span's metadata
+    (no ``jit_cache``: the port has no jitted dispatcher).  It times the
+    host's side of the submit: kernels are queued, not waited for."""
+    cfg = engine.config
+    return telemetry.span(
+        "engine.submit",
+        update=cfg.update,
+        randomness=cfg.randomness,
+        execution=cfg.execution,
+        n_steps=int(plan.n_steps),
+        step0=int(plan.step0),
+        collect=plan.collect if plan.collect is not None else cfg.collect,
+        num_chains=cfg.num_chains,
+        compiled=compiled,
+    )
 
 
 def submit(engine: MHEngine, plan: RunPlan, *, compiled: bool = False) -> RunHandle:
@@ -184,18 +238,20 @@ def submit(engine: MHEngine, plan: RunPlan, *, compiled: bool = False) -> RunHan
 
     PyTorch runs eagerly and has no counterpart of the JAX package's
     jitted dispatcher, so ``compiled=True`` runs the same path as the
-    default and is accepted for the JAX signature.
+    default and is accepted for the JAX signature.  With telemetry on the
+    call runs under an ``engine.submit`` span; the sampled stream is the
+    same with telemetry on or off.
     """
-    del compiled
     if not isinstance(plan, RunPlan):
         raise TypeError(
             f"submit takes a RunPlan, got {type(plan).__name__} — build one "
             "with samplers.RunPlan(target=..., n_steps=..., init_words=..., "
             "seed=...)"
         )
-    result = engine.run(
-        plan.resolved_key(engine.device), plan.target, plan.n_steps,
-        plan.init_words, chain_id=plan.chain_id, mesh=plan.mesh,
-        step0=plan.step0, collect=plan.collect, init_logp=plan.init_logp,
-    )
+    with _submit_span(engine, plan, compiled):  # a shared no-op while telemetry is off
+        result = engine.run(
+            plan.resolved_key(engine.device), plan.target, plan.n_steps,
+            plan.init_words, chain_id=plan.chain_id, mesh=plan.mesh,
+            step0=plan.step0, collect=plan.collect, init_logp=plan.init_logp,
+        )
     return RunHandle(plan=plan, result=result, engine=engine)

@@ -43,8 +43,8 @@ class WorkloadRun:
         return samplers.RunPlan(**spec)
 
     def run(self, key, mesh=None) -> samplers.EngineResult:
-        """Run the chains (``mesh`` is refused by the engine, as every
-        mesh is until chain sharding is ported)."""
+        """Run the chains; ``mesh`` (a 1-D ``DeviceMesh``) shards a
+        multi-chain run's chain axis across its ranks."""
         return self.engine.submit(self.plan(key, mesh=mesh)).result
 
     def series(self, result: samplers.EngineResult) -> np.ndarray:

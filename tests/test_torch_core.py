@@ -117,3 +117,37 @@ class TestUniformRNG:
             jax.vmap(lambda kk: juniform.uniform(kk, (2, 5), 0.45, 16, 3))(ks),
             uniform_rng.uniform(prng.split(tk, 3), (2, 5), 0.45, 16, 3),
         )
+
+    @pytest.mark.parametrize("seed,draws", [(10, [(), (3, 4), (7,)]), (2**31 + 3, [(2, 2, 5)] * 3)])
+    def test_accurate_uniform_rng(self, seed, draws):
+        """The stateful wrapper's n-th draw equals JAX's n-th draw: each
+        draw splits the key the same way."""
+        cfg = dict(p_bfr=0.4, n_stages=3, bit_width=16)
+        jr = juniform.AccurateUniformRNG(jax.random.PRNGKey(seed), juniform.UniformRNGConfig(**cfg))
+        tr = uniform_rng.AccurateUniformRNG(prng.PRNGKey(seed), uniform_rng.UniformRNGConfig(**cfg))
+        for shape in draws:
+            got = tr.draw(shape)
+            assert got.dtype == torch.float32 and tuple(got.shape) == shape
+            _eq(jr.draw(shape), got)
+
+
+class TestPaperCoreLeftovers:
+    @partitionable
+    @pytest.mark.parametrize("shape,p", [((4, 33), 0.45), ((2, 3, 16), 0.1), ((1,), 0.5)])
+    def test_pseudo_read_flip(self, shape, p):
+        rs = np.random.default_rng(len(shape))
+        stored = rs.integers(0, 2, size=shape).astype(np.uint8)
+        got = bitcell.pseudo_read_flip(prng.PRNGKey(9), torch.from_numpy(stored), p)
+        want = jbitcell.pseudo_read_flip(jax.random.PRNGKey(9), jnp.asarray(stored), p)
+        assert got.dtype == torch.uint8 and np.asarray(want).dtype == np.uint8
+        _eq(want, got)
+        # the flips are the Bernoulli draw of the fresh pseudo-read
+        _eq(jbitcell.pseudo_read_fresh(jax.random.PRNGKey(9), p, shape=shape),
+            got ^ torch.from_numpy(stored))
+
+    @pytest.mark.parametrize("kind", ["numpy", "tensor", "list"])
+    def test_empirical_lambda(self, kind):
+        bits = np.random.default_rng(3).integers(0, 2, size=(17, 29)).astype(np.uint8)
+        arg = {"numpy": bits, "tensor": torch.from_numpy(bits), "list": bits.tolist()}[kind]
+        got = msxor.empirical_lambda(arg)
+        assert isinstance(got, float) and got == jmsxor.empirical_lambda(bits)

@@ -238,16 +238,41 @@ def test_convert_device_rule():
                 conv(x)
 
 
-def test_unported_paths_raise():
+def test_save_writes_a_checkpoint(tmp_path):
+    """``RunHandle.save`` writes the resume carry at the handle's step, in
+    the JAX package's dtypes, with the plan's fingerprint."""
+    from repro_torch.checkpoint import latest_step, load_checkpoint_tree
+
+    eng = ts.MHEngine(device="cpu")
+    table, init = _data()
+    plan = ts.RunPlan(
+        target=ts.TableTarget(torch.from_numpy(table)), n_steps=2, init_words=init[0], seed=0,
+        step0=3,
+    )
+    handle = eng.submit(plan)
+    path = handle.save(str(tmp_path))
+    assert latest_step(str(tmp_path)) == 5 and path.endswith("step_00000005")
+    tree, manifest = load_checkpoint_tree(str(tmp_path), 5)
+    assert manifest["extra"]["fingerprint"] == plan.fingerprint(eng)
+    assert [e["dtype"] for e in manifest["leaves"]] == ["int32", "float32", "uint32"]
+    np.testing.assert_array_equal(tree["words"], handle.final_words.numpy())
+    np.testing.assert_array_equal(tree["logp"], handle.final_logp.numpy())
+
+
+def test_solo_run_ignores_mesh():
+    """A solo run (num_chains == 1) never reads ``mesh``, as in JAX; a
+    multi-chain run with a mesh object that is not a DeviceMesh fails."""
     eng = ts.MHEngine(device="cpu")
     table, init = _data()
     plan = ts.RunPlan(
         target=ts.TableTarget(torch.from_numpy(table)), n_steps=2, init_words=init[0], seed=0
     )
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.submit(plan.replace(mesh=object()))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.submit(plan).save("unused")
+    a, b = eng.submit(plan).result, eng.submit(plan.replace(mesh=object())).result
+    for f in FIELDS:
+        assert torch.equal(getattr(a, f), getattr(b, f))
+    multi = ts.MHEngine(ts.EngineConfig(num_chains=CHAINS), device="cpu")
+    with pytest.raises(AttributeError):
+        multi.submit(plan.replace(init_words=init, mesh=object()))
 
 
 def test_validation():

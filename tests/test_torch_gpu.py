@@ -414,3 +414,125 @@ def test_gmm_card_equals_cpu(cuda, randomness):
     a, b = runs.values()
     for f in ("samples", "accept_count", "final_words", "final_logp", "acceptance_rate"):
         assert torch.equal(getattr(a, f).cpu(), getattr(b, f)), f
+
+
+# --- checkpoints, resume, telemetry and the chains mesh on the card --------
+
+
+@pytest.mark.parametrize("update,randomness", [("mh", "cim"), ("mh", "fused"),
+                                               ("gibbs", "fused"), ("gibbs", "host")])
+def test_resume_on_the_card_equals_one_submit(cuda, tmp_path, update, randomness):
+    """A run killed after its second segment and finished from its
+    checkpoints equals one unsegmented submit on the card, and the CPU's
+    resumable run of the same plan."""
+    from repro_torch.checkpoint import run_resumable
+
+    if update == "mh":
+        rs = np.random.default_rng(3)
+        table = torch.from_numpy((rs.normal(size=(4, 300)) * 3).astype(np.float32))
+        init = rs.integers(0, 300, size=(4, 24)).astype(np.uint32)
+        target = {d: samplers.TableTarget(table.to(d)) for d in (cuda, "cpu")}
+    else:
+        from repro_torch.workloads.ising import IsingModel
+
+        init = np.random.default_rng(4).integers(0, 2, size=(2, 16, 16)).astype(np.uint32)
+        target = {d: IsingModel(16, 16, beta=0.4407) for d in (cuda, "cpu")}
+    results = {}
+    for d in (cuda, "cpu"):
+        eng = samplers.MHEngine(samplers.EngineConfig(
+            update=update, randomness=randomness, execution="pallas", chunk_steps=8), device=d)
+        plan = samplers.RunPlan(target=target[d], n_steps=40, init_words=init, seed=6,
+                                collect="thin:4")
+
+        def die(done, total, handle):
+            if done == 20:
+                raise RuntimeError("preempted")
+
+        directory = str(tmp_path / str(d))
+        with pytest.raises(RuntimeError, match="preempted"):
+            run_resumable(eng, plan, directory=directory, every=10, on_segment=die)
+        results[str(d)] = run_resumable(eng, plan, directory=directory, every=10).result
+        if d == cuda:
+            one = eng.submit(plan).result
+            for f in ("samples", "accept_count", "final_words", "final_logp", "acceptance_rate"):
+                assert torch.equal(getattr(results[str(d)], f), getattr(one, f)), f
+    a, b = results.values()
+    for f in ("samples", "accept_count", "final_words", "acceptance_rate"):
+        assert torch.equal(getattr(a, f).cpu(), getattr(b, f)), f
+
+
+def test_handle_save_on_the_card(cuda, tmp_path):
+    from repro_torch.checkpoint import load_checkpoint, load_checkpoint_tree
+
+    rs = np.random.default_rng(5)
+    table = torch.from_numpy(rs.normal(size=(2, 100)).astype(np.float32)).to(cuda)
+    eng = samplers.MHEngine(samplers.EngineConfig(randomness="fused"))
+    handle = eng.submit(samplers.RunPlan(target=samplers.TableTarget(table), n_steps=16,
+                                         init_words=np.zeros((2, 32), np.uint32), seed=2))
+    handle.save(str(tmp_path))
+    tree, manifest = load_checkpoint_tree(str(tmp_path), 16)
+    assert [e["dtype"] for e in manifest["leaves"]] == ["int32", "float32", "uint32"]
+    assert np.array_equal(tree["words"], handle.final_words.cpu().numpy())
+    like = {"acc": handle.accept_count, "logp": handle.final_logp, "words": handle.final_words}
+    back, _ = load_checkpoint(str(tmp_path), 16, like, device=cuda)
+    for k, v in like.items():
+        assert back[k].device == v.device and back[k].dtype == v.dtype and torch.equal(back[k], v)
+
+
+def test_telemetry_keeps_the_stream_on_the_card(cuda):
+    from repro_torch import telemetry
+
+    rs = np.random.default_rng(6)
+    table = torch.from_numpy(rs.normal(size=(4, 500)).astype(np.float32)).to(cuda)
+    eng = samplers.MHEngine(samplers.EngineConfig(randomness="fused"))
+    plan = samplers.RunPlan(target=samplers.TableTarget(table), n_steps=128,
+                            init_words=np.zeros((4, 64), np.uint32), seed=3)
+    off = eng.submit(plan).result
+    tr = telemetry.enable()
+    try:
+        on = eng.submit(plan).result
+    finally:
+        telemetry.disable()
+    assert len([e for e in tr.events() if e.name == "engine.submit"]) == 1
+    assert torch.equal(off.samples, on.samples) and torch.equal(off.final_words, on.final_words)
+
+
+@pytest.mark.parametrize("update", ["mh", "gibbs"])
+def test_one_rank_nccl_mesh(cuda, update):
+    """A one-rank ``nccl`` DeviceMesh on the card shards the chains axis
+    (every chain on rank 0, gathered by NCCL): equal to the unsharded run;
+    ``make_chains_mesh`` gives None on one card."""
+    import socket
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.launch import mesh as tmesh
+
+    assert tmesh.make_chains_mesh() is None
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", world_size=1,
+                            rank=0, device_id=cuda)
+    try:
+        mesh = DeviceMesh("cuda", [0], mesh_dim_names=("data",))
+        if update == "mh":
+            rs = np.random.default_rng(7)
+            target = samplers.TableTarget(
+                torch.from_numpy(rs.normal(size=(4, 300)).astype(np.float32)).to(cuda))
+            init = rs.integers(0, 300, size=(4, 4, 40)).astype(np.uint32)
+        else:
+            from repro_torch.workloads.ising import IsingModel
+
+            target = IsingModel(16, 16)
+            init = np.random.default_rng(8).integers(0, 2, size=(4, 2, 16, 16)).astype(np.uint32)
+        eng = samplers.MHEngine(samplers.EngineConfig(update=update, randomness="fused",
+                                                      execution="pallas", num_chains=4))
+        plan = samplers.RunPlan(target=target, n_steps=32, init_words=init, seed=4)
+        a = eng.submit(plan).result
+        b = eng.submit(plan.replace(mesh=mesh)).result
+        for f in ("samples", "accept_count", "final_words", "final_logp", "acceptance_rate"):
+            assert torch.equal(getattr(a, f), getattr(b, f)), f
+    finally:
+        dist.destroy_process_group()

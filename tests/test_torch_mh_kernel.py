@@ -231,3 +231,97 @@ class TestWrapperChecks:
     def test_hwprng_guard(self):
         with pytest.raises(NotImplementedError):
             mh.mh_chain_pallas_hwprng()
+
+
+# --- the kernel-level entry points of ops.py --------------------------------
+
+
+def test_block_c_is_accepted_and_ignored():
+    """The JAX callers pass ``block_c``; the CUDA tile is chosen in the
+    kernel, so the result does not depend on it."""
+    table, init, flips, u = (_t(x) for x in _case(5, 2, 40, 7, 6, 6))
+    base = ops.mh_sample(table, init, flips, u, nbits=6)
+    for block_c in (None, 128, 256, 3):
+        got = ops.mh_sample(table, init, flips, u, nbits=6, block_c=block_c)
+        assert torch.equal(got[0], base[0]) and torch.equal(got[1], base[1])
+    cols = torch.arange(7, dtype=torch.int64)
+    kw = dict(n_steps=5, t0=3, nbits=6, p_bfr=0.45, cc=7)
+    base = ops.mh_sample_fused(table, init, cols, cols + 9, **kw)
+    got = ops.mh_sample_fused(table, init, cols, cols + 9, block_c=512, **kw)
+    assert torch.equal(got[0], base[0]) and torch.equal(got[1], base[1])
+
+
+@pytest.mark.parametrize("k,b,c,p,stages", [(6, 2, 5, 0.45, 3), (3, 1, 9, 0.4, 2)])
+def test_generate_randomness_matches_jax(k, b, c, p, stages):
+    import jax
+
+    got = ops.generate_randomness(_t(np.array([0, 31], np.uint32)), k, b, c, p, stages)
+    want = jops.generate_randomness(jax.random.PRNGKey(31), k, b, c, p, stages)
+    assert isinstance(got, ops.MHRandomness) and ops.MHRandomness._fields == ("flips", "u")
+    np.testing.assert_array_equal(np.asarray(want.flips).astype(np.int64), got.flips.numpy())
+    np.testing.assert_array_equal(np.asarray(want.u), got.u.numpy())
+    assert got.flips.dtype == torch.int64 and got.u.dtype == torch.float32
+    assert tuple(got.u.shape) == (k, b, c) and int(got.flips.max()) >= 2**16  # 32-bit words
+
+
+@pytest.mark.parametrize("v,chains,nbits,with_init", [(37, 4, None, False), (300, 3, 10, True)])
+def test_mh_sample_with_rng_matches_jax(v, chains, nbits, with_init):
+    """The operand block of ``generate_randomness``, the argmax init and
+    ``nbits = ceil(log2 V)``, run through the Pallas kernel (interpret
+    mode) on the JAX side and the kernel's plain version here."""
+    import jax
+
+    b, k = 2, 10
+    rs = np.random.default_rng(v)
+    table = (rs.normal(size=(b, v)) * 3).astype(np.float32)
+    init = rs.integers(0, v, size=(b, chains)).astype(np.uint32) if with_init else None
+    bits = nbits or max(1, int(np.ceil(np.log2(v))))
+    rnd = ops.generate_randomness(_t(np.array([0, 44], np.uint32)), k, b, chains, 0.45)
+    start = init if with_init else np.broadcast_to(np.argmax(table, -1)[:, None], (b, chains))
+    _assert_no_ties(table, np.asarray(start, np.uint32), rnd.flips.numpy().astype(np.uint32),
+                    rnd.u.numpy(), bits)
+    js, ja = jops.mh_sample_with_rng(
+        jax.random.PRNGKey(44), jnp.asarray(table), k, chains=chains,
+        init=None if init is None else jnp.asarray(init), nbits=nbits,
+    )
+    ts_, ta = ops.mh_sample_with_rng(
+        _t(np.array([0, 44], np.uint32)), _t(table), k, chains=chains,
+        init=None if init is None else _t(init), nbits=nbits,
+    )
+    np.testing.assert_array_equal(np.asarray(js).astype(np.int64), ts_.numpy())
+    np.testing.assert_array_equal(np.asarray(ja), ta.numpy())
+    # the same as mh_sample on generate_randomness's block
+    s2, a2 = ops.mh_sample(_t(table), _t(np.asarray(start, np.uint32)), rnd.flips, rnd.u, bits)
+    assert torch.equal(s2, ts_) and torch.equal(a2, ta)
+
+
+@pytest.mark.parametrize("temperature,prev", [(1.0, False), (0.7, True)])
+def test_sample_tokens_fused_matches_jax(temperature, prev):
+    """One chain per row through an engine with ``execution="pallas"``;
+    the rate against JAX's eager submit (the port divides, as it does)."""
+    import jax
+
+    b, v = 3, 50
+    rs = np.random.default_rng(8)
+    logits = (rs.normal(size=(b, v)) * 2).astype(np.float32)
+    prev_tokens = rs.integers(0, v, size=b).astype(np.int32) if prev else None
+    jtok, jrate = jops.sample_tokens_fused(
+        jax.random.PRNGKey(5), jnp.asarray(logits), n_steps=16, temperature=temperature,
+        prev_tokens=None if prev_tokens is None else jnp.asarray(prev_tokens),
+    )
+    ttok, trate = ops.sample_tokens_fused(
+        _t(np.array([0, 5], np.uint32)), torch.from_numpy(logits), n_steps=16,
+        temperature=temperature,
+        prev_tokens=None if prev_tokens is None else torch.from_numpy(prev_tokens),
+        device="cpu",
+    )
+    assert ttok.dtype == torch.int32 and tuple(ttok.shape) == (b,)
+    np.testing.assert_array_equal(np.asarray(jtok), ttok.numpy())
+    assert float(trate) == float(jrate)
+
+
+def test_sample_tokens_fused_runs_on_the_card_by_default():
+    if torch.cuda.is_available():
+        pytest.skip("this checks the refusal without a card")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ops.sample_tokens_fused(_t(np.array([0, 5], np.uint32)), torch.zeros(2, 8))
