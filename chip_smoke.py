@@ -121,6 +121,33 @@ count their launches:
      to the unsharded run word for word; ``make_chains_mesh()`` is None
      on one card.
 
+Phases 20-23 (tempering and serving) run between 19 and 12 as well:
+
+ 20. ``tempering_gibbs``: ``ReplicaExchange`` on the ``spin_glass``
+     workload at 1024 x 1024 x 4 (``fused``, ``pallas``), 8 replicas of
+     ``Ladder.geometric(8, 0.25, 1.0)``, 256 half-sweeps, swaps every 16,
+     ``thin:64``: one band launch per replica segment, the first scaled
+     launch held against its plain version, the busy share under the
+     profiler, a 1-replica ladder against a plain submit; tempered
+     256 x 256 runs hold the other (draw, logit) pairs' first scaled
+     launch; the scaled and unscaled band kernels on the same operands at
+     1024 x 1024 x 4, K = 16 (timed in 12);
+ 21. ``tempering_mh``: 4 replicas on the MH main path's table (1,024
+     steps, swaps every 64, ``fused``), its first scaled launch held, a
+     1-replica ladder against a plain submit; a reduced exchange (32 x 32
+     spin glass, a (4, 300) table; 4 replicas, 64 steps) on the card
+     against the CPU port, the CPU run asserted free of tie events;
+ 22. ``anneal``: ``Annealer.geometric(8, 32, 0.25, 4.0)`` on the glass
+     (the best energy), and a 4 x 4 glass against its exhaustive ground
+     state;
+ 23. ``serving``: a ``Scheduler`` (4 slots, ``fused``, ``pallas``)
+     serving 12 ``gmm`` requests at their defaults and 8 ``ising``
+     requests at 1024 x 1024 x 2 (256-480 half-sweeps, ``thin:64``) with
+     staggered arrivals: one kernel launch per chunk and class, every
+     request equal to its solo run on the card, slots reused; warm bursts
+     with the port's pinned ``non_blocking`` retirement copies and with a
+     blocking copy, in turns; then a ``cim`` class at smoke size.
+
 Each phase prints one JSON line; any failure raises and exits non-zero.
 The second-to-last line lists the kernels; the last line is the device
 record.  Without a CUDA device, or without the repository around it, it
@@ -128,6 +155,7 @@ exits non-zero and prints no result.
 """
 
 import contextlib
+import dataclasses
 import itertools
 import json
 import shutil
@@ -215,6 +243,13 @@ FIG17_N = 100_000  # benchmarks/table_fig17_sampling.py:N_SAMPLES
 RESUME_THIN, RESUME_EVERY = "thin:64", 256       # the resumable MH runs (N_STEPS steps)
 G_RESUME_THIN, G_RESUME_EVERY = "thin:256", 256  # the resumable Gibbs run
 TELEMETRY_REPS = 15  # fused MH submits timed with telemetry off and on, in turns
+# replica exchange on the full-width spin glass (LAT x LAT x LAT_B, fused)
+T_REPLICAS, T_STEPS, T_SWAP, T_THIN = 8, 256, 16, "thin:64"
+T_SCALE = 0.25 ** (2 / 7)  # beta of replica 2 of the exchange's Ladder.geometric(8, 0.25, 1.0)
+T_MH_REPLICAS, T_MH_SWAP, T_MH_THIN = 4, 64, "thin:64"  # on the MH main path's table
+# the serving burst: gmm at its defaults, ising at LAT x LAT with S_BATCH
+# lattices a request, so that 4 slots' lattices fit one cooperative launch
+S_GMM, S_ISING, S_BATCH = 12, 8, 2
 
 
 def emit(**record):
@@ -349,16 +384,17 @@ def device_ms(torch, fn, reps, match, launched):
 
 
 @contextlib.contextmanager
-def first_launches(mod):
-    """Record a copy of the operands of each kernel's first launch while a
-    path runs; every launch still goes through the real kernel."""
+def first_launches(mod, pick=None):
+    """Record a copy of the operands of each kernel's first launch (the
+    first for which ``pick(args, kw)`` holds, with ``pick``) while a path
+    runs; every launch still goes through the real kernel."""
     seen = {}
     names = tuple(mod.LAUNCHES)
     real = {n: getattr(mod, f"_launch_{n}") for n in names}
 
     def recording(name):
         def launch(*args, **kw):
-            if name not in seen:
+            if name not in seen and (pick is None or pick(args, kw)):
                 seen[name] = (
                     tuple(a.clone() if hasattr(a, "clone") else a for a in args),
                     dict(kw),
@@ -443,9 +479,10 @@ def gibbs_cost(name, args, kw):
     nbytes = 4 * (2 * sites + k * sites + b)  # init, flips, samples, parity/t0
     if hasattr(logit, "j_right"):  # a SpinGlassLogit
         nbytes += 8 * h * w  # the couplings
+    scaled = logit.scale != 1.0  # a tempered replica: one more multiply a site
     if name == "gibbs_chain":
         nbytes += 4 * k * sites  # the uniforms
-        ops = GIBBS_OPS * active
+        ops = (GIBBS_OPS + scaled) * active
         int_ops = (GIBBS_OPS - GIBBS_FP_OPS) * active
         alu = GIBBS_ALU_OPS * active
     else:
@@ -457,8 +494,9 @@ def gibbs_cost(name, args, kw):
         alu = ((THREEFRY_SITE_ALU_OPS + BAND_SITE_ALU_OPS) * active
                + THREEFRY_ALU_OPS * k * b)
         glass = hasattr(logit, "j_right")
-        ops = int_ops + (GLASS_SITE_FP_OPS * active if glass else 0)
+        ops = int_ops + ((GLASS_SITE_FP_OPS + scaled) * active if glass else 0)
     return nbytes, ops, int_ops, alu, dict(B=b, H=h, W=w, K=k, active_site_steps=active,
+                                      scale=logit.scale,
                                       **({"lat_b": kw["lat_b"]} if kw else {}))
 
 
@@ -1438,6 +1476,347 @@ def main() -> int:
          make_chains_mesh_one_card=None)
     del unsharded, sharded
     shutil.rmtree(ckpt_root, ignore_errors=True)
+
+    # 20. tempering_gibbs: replica exchange on the full-width spin glass ---------
+    from repro_torch import serving, tempering
+    from repro_torch.workloads.spin_glass import SpinGlass, exhaustive_ground_state
+
+    def scaled_spec(args, kw):  # a Gibbs launch of a tempered replica
+        return next(a for a in args if hasattr(a, "scale")).scale != 1.0
+
+    def same_words(a, b):
+        return a.shape == b.shape and torch.equal(a, b)
+
+    glass_wl = workloads.build("spin_glass", prng.PRNGKey(SEED, device=dev), randomness="fused",
+                               backend="pallas", height=LAT, width=LAT, batch=LAT_B,
+                               collect=T_THIN, chunk_steps=T_SWAP)
+    glass = glass_wl.target
+    ladder = tempering.Ladder.geometric(T_REPLICAS, 0.25, 1.0)
+    rex = tempering.ReplicaExchange(ladder, glass_wl.engine, swap_every=T_SWAP)
+    t_init = glass_wl.init_words.expand(T_REPLICAS, *glass_wl.init_words.shape)
+    tkey = prng.PRNGKey(SEED + 2, device=dev)
+    rex.run(tkey, glass, T_STEPS, t_init)  # the first run makes the scaled targets
+    torch.cuda.synchronize()
+    reset_launches()
+    with first_launches(gk, pick=scaled_spec) as seen:
+        t0 = time.perf_counter()
+        tres = rex.run(tkey, glass, T_STEPS, t_init)
+        torch.cuda.synchronize()
+        t_seconds = time.perf_counter() - t0
+    launches = launches_now()
+    launches_by_path["tempering_gibbs"] = launches
+    segments = T_REPLICAS * (T_STEPS // T_SWAP)
+    groups = gk.plan_groups(LAT_B, LAT, LAT, **gk.band_limits(dev.index, LAT))
+    check(launches["gibbs_chain_fused"] == segments * len(groups),
+          f"tempering_gibbs: {launches['gibbs_chain_fused']} band launches for {segments} "
+          f"segments of {len(groups)} group(s)")
+    args, kw = seen["gibbs_chain_fused"]
+    diff, err, _ = hold("gibbs_chain_fused", "tempering_gibbs first scaled launch",
+                        from_launch(args), kw, record=False)
+    kept = T_STEPS // 64
+    check(tuple(tres.samples.shape) == (T_REPLICAS, kept, LAT_B, LAT, LAT),
+          f"tempering_gibbs samples {tuple(tres.samples.shape)}")
+    check(bool(((tres.final_words == 0) | (tres.final_words == 1)).all()), "a spin not 0/1")
+    check(bool(torch.isfinite(tres.final_logp).all()), "non-finite tempered final_logp")
+    summary = tres.swap.summary()
+    check(summary["swap_events"] == T_STEPS // T_SWAP - 1, f"swap events {summary}")
+    # CUDA activity only: with the host's operators traced too, their ids
+    # matched some of the lead run's kernels (155 band kernels for 128
+    # launches in the first try)
+    events, wall_ms = traced(torch, lambda: rex.run(tkey, glass, T_STEPS, t_init),
+                             "gibbs_band_kernel", lambda: gk.LAUNCHES["gibbs_chain_fused"])
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    band_ms = sum(e.self_device_time_total for e in events if "gibbs_band" in e.name) / 1e3
+    # a 1-replica ladder is a plain submit
+    one = tempering.ReplicaExchange(tempering.Ladder((1.0,)), glass_wl.engine,
+                                    swap_every=T_SWAP).run(tkey, glass, T_STEPS,
+                                                           glass_wl.init_words[None])
+    plain = glass_wl.engine.submit(glass_wl.plan(tkey, n_steps=T_STEPS)).result
+    one_ok = all(same_words(getattr(one, f)[0], getattr(plain, f))
+                 for f in ("samples", "accept_count", "final_words"))
+    check(one_ok, "tempering_gibbs: a 1-replica ladder differs from a plain submit")
+    emit(phase="tempering_gibbs", workload="spin_glass", randomness="fused", execution="pallas",
+         lattice=f"{LAT}x{LAT}", B=LAT_B, replicas=T_REPLICAS, betas=list(ladder.betas),
+         n_steps=T_STEPS, swap_every=T_SWAP, collect=T_THIN, seconds=t_seconds,
+         site_steps_per_s=T_REPLICAS * T_STEPS * LAT_B * LAT * LAT / t_seconds,
+         submits=segments, launches=launches, band_launches_per_segment=len(groups),
+         first_scaled_launch_scale=args[4].scale, first_scaled_launch_mismatches=diff,
+         max_abs_err=err, swap=summary, flip_rate=float(tres.acceptance_rate),
+         profiled_wall_ms=wall_ms, device_busy_ms=busy_ms, band_kernel_ms=band_ms,
+         device_busy_share=busy_ms / wall_ms, one_replica_equals_plain=one_ok)
+    del tres, one, plain
+
+    # the scaled band kernel's first launch on the other (draw, logit) pairs,
+    # through tempered runs at 256 x 256
+    for name, randomness in (("ising", "host"), ("ising", "fused"), ("spin_glass", "host")):
+        wl = workloads.build(name, prng.PRNGKey(SEED, device=dev), randomness=randomness,
+                             backend="pallas", height=OP_LAT, width=OP_LAT, batch=2,
+                             chunk_steps=OP_CHUNK, **({"beta": BETA} if name == "ising" else {}))
+        small_rex = tempering.ReplicaExchange(tempering.Ladder.geometric(4, 0.25, 1.0),
+                                              wl.engine, swap_every=OP_CHUNK)
+        kernel = g_kernel_of[randomness]
+        reset_launches()
+        with first_launches(gk, pick=scaled_spec) as seen:
+            res = small_rex.run(tkey, wl.target, 4 * OP_CHUNK,
+                                wl.init_words.expand(4, *wl.init_words.shape))
+        launches = launches_now()
+        launches_by_path[f"tempering_{name}_{randomness}"] = launches
+        check(launches[kernel] == 16, f"tempering {name} {randomness}: {launches}")
+        args, kw = seen[kernel]
+        diff, err, _ = hold(kernel, f"tempering {name} {randomness} first scaled launch",
+                            from_launch(args), kw, record=False)
+        emit(phase="tempering_first_scaled_launch", workload=name, randomness=randomness,
+             kernel=kernel, lattice=f"{OP_LAT}x{OP_LAT}", B=2, replicas=4,
+             n_steps=4 * OP_CHUNK, launches=launches, mismatches=diff, max_abs_err=err,
+             swap=res.swap.summary())
+        del wl, res
+
+    # the scaled specialisations beside the unscaled ones, on the same
+    # operands at the full width (timed in phase 12)
+    for glass_logit in (False, True):
+        logit = lattice_logit(torch, gref, gen, LAT, LAT, glass_logit)
+        scaled = dataclasses.replace(logit, scale=T_SCALE)
+        init_ = torch.randint(0, 2, (LAT_B, LAT, LAT), generator=gen, device=dev)
+        u = operand_uniforms(torch, gen, (OP_CHUNK, LAT_B, LAT, LAT))
+        parity0 = torch.arange(LAT_B, device=dev) % 2
+        k0b, k1b = (torch.randint(0, 2**32, (LAT_B,), generator=gen, device=dev)
+                    for _ in range(2))
+        t0b = torch.tensor([0, 1, 16, 33], device=dev)
+        where = f"1024x1024 B=4 K=16 {'spin glass' if glass_logit else 'ising'}"
+        d = [hold("gibbs_chain", f"{where} scale {T_SCALE}", (init_, u, scaled, parity0), {})[0]]
+        for spec, tag in ((scaled, f"scale {T_SCALE}"), (logit, "scale 1")):
+            d.append(hold("gibbs_chain_fused", f"{where} {tag}", (init_, k0b, k1b, t0b, spec),
+                          dict(n_steps=OP_CHUNK, lat_b=LAT_B))[0])
+        emit(phase="scaled_band_kernel", lattice=where, scale=T_SCALE,
+             mismatches={"gibbs_chain scaled": d[0], "gibbs_chain_fused scaled": d[1],
+                         "gibbs_chain_fused unscaled": d[2]})
+        del init_, u
+
+    # 21. tempering_mh: replica exchange on the granite-3 8B table ------------
+    base_table = samplers.TableTarget(logits)
+    mh_eng = samplers.MHEngine(samplers.EngineConfig(randomness="fused", collect=T_MH_THIN))
+    mh_ladder = tempering.Ladder.geometric(T_MH_REPLICAS, 0.25, 1.0)
+    mrex = tempering.ReplicaExchange(mh_ladder, mh_eng, swap_every=T_MH_SWAP)
+    m_init = init.expand(T_MH_REPLICAS, B, C)
+    mrex.run(tkey, base_table, N_STEPS, m_init)
+    torch.cuda.synchronize()
+    reset_launches()
+    with first_launches(mh, pick=lambda a, k: a[0].data_ptr() != logits.data_ptr()) as seen:
+        t0 = time.perf_counter()
+        mres = mrex.run(tkey, base_table, N_STEPS, m_init)
+        torch.cuda.synchronize()
+        m_seconds = time.perf_counter() - t0
+    launches = launches_now()
+    launches_by_path["tempering_mh"] = launches
+    m_segments = T_MH_REPLICAS * (N_STEPS // T_MH_SWAP)
+    check(launches["mh_chain_fused"] == m_segments,
+          f"tempering_mh: {launches['mh_chain_fused']} launches for {m_segments} segments")
+    args, kw = seen["mh_chain_fused"]
+    diff, err, _ = hold("mh_chain_fused", "tempering_mh first scaled launch", args, kw,
+                        record=False)
+    check(bool((mres.final_words < V).all()) and bool(torch.isfinite(mres.final_logp).all()),
+          "tempering_mh: a final state outside the table")
+    m_summary = mres.swap.summary()
+    one = tempering.ReplicaExchange(tempering.Ladder((1.0,)), mh_eng, swap_every=T_MH_SWAP).run(
+        tkey, base_table, N_STEPS, init[None])
+    plain = mh_eng.submit(samplers.RunPlan(target=base_table, n_steps=N_STEPS, init_words=init,
+                                           key=tkey)).result
+    one_ok = all(same_words(getattr(one, f)[0], getattr(plain, f))
+                 for f in ("samples", "accept_count", "final_words", "final_logp"))
+    check(one_ok, "tempering_mh: a 1-replica ladder differs from a plain submit")
+    emit(phase="tempering_mh", B=B, V=V, C=C, randomness="fused", execution="pallas",
+         replicas=T_MH_REPLICAS, betas=list(mh_ladder.betas), n_steps=N_STEPS,
+         swap_every=T_MH_SWAP, collect=T_MH_THIN, seconds=m_seconds,
+         chain_steps_per_s=T_MH_REPLICAS * N_STEPS * B * C / m_seconds, submits=m_segments,
+         launches=launches, first_scaled_launch_mismatches=diff, max_abs_err=err,
+         swap=m_summary, acceptance_rate=float(mres.acceptance_rate),
+         one_replica_equals_plain=one_ok)
+    del mres, one, plain
+
+    # a reduced exchange on the card against the same run on the CPU port,
+    # each asserted free of tie events first
+    for what in ("spin_glass", "table"):
+        runs = {}
+        for device in ("cpu", "cuda"):
+            if what == "spin_glass":
+                target = SpinGlass.bimodal(prng.PRNGKey(1, device=device), 32, 32)
+                ini = target.random_init(prng.PRNGKey(2, device=device), 2)
+                cfg = samplers.EngineConfig(update="gibbs", randomness="fused",
+                                            execution="pallas", chunk_steps=16)
+            else:
+                cpu_gen = torch.Generator().manual_seed(SEED)
+                target = samplers.TableTarget(
+                    (torch.randn(4, 300, generator=cpu_gen) * 3).to(device))
+                ini = torch.randint(0, 300, (4, 16), generator=cpu_gen).to(device)
+                cfg = samplers.EngineConfig(randomness="fused", execution="pallas",
+                                            chunk_steps=16)
+            beta_min = 0.95 if what == "spin_glass" else 0.7  # swaps that accept
+            rx = tempering.ReplicaExchange(tempering.Ladder.geometric(4, beta_min, 1.0),
+                                           samplers.MHEngine(cfg, device=device),
+                                           swap_every=16)
+            args_ = (prng.PRNGKey(5), target, 64, ini.expand(4, *ini.shape))
+            if device == "cpu":
+                ties = rx.tie_events(*args_)
+                check(ties == {"moves": 0, "swaps": 0}, f"tie events {ties} ({what})")
+            runs[device] = rx.run(*args_)
+        fields = ("samples", "accept_count", "final_words", "final_logp")
+        same = all(torch.equal(getattr(runs["cuda"], f).cpu(), getattr(runs["cpu"], f))
+                   for f in fields)
+        sw = [runs[d].swap for d in ("cuda", "cpu")]
+        same_swaps = all(np.array_equal(getattr(sw[0], f), getattr(sw[1], f))
+                         for f in ("attempts", "accepts", "events", "round_trips"))
+        check(same and same_swaps, f"tempered {what}: the card and the CPU disagree")
+        emit(phase="tempering_card_equals_cpu", target=what, replicas=4, n_steps=64,
+             tie_events=0, card_equals_cpu=True, swap=sw[0].summary())
+    del runs
+
+    # 22. anneal: the geometric schedule on the full-width spin glass --------
+    annealer = tempering.Annealer.geometric(8, 32, 0.25, 4.0)
+    reset_launches()
+    t0 = time.perf_counter()
+    ares = annealer.run(tkey, glass, glass_wl.init_words, engine=glass_wl.engine)
+    torch.cuda.synchronize()
+    a_seconds = time.perf_counter() - t0
+    launches = launches_now()
+    launches_by_path["anneal"] = launches
+    check(launches["gibbs_chain_fused"] > 0, "anneal launched no gibbs_chain_fused")
+    check(torch.equal(glass.energy(ares.best_words), ares.best_energy),
+          "the annealer's best words do not give its best energy")
+    init_energy = glass.energy(glass_wl.init_words)
+    check(bool((ares.best_energy < init_energy).all()), "annealing found nothing better")
+    m4 = SpinGlass.bimodal(prng.PRNGKey(1, device=dev), 4, 4)
+    i4 = m4.random_init(prng.PRNGKey(2, device=dev), 2)
+    ground, _ = exhaustive_ground_state(m4)
+    r4 = tempering.Annealer.geometric(8, 32, 0.4, 4.0).run(
+        prng.PRNGKey(0, device=dev), m4, i4, engine=samplers.MHEngine(samplers.EngineConfig(
+            update="gibbs", randomness="fused", execution="pallas", chunk_steps=16)))
+    best4 = float(r4.best_energy.min())
+    check(best4 == ground, f"4x4 anneal best {best4} != exhaustive ground {ground}")
+    emit(phase="anneal", workload="spin_glass", lattice=f"{LAT}x{LAT}", B=LAT_B,
+         betas=list(annealer.betas), steps_per_beta=32, seconds=a_seconds, launches=launches,
+         best_energy=ares.best_energy.tolist(), init_energy=init_energy.tolist(),
+         energy_per_site=(ares.best_energy / (LAT * LAT)).tolist(),
+         acceptance_rate=float(ares.acceptance_rate), small_4x4_best=best4,
+         small_4x4_exhaustive_ground=ground)
+    del ares
+
+    # 23. serving: a packed burst of gmm and ising requests --------------------
+    s_kw = {"height": LAT, "width": LAT, "batch": S_BATCH}
+
+    def burst():
+        return ([serving.ServeRequest(rid=i, workload="gmm", seed=100 + i, t_arrive=0.004 * i)
+                 for i in range(S_GMM)]
+                + [serving.ServeRequest(rid=S_GMM + j, workload="ising", n_steps=256 + 32 * j,
+                                        seed=200 + j, collect="thin:64",
+                                        t_arrive=0.002 + 0.006 * j)
+                   for j in range(S_ISING)])
+
+    def serve(randomness, smoke, wkw, reqs, copy=None):
+        """A scheduler serving ``reqs``; the kernel launches of every
+        advance_chunk of a class with an occupied slot are recorded.
+        ``copy`` stands in for the executor's host copy (the blocking
+        comparison)."""
+        sched = serving.Scheduler(n_slots=4, randomness=randomness, execution="pallas",
+                                  smoke=smoke, workload_kwargs=wkw)
+        per_chunk = {}
+        for name in ("gmm", "ising"):
+            ex = sched.executor_for(name)
+            real, per_chunk[name] = ex.advance_chunk, []
+
+            def counted(real=real, out=per_chunk[name], ex=ex):
+                if not ex.active_count:  # an idle class advances nothing
+                    return real()
+                n0 = sum(launches_now().values())
+                done = real()
+                out.append(sum(launches_now().values()) - n0)
+                return done
+            ex.advance_chunk = counted
+        saved = serving.executor.to_host
+        if copy is not None:
+            serving.executor.to_host = copy
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            done = sched.serve(reqs)
+            seconds = time.perf_counter() - t0
+        finally:
+            serving.executor.to_host = saved
+        return sched, done, per_chunk, seconds
+
+    def solo(req, randomness, smoke, wkw):
+        k_init, k_run = prng.split(prng.PRNGKey(req.seed, device=dev))
+        wl = workloads.build(req.workload, k_init, randomness=randomness, backend="pallas",
+                             smoke=smoke, **(wkw if req.workload == "ising" else {}))
+        return wl.engine.run(k_run, wl.target, req.n_steps or wl.n_steps, wl.init_words,
+                             collect=req.collect)
+
+    def served_equals_solo(done, randomness, smoke, wkw):
+        for req in done:
+            ref_ = solo(req, randomness, smoke, wkw)
+            ok = (np.array_equal(req.samples, ref_.samples.cpu().numpy())
+                  and np.array_equal(req.final_words, ref_.final_words.cpu().numpy())
+                  and np.array_equal(req.accept_count, ref_.accept_count.cpu().numpy())
+                  and np.array_equal(req.final_logp, ref_.final_logp.cpu().numpy()))
+            check(ok, f"served request {req.rid} ({req.workload}, seed {req.seed}) != its "
+                  "solo run")
+        return True
+
+    reset_launches()
+    sched, done, per_chunk, cold_s = serve("fused", False, s_kw, burst())
+    launches_by_path["serving"] = launches_now()
+    check(len(done) == S_GMM + S_ISING, f"served {len(done)} requests")
+    check(all(n == 1 for v in per_chunk.values() for n in v),
+          f"packed chunks launched {per_chunk}, not one kernel each")
+    exact = served_equals_solo(done, "fused", False, s_kw)
+    reused = len({(r.workload, r.slot) for r in done}) < len(done)
+    check(reused, "no slot was reused")
+    # warm: the port's copies (pinned, non_blocking, an event), then a
+    # blocking copy at the same place, then the port's again
+    timing = {}
+    for mode in ("async", "blocking", "async"):
+        tr = telemetry.enable()
+        _, again, _, secs = serve("fused", False, s_kw, burst(),
+                                  copy=(lambda t: serving.dispatch.HostCopy(t.cpu()))
+                                  if mode == "blocking" else None)
+        spans = tr.events()
+        telemetry.disable()
+        timing.setdefault(mode, []).append(dict(
+            seconds=secs, latency=serving.latency_summary(again),
+            finalize_ms=sum(e.dur_us for e in spans if e.name == "serving.finalize") / 1e3,
+            stall_ms=sum(e.dur_us for e in spans if e.name == "serving.pipeline_stall") / 1e3))
+        same = {r.rid: r for r in again}
+        check(all(np.array_equal(same[r.rid].samples, r.samples)
+                  and np.array_equal(same[r.rid].final_words, r.final_words) for r in done),
+              f"a warm {mode} burst differs from the first")
+    emit(phase="serving", randomness="fused", execution="pallas", n_slots=4,
+         requests={"gmm": S_GMM, "ising": S_ISING}, ising=s_kw, ising_n_steps=[256, 480],
+         ising_collect="thin:64", gmm_defaults={"chains": 64, "n_steps": 2048},
+         shape_classes=sched.shape_classes, chunks=[len(v) for v in per_chunk.values()],
+         kernel_launches_per_chunk={k: sorted(set(v)) for k, v in per_chunk.items()},
+         launches=launches_by_path["serving"], served_equals_solo=exact, slots_reused=reused,
+         cold_seconds=cold_s, latency=serving.latency_summary(done), warm=timing,
+         advance_signatures=sched.compiled_programs)
+    del sched, done
+
+    # one cim class at smoke size, against the solo runs
+    cim_reqs = [serving.ServeRequest(rid=0, workload="gmm", n_steps=24, seed=1, collect="all"),
+                serving.ServeRequest(rid=1, workload="ising", n_steps=20, seed=2, collect="all",
+                                     t_arrive=0.001),
+                serving.ServeRequest(rid=2, workload="gmm", n_steps=16, seed=3,
+                                     collect="thin:4", t_arrive=0.002),
+                serving.ServeRequest(rid=3, workload="ising", n_steps=12, seed=4,
+                                     collect="last", t_arrive=0.003)]
+    reset_launches()
+    sched, done, per_chunk, secs = serve("cim", True, {}, cim_reqs)
+    launches_by_path["serving_cim"] = launches_now()
+    check(all(n == 1 for v in per_chunk.values() for n in v),
+          f"cim packed chunks launched {per_chunk}")
+    exact = served_equals_solo(done, "cim", True, {})
+    emit(phase="serving_cim", randomness="cim", execution="pallas", smoke=True,
+         requests=len(done), launches=launches_now(), seconds=secs, served_equals_solo=exact,
+         kernel_launches_per_chunk={k: sorted(set(v)) for k, v in per_chunk.items()})
+    del sched, done, glass_wl, glass, rex
+
 
     # 12. timing --------------------------------------------------------------
     # The table (12.6 MB at V = 49,155) stays in the 50 MB L2 between

@@ -15,9 +15,13 @@
 // The conditional, which a Pallas kernel traces as a closure and a CUDA
 // kernel must know, is the other template argument: Logit = IsingLogit
 // (scalars beta, field) or SpinGlassLogit ((H, W) couplings j_right,
-// j_down in global memory, and field).  Both keep the JAX models'
-// operation order; every product in them is exact, so only the order of
-// the sums matters.
+// j_down in global memory, and field), each with a scale multiplied in
+// last: 1 for a plain model, float32(beta) for a replica of a tempered
+// ladder (the JAX package's TemperedLattice computes float32(beta) *
+// logit after the model's own logit).  Both keep the JAX models'
+// operation order.  Every product of the model's own logit is exact, so
+// only the order of the sums matters there; the scale's product is not,
+// so the build must not contract it (--fmad=false).
 //
 // One half-sweep k of site (b, h, w), as in the Pallas kernels and in the
 // plain versions repro_torch/kernels/gibbs/ref.py:
@@ -116,15 +120,15 @@ __device__ __forceinline__ uint32_t threshold(float p) {
   return static_cast<uint32_t>(ceilf(p * 16777216.0f));
 }
 
-// IsingModel.conditional_logit: 2 (beta * (((N + S) + W) + E) + field).
-// On {0, 1} spins the neighbour sum is exactly 2 c - 4 for c up
-// neighbours, so the kernel looks the flip code up in a table of five,
-// made by this same formula (fill_table).
+// IsingModel.conditional_logit: 2 (beta * (((N + S) + W) + E) + field),
+// times scale last.  On {0, 1} spins the neighbour sum is exactly 2 c - 4
+// for c up neighbours, so the kernel looks the flip code up in a table of
+// five, made by this same scaled formula (fill_table).
 struct IsingLogit {
-  float beta, field;
+  float beta, field, scale;
   __device__ __forceinline__ float operator()(const Nbrs& n) const {
     const float nb = ((spin(n.sn) + spin(n.ss)) + spin(n.sw)) + spin(n.se);
-    return 2.0f * (beta * nb + field);
+    return scale * (2.0f * (beta * nb + field));
   }
   template <class Draw>
   __device__ void fill_table(uint32_t* table) const {
@@ -140,18 +144,19 @@ struct IsingLogit {
 };
 
 // SpinGlass.fused_logit: 2 (((jr * sE + jr[w-1] * sW) + jd * sS) + jd[h-1] * sN
-// + field).  The couplings are read through L2 (8 MB at 1024 x 1024).
+// + field), times scale last.  The couplings are read through L2 (8 MB at
+// 1024 x 1024).
 struct SpinGlassLogit {
   const float* j_right;
   const float* j_down;
-  float field;
+  float field, scale;
   __device__ __forceinline__ float operator()(const Nbrs& n) const {
     const int at = n.h * n.W + n.w;
     const float nb = ((__ldg(j_right + at) * spin(n.se) +
                        __ldg(j_right + n.h * n.W + n.ww) * spin(n.sw)) +
                       __ldg(j_down + at) * spin(n.ss)) +
                      __ldg(j_down + n.hn * n.W + n.w) * spin(n.sn);
-    return 2.0f * (nb + field);
+    return scale * (2.0f * (nb + field));
   }
   template <class Draw>
   __device__ void fill_table(uint32_t*) const {}
@@ -547,20 +552,21 @@ BandArgs band_args(const int32_t* init, int32_t* samples, int32_t* flips, int* r
 extern "C" {
 
 int repro_gibbs_chain(const int32_t* init, const float* u, const int32_t* parity0,
-                      float beta, float field, int32_t* samples, int32_t* flips, int* ready,
-                      int B, int H, int W, int K, int b0, int lattices, int bands, int rows,
-                      void* stream) {
-  return launch_bands(IsingLogit{beta, field}, OperandDraw{u, parity0},
+                      float beta, float field, float scale, int32_t* samples, int32_t* flips,
+                      int* ready, int B, int H, int W, int K, int b0, int lattices, int bands,
+                      int rows, void* stream) {
+  return launch_bands(IsingLogit{beta, field, scale}, OperandDraw{u, parity0},
                       band_args(init, samples, flips, ready, B, H, W, K, b0, bands, rows),
                       lattices, stream);
 }
 
 int repro_gibbs_chain_spin_glass(const int32_t* init, const float* u,
                                  const int32_t* parity0, const float* j_right,
-                                 const float* j_down, float field, int32_t* samples,
-                                 int32_t* flips, int* ready, int B, int H, int W, int K,
-                                 int b0, int lattices, int bands, int rows, void* stream) {
-  return launch_bands(SpinGlassLogit{j_right, j_down, field}, OperandDraw{u, parity0},
+                                 const float* j_down, float field, float scale,
+                                 int32_t* samples, int32_t* flips, int* ready, int B, int H,
+                                 int W, int K, int b0, int lattices, int bands, int rows,
+                                 void* stream) {
+  return launch_bands(SpinGlassLogit{j_right, j_down, field, scale}, OperandDraw{u, parity0},
                       band_args(init, samples, flips, ready, B, H, W, K, b0, bands, rows),
                       lattices, stream);
 }
@@ -581,11 +587,11 @@ int repro_gibbs_band_limits(int W, int* out) {
 }
 
 int repro_gibbs_chain_fused(const int32_t* init, const uint32_t* k0b, const uint32_t* k1b,
-                            const int32_t* t0b, float beta, float field, int32_t* samples,
-                            int32_t* flips, int* ready, int B, int H, int W, int K,
-                            int lat_b, int b0, int lattices, int bands, int rows,
+                            const int32_t* t0b, float beta, float field, float scale,
+                            int32_t* samples, int32_t* flips, int* ready, int B, int H, int W,
+                            int K, int lat_b, int b0, int lattices, int bands, int rows,
                             void* stream) {
-  return launch_bands(IsingLogit{beta, field}, FusedDraw{k0b, k1b, t0b, lat_b},
+  return launch_bands(IsingLogit{beta, field, scale}, FusedDraw{k0b, k1b, t0b, lat_b},
                       band_args(init, samples, flips, ready, B, H, W, K, b0, bands, rows),
                       lattices, stream);
 }
@@ -593,11 +599,12 @@ int repro_gibbs_chain_fused(const int32_t* init, const uint32_t* k0b, const uint
 int repro_gibbs_chain_fused_spin_glass(const int32_t* init, const uint32_t* k0b,
                                        const uint32_t* k1b, const int32_t* t0b,
                                        const float* j_right, const float* j_down,
-                                       float field, int32_t* samples, int32_t* flips,
-                                       int* ready, int B, int H, int W, int K, int lat_b,
-                                       int b0, int lattices, int bands, int rows,
+                                       float field, float scale, int32_t* samples,
+                                       int32_t* flips, int* ready, int B, int H, int W, int K,
+                                       int lat_b, int b0, int lattices, int bands, int rows,
                                        void* stream) {
-  return launch_bands(SpinGlassLogit{j_right, j_down, field}, FusedDraw{k0b, k1b, t0b, lat_b},
+  return launch_bands(SpinGlassLogit{j_right, j_down, field, scale},
+                      FusedDraw{k0b, k1b, t0b, lat_b},
                       band_args(init, samples, flips, ready, B, H, W, K, b0, bands, rows),
                       lattices, stream);
 }

@@ -55,27 +55,27 @@ _SIGNATURES = {
     "repro_mh_staged_vocab": (_P,),
     # k0, k1, x0, x1, y0, y1, n, stream
     "repro_threefry2x32": (_P, _P, _P, _P, _P, _P, _I, _P),
-    # init, u, parity0, beta, field, samples, flips, ready,
+    # init, u, parity0, beta, field, scale, samples, flips, ready,
     # B, H, W, K, b0, lattices, bands, rows, stream
     "repro_gibbs_chain": (
-        _P, _P, _P, _F, _F, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P
+        _P, _P, _P, _F, _F, _F, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P
     ),
-    # init, u, parity0, j_right, j_down, field, samples, flips, ready,
+    # init, u, parity0, j_right, j_down, field, scale, samples, flips, ready,
     # B, H, W, K, b0, lattices, bands, rows, stream
     "repro_gibbs_chain_spin_glass": (
-        _P, _P, _P, _P, _P, _F, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P
+        _P, _P, _P, _P, _P, _F, _F, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P
     ),
     # W, out[3]: SMs, most rows a band, cooperative launch
     "repro_gibbs_band_limits": (_I, _P),
-    # init, k0b, k1b, t0b, beta, field, samples, flips, ready,
+    # init, k0b, k1b, t0b, beta, field, scale, samples, flips, ready,
     # B, H, W, K, lat_b, b0, lattices, bands, rows, stream
     "repro_gibbs_chain_fused": (
-        _P, _P, _P, _P, _F, _F, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P
+        _P, _P, _P, _P, _F, _F, _F, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P
     ),
-    # init, k0b, k1b, t0b, j_right, j_down, field, samples, flips, ready,
-    # B, H, W, K, lat_b, b0, lattices, bands, rows, stream
+    # init, k0b, k1b, t0b, j_right, j_down, field, scale, samples, flips,
+    # ready, B, H, W, K, lat_b, b0, lattices, bands, rows, stream
     "repro_gibbs_chain_fused_spin_glass": (
-        _P, _P, _P, _P, _P, _P, _F, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P
+        _P, _P, _P, _P, _P, _P, _F, _F, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P
     ),
     # raw, out, n_stages, M, to_uniform, stream
     "repro_msxor": (_P, _P, _I, _L, _I, _P),

@@ -13,8 +13,9 @@ tensors it runs the plain version in ``ref.py``.  There is no other
 fallback.
 
 The conditional arrives as a logit spec, ``ref.IsingLogit`` or
-``ref.SpinGlassLogit``; the kernel has one specialisation for each, and
-any other spec raises ``ValueError``.  Spins are {0, 1} values; they go in
+``ref.SpinGlassLogit``, its ``scale`` included (a tempered replica's
+beta); the kernel has one specialisation for each, and any other spec
+raises ``ValueError``.  Spins are {0, 1} values; they go in
 as any integer tensor and come out as int32, never widened here (the
 engine widens the rows it keeps).  ``plan_groups`` splits a batch into
 the groups one cooperative launch can hold and raises for a lattice too
@@ -121,9 +122,11 @@ def _logit_args(logit) -> tuple[str, tuple]:
     if isinstance(logit, SpinGlassLogit):
         return "_spin_glass", (
             logit.j_right.data_ptr(), logit.j_down.data_ptr(),
-            ctypes.c_float(logit.field),
+            ctypes.c_float(logit.field), ctypes.c_float(logit.scale),
         )
-    return "", (ctypes.c_float(logit.beta), ctypes.c_float(logit.field))
+    return "", (
+        ctypes.c_float(logit.beta), ctypes.c_float(logit.field), ctypes.c_float(logit.scale),
+    )
 
 
 def _launch_gibbs_chain(init32, u, logit, parity32, groups=None):

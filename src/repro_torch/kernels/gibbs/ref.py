@@ -13,10 +13,15 @@ kernel cannot, so the two conditionals that reach it are spelled out
 here, ``IsingLogit`` and ``SpinGlassLogit``, each in the JAX model's
 operation order.  The lattice models' ``conditional_logit`` calls them,
 so the scan executor, these plain versions and the kernels share one
-formula.  Every product in them is exact (``beta`` times an even integer
-of at most 4 in magnitude, a coupling times a spin of ±1), so a fused
-multiply-add could not change a logit; only the order of the sums
-matters, and it is kept.
+formula.  Every product in the model's own logit is exact (``beta``
+times an even integer of at most 4 in magnitude, a coupling times a spin
+of ±1), so a fused multiply-add could not change it; only the order of
+the sums matters, and it is kept.  Each spec also carries a ``scale``,
+multiplied in last (``scale * logit``, as the JAX package's
+``TemperedLattice`` multiplies ``float32(beta)`` into its base's logit):
+1 for a plain model, where the multiply is exact, and the replica's beta
+for a tempered one, where it is not — so the kernels are built without
+contraction.
 
 The flip is ``u < sigmoid(logit)`` with ``sigmoid(x) = 1 / (1 + exp(-x))``,
 the formula XLA expands ``jax.nn.sigmoid`` into.  Implementations of
@@ -53,17 +58,26 @@ def _spins(state: torch.Tensor) -> torch.Tensor:
     return 2.0 * state.to(torch.float32) - 1.0
 
 
+def _scaled(scale: float, logit: torch.Tensor) -> torch.Tensor:
+    """``float32(scale) * logit``, the scale a float32 operand filled in on
+    the logit's device (no copy from the host)."""
+    return torch.full((), scale, dtype=torch.float32, device=logit.device) * logit
+
+
 @dataclasses.dataclass(frozen=True)
 class IsingLogit:
     """``IsingModel.conditional_logit``: 2 (beta * neighbour sum + field),
-    neighbours summed north, south, west, east on the periodic lattice."""
+    neighbours summed north, south, west, east on the periodic lattice,
+    times ``scale`` last."""
 
     beta: float
     field: float = 0.0
+    scale: float = 1.0
 
     def __post_init__(self):
         object.__setattr__(self, "beta", _f32(self.beta))
         object.__setattr__(self, "field", _f32(self.field))
+        object.__setattr__(self, "scale", _f32(self.scale))
 
     def __call__(self, state: torch.Tensor) -> torch.Tensor:
         s = _spins(state)
@@ -73,21 +87,24 @@ class IsingLogit:
         )
         beta = torch.tensor(self.beta, dtype=torch.float32, device=s.device)
         field = torch.tensor(self.field, dtype=torch.float32, device=s.device)
-        return 2.0 * (beta * nb + field)
+        return _scaled(self.scale, 2.0 * (beta * nb + field))
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class SpinGlassLogit:
     """``SpinGlass.fused_logit``: 2 (sum_j J_ij s_j + field), summed east,
-    west, south, north, each bond with its own coupling.  ``j_right`` and
-    ``j_down`` are (H, W) float32 tensors on the lattice's device."""
+    west, south, north, each bond with its own coupling, times ``scale``
+    last.  ``j_right`` and ``j_down`` are (H, W) float32 tensors on the
+    lattice's device."""
 
     j_right: torch.Tensor
     j_down: torch.Tensor
     field: float = 0.0
+    scale: float = 1.0
 
     def __post_init__(self):
         object.__setattr__(self, "field", _f32(self.field))
+        object.__setattr__(self, "scale", _f32(self.scale))
 
     def __call__(self, state: torch.Tensor) -> torch.Tensor:
         s = _spins(state)
@@ -100,7 +117,7 @@ class SpinGlassLogit:
             + jd * torch.roll(s, -1, -2)
         ) + torch.roll(jd, 1, -2) * torch.roll(s, 1, -2)
         field = torch.tensor(self.field, dtype=torch.float32, device=s.device)
-        return 2.0 * (nb + field)
+        return _scaled(self.scale, 2.0 * (nb + field))
 
 
 def checkerboard(h: int, w: int, device=None) -> torch.Tensor:

@@ -1,0 +1,337 @@
+"""Packed segment programs + host/device overlap for the serving tier —
+the PyTorch port of ``repro.serving.dispatch``.
+
+  * ``make_class_advance_fn`` advances a *shape class* under scan
+    execution: every member workload's slots in one call.  JAX runs one
+    compiled ``jit(vmap(lax.switch(...)))`` over the slot axis; PyTorch
+    has no counterpart of the switch under vmap, so the port runs each
+    occupied slot's segment through its member's engine (the exact solo
+    call, ``engine.submit(RunPlan(..., step0=<slot progress>))``) and
+    stores the results flat, zero-padded to the class width, as JAX does.
+  * ``make_pallas_advance_fn`` is the pallas edition: all slots of a
+    class fold into ONE kernel call per chunk — slot-major into the MH
+    column axis (per-column key words and step base ``t0c``) or the Gibbs
+    lattice axis (per-lattice ``t0b`` / ``parity0``) — so slots at
+    different absolute steps advance in one launch on their solo streams.
+    Host/cim randomness draws each slot's operands at its own offset and
+    folds them.
+  * ``SegmentPipeline`` bounds how far host-side finalisation may lag
+    the device; the executor issues each retiring slot's copies to the
+    host (``to_host``: pinned memory, ``non_blocking``, an event) right
+    behind its own segment, so a finalize waits for that segment alone.
+
+Donation: JAX donates the carried slot state to the next segment and
+deletes the old buffers.  PyTorch has no donation; the port keeps the
+carry in a ``Carry`` and ``poison_donated`` drops its tensor after each
+dispatch, so a stale read raises ``RuntimeError`` instead of seeing an
+outdated state.  (Resizing the tensor's storage to zero would free it
+too, but a read of such a tensor is not checked: ``x + 1`` on it crashed
+the process under torch 2.13 on the CPU.)
+
+``jit_cache_size`` has no torch meaning: the port compiles nothing per
+segment signature (the CUDA kernels are built once per source hash).
+Here it counts the distinct ``(seg, collect)`` signatures an advance
+function has run, the programs the JAX package compiles for them.
+"""
+
+from __future__ import annotations
+
+from collections import deque
+
+import numpy as np
+import torch
+
+from repro_torch import telemetry
+from repro_torch.kernels.gibbs import ops as gibbs_ops
+from repro_torch.kernels.mh import ops as mh_ops
+from repro_torch.samplers import RunPlan
+from repro_torch.samplers.engine import (
+    _chains_fold_mh,
+    _fused_gibbs_logit,
+    _fused_key_cols,
+    _gibbs_logp,
+)
+
+
+def mesh_not_ported():
+    raise NotImplementedError(
+        "sharding the serving slot axis over a mesh (the JAX package's "
+        "serving/dispatch.py:_slot_axis_wrap) is not ported yet (ROADMAP.md, "
+        "queue 1 item 8a); serve on one device with mesh=None"
+    )
+
+
+class Carry:
+    """The carried slot state between segments, the port's counterpart of
+    a donated ``jax.Array``: ``tensor`` until ``delete()``, then every
+    read (``tensor``, ``np.asarray``) raises ``RuntimeError``."""
+
+    __slots__ = ("_t",)
+
+    def __init__(self, t: torch.Tensor):
+        self._t = t
+
+    @property
+    def tensor(self) -> torch.Tensor:
+        if self._t is None:
+            raise RuntimeError(
+                "this slot carry was donated to a later segment and poisoned; "
+                "read the segment's outputs instead"
+            )
+        return self._t
+
+    def delete(self) -> None:
+        self._t = None
+
+    def is_deleted(self) -> bool:
+        return self._t is None
+
+    def __array__(self, dtype=None, copy=None):
+        a = self.tensor.cpu().numpy()
+        return a if dtype is None else a.astype(dtype)
+
+
+def jit_cache_size(fn) -> int:
+    """Distinct ``(seg, collect)`` signatures ``fn`` (an advance function
+    of this module) has run; 0 for any other callable."""
+    return len(getattr(fn, "signatures", ()))
+
+
+def poison_donated(*carries) -> None:
+    """Make the donation contract loud: delete the carries that were just
+    handed to an advance call, so any later read raises RuntimeError."""
+    for c in carries:
+        delete = getattr(c, "delete", None)
+        is_deleted = getattr(c, "is_deleted", None)
+        if delete is None or is_deleted is None:
+            continue
+        if not c.is_deleted():
+            delete()
+
+
+class HostCopy:
+    """A tensor on its way to the host: the copy was issued when this was
+    made; ``numpy()`` waits for it (for a card, on its event only)."""
+
+    __slots__ = ("tensor", "event")
+
+    def __init__(self, tensor: torch.Tensor, event=None):
+        self.tensor = tensor
+        self.event = event
+
+    def numpy(self) -> np.ndarray:
+        if self.event is not None:
+            self.event.synchronize()
+        return self.tensor.numpy()
+
+
+def to_host(t: torch.Tensor) -> HostCopy:
+    """Issue the copy of ``t`` to the host now: on a card into pinned
+    memory, ``non_blocking``, with an event recorded behind it on the
+    current stream; on the CPU a clone."""
+    if t.device.type != "cuda":
+        return HostCopy(t.detach().clone())
+    out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    out.copy_(t, non_blocking=True)
+    event = torch.cuda.Event()
+    event.record(torch.cuda.current_stream(t.device))
+    return HostCopy(out, event)
+
+
+def _advance_fn(body):
+    """``body`` as an advance function that records its signatures."""
+
+    def advance(*args, seg: int, collect: str, **kw):
+        advance.signatures.add((int(seg), collect))
+        return body(*args, seg=int(seg), collect=collect, **kw)
+
+    advance.signatures = set()
+    return advance
+
+
+def _per_slot(values, repeat: int, device) -> torch.Tensor:
+    """Host ints, each repeated ``repeat`` times, as an int64 tensor made
+    on ``device`` by fills: no copy from the host, so the chunk loop does
+    not wait for the card."""
+    return torch.cat([
+        torch.full((repeat,), int(v), dtype=torch.int64, device=device) for v in values
+    ])
+
+
+def make_class_advance_fn(members, n_pad: int, n_slots: int, mesh=None):
+    """The packed-segment call of one *shape class* under scan execution.
+
+    Returns ``advance(words, logp, keys, step0s, tidx, *, seg, collect,
+    active)`` -> ``(samples, words', logp', accept)``, each with a leading
+    slot axis and flat state vectors zero-padded to ``n_pad``.  ``keys``
+    is the (S, 2) stack of the slots' request keys, ``step0s`` and
+    ``tidx`` (each slot's member index) host ints, ``active`` the occupied
+    slots: slot s runs ``member.engine.submit(RunPlan(target, seg,
+    words[s, :size], key=keys[s], step0=step0s[s], collect))`` — the solo
+    call, so the packed batch is bit-identical to solo runs whoever
+    shares it.  Free slots run nothing and hold zeros.
+
+    MH members carry (words, logp) across segments (``init_logp``);
+    Gibbs members read only words and return the final per-site
+    conditional log-prob in the logp lane.
+    """
+    if mesh is not None:
+        mesh_not_ported()
+    members = list(members)
+
+    def body(words, logp, keys, step0s, tidx, *, seg, collect, active):
+        dev = words.device
+        kept = seg if collect == "all" else 0
+        samples = torch.zeros((n_slots, kept, n_pad), dtype=torch.int64, device=dev)
+        words_out = torch.zeros((n_slots, n_pad), dtype=torch.int64, device=dev)
+        logp_out = torch.zeros((n_slots, n_pad), dtype=torch.float32, device=dev)
+        acc = torch.zeros((n_slots, n_pad), dtype=torch.int32, device=dev)
+        for s in active:
+            m = members[tidx[s]]
+            size = m.size
+            kwargs = {}
+            if m.carry_logp:
+                kwargs["init_logp"] = logp[s, :size].reshape(m.state_shape)
+            res = m.engine.submit(
+                RunPlan(
+                    target=m.target, n_steps=seg, init_words=words[s, :size].reshape(m.state_shape),
+                    key=keys[s], step0=int(step0s[s]), collect=collect, **kwargs,
+                )
+            ).result
+            samples[s, :, :size] = res.samples.reshape(kept, size)
+            words_out[s, :size] = res.final_words.reshape(size)
+            logp_out[s, :size] = res.final_logp.to(torch.float32).reshape(size)
+            acc[s, :size] = res.accept_count.reshape(size)
+        return samples, words_out, logp_out, acc
+
+    return _advance_fn(body)
+
+
+def make_pallas_advance_fn(engine, target, state_shape: tuple):
+    """The packed pallas segment: one kernel call over ALL slots a chunk.
+
+    Returns ``advance(words, keys, step0s, *, seg, collect, active)`` ->
+    ``(samples, words', accept)``, each with a leading slot axis and the
+    member's shaped state.  The fold is the engine's chains-axis fold
+    with slots in place of chains — slot-major into the MH column axis
+    (site = i·C + c stays the solo site index) or the Gibbs lattice axis
+    (i mod B stays the solo lattice index) — and the kernels take
+    per-column / per-lattice key words and absolute-step bases as
+    operands, so every slot advances on its solo stream in one launch.
+    ``keys`` are the slots' stream keys: each request key already folded
+    as ``engine.run`` folds it (``chain_key(key, 0)``, once at admission).
+    Host/cim randomness draws the operands of each occupied slot at its
+    own offset; free slots get zeros.
+
+    ``words'`` is a new tensor (never a view of ``samples``): the caller
+    deletes the old carry, and a kept row must survive that.  No logp
+    carry crosses segments here: the caller derives a retiring slot's
+    final log-prob from its words (``final_logp``).  The Gibbs logit spec
+    is taken once (``_fused_gibbs_logit``): a tempered lattice hands over
+    its scaled spec.
+    """
+    backend = engine.randomness
+    update = engine.config.update
+    dev = engine.device
+
+    def operands(keys, step0s, active, seg, shape, nbits, need_flips):
+        flips, us = [], []
+        for s in range(keys.shape[0]):
+            if s in active:
+                f, u = backend.chunk(keys[s], step0s[s], seg, shape, nbits, need_flips=need_flips)
+            else:
+                u = torch.zeros((seg, *shape), dtype=torch.float32, device=dev)
+                f = torch.zeros((seg, *shape), dtype=torch.int64, device=dev) if need_flips else None
+            flips.append(f)
+            us.append(u)
+        return flips, us
+
+    if update == "mh":
+        nbits = target.nbits
+        b, c = state_shape
+
+        def body(words, keys, step0s, *, seg, collect, active):
+            s = words.shape[0]
+            state0 = words.permute(1, 0, 2).reshape(b, s * c)
+            if backend.name == "fused":
+                k0c, k1c = _fused_key_cols(keys, c)
+                samples, acc = mh_ops.mh_sample_fused(
+                    target.table, state0, k0c, k1c, n_steps=seg, t0=_per_slot(step0s, c, dev),
+                    nbits=nbits, p_bfr=backend.p_bfr, cc=c,
+                )
+            else:
+                flips, us = operands(keys, step0s, active, seg, (b, c), nbits, True)
+                samples, acc = mh_ops.mh_sample(
+                    target.table, state0, _chains_fold_mh(torch.stack(flips)),
+                    _chains_fold_mh(torch.stack(us)), nbits=nbits,
+                )
+            # (seg, b, s*c) -> (s, seg, b, c): slot-major columns
+            samples = samples.reshape(seg, b, s, c).permute(2, 0, 1, 3)
+            acc = acc.reshape(b, s, c).permute(1, 0, 2)
+            words_out = samples[:, -1].clone()
+            if collect != "all":
+                samples = samples[:, :0]
+            return samples, words_out, acc
+
+    else:
+        spec = _fused_gibbs_logit(target)
+        b, h, w = state_shape
+
+        def body(words, keys, step0s, *, seg, collect, active):
+            s = words.shape[0]
+            state0 = words.reshape(s * b, h, w)
+            if backend.name == "fused":
+                k0b, k1b = _fused_key_cols(keys, b)
+                samples, acc = gibbs_ops.gibbs_sweep_fused(
+                    state0, k0b, k1b, spec, n_steps=seg, t0=_per_slot(step0s, b, dev), lat_b=b,
+                )
+            else:
+                _, us = operands(keys, step0s, active, seg, (b, h, w), 1, False)
+                u = torch.stack(us, dim=1).reshape(seg, s * b, h, w)
+                samples, acc = gibbs_ops.gibbs_sweep(
+                    state0, u, spec, parity0=_per_slot([t % 2 for t in step0s], b, dev),
+                )
+            # (seg, s*b, h, w) -> (s, seg, b, h, w): slot-major lattices
+            samples = samples.reshape(seg, s, b, h, w).permute(1, 0, 2, 3, 4)
+            acc = acc.reshape(s, b, h, w)
+            words_out = samples[:, -1].to(torch.int64)  # widened: a new tensor
+            if collect != "all":
+                samples = samples[:, :0]
+            return samples, words_out, acc
+
+    return _advance_fn(body)
+
+
+def final_logp(engine, target, words: torch.Tensor) -> torch.Tensor:
+    """A slot's final log-prob as its solo ``engine.run`` reports it: the
+    table's log-prob under ``mh``, the per-site conditional log-prob
+    (pseudo-likelihood) under ``gibbs``."""
+    if engine.config.update == "gibbs":
+        return _gibbs_logp(target, words)
+    return target.log_prob(words).to(torch.float32)
+
+
+class SegmentPipeline:
+    """Run host finalize thunks at most ``depth`` segments behind the
+    device.  ``push`` defers the thunk; once more than ``depth`` are
+    pending the oldest runs (waiting for its own copies only then).
+    ``drain`` flushes everything — call it when the serve loop idles or
+    ends."""
+
+    def __init__(self, depth: int = 2):
+        if depth < 1:
+            raise ValueError(f"pipeline depth must be >= 1, got {depth}")
+        self.depth = depth
+        self._pending: deque = deque()
+
+    def push(self, thunk) -> None:
+        self._pending.append(thunk)
+        while len(self._pending) > self.depth:
+            # backpressure: the host is now > depth segments behind and
+            # waits for the oldest segment's copies
+            with telemetry.span("serving.pipeline_stall", pending=len(self._pending)):
+                self._pending.popleft()()
+
+    def drain(self) -> None:
+        while self._pending:
+            self._pending.popleft()()

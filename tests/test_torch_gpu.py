@@ -536,3 +536,101 @@ def test_one_rank_nccl_mesh(cuda, update):
             assert torch.equal(getattr(a, f), getattr(b, f)), f
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("spin_glass", [False, True])
+@pytest.mark.parametrize("scale", [0.37, 2.5])
+def test_scaled_gibbs_kernels_match_plain(cuda, spin_glass, scale):
+    """A tempered replica's spec (``scale`` != 1) through both draws:
+    the scale is multiplied in last (the Ising flip table is built from
+    the scaled logit), equal to the plain versions word for word."""
+    import dataclasses
+
+    rs = np.random.default_rng(int(scale * 100) + spin_glass)
+    b, h, w, k = 3, 9, 12, 20
+    init = torch.from_numpy(rs.integers(0, 2, size=(b, h, w))).to(cuda)
+    logit = dataclasses.replace(_lattice_logit(rs, h, w, spin_glass, cuda), scale=scale)
+    assert logit.scale == float(np.float32(scale))
+    u = torch.from_numpy(rs.random(size=(k, b, h, w)).astype(np.float32)).to(cuda)
+    parity0 = torch.tensor([0, 1, 1], device=cuda)
+    s, f = gk.gibbs_chain(init, u, logit, parity0)
+    rs_, rf = gref.gibbs_chain_ref(init, u, logit, parity0)
+    assert torch.equal(s, rs_) and torch.equal(f, rf)
+    lat = torch.arange(b, device=cuda)
+    t0b = torch.tensor([3, 2**31 - 7, -4], device=cuda)
+    kw = dict(n_steps=k, lat_b=b)
+    s, f = gk.gibbs_chain_fused(init, lat * 5, lat + 9, t0b, logit, **kw)
+    rs_, rf = gref.gibbs_chain_fused_ref(init, lat * 5, lat + 9, t0b, logit, **kw)
+    assert torch.equal(s, rs_) and torch.equal(f, rf)
+
+
+@pytest.mark.parametrize("update,randomness", [("mh", "fused"), ("mh", "cim"),
+                                               ("gibbs", "fused"), ("gibbs", "host")])
+def test_tempering_card_equals_cpu(cuda, update, randomness):
+    """A replica exchange and an anneal through the kernels on the card
+    equal the same runs on the CPU (the plain versions), with no tie
+    event in the CPU run's draws or swaps."""
+    from repro_torch import tempering
+    from repro_torch.workloads.spin_glass import SpinGlass
+
+    runs = {}
+    for device in ("cpu", cuda):
+        if update == "mh":
+            rs = np.random.default_rng(3)
+            target = samplers.TableTarget(
+                torch.from_numpy(rs.normal(size=(2, 64)).astype(np.float32)).to(device))
+            init = rs.integers(0, 64, size=(2, 8)).astype(np.uint32)
+        else:
+            target = SpinGlass.bimodal(prng.PRNGKey(1, device=device), 8, 8)
+            init = target.random_init(prng.PRNGKey(2, device=device), 2).cpu().numpy()
+        eng = samplers.MHEngine(samplers.EngineConfig(
+            update=update, randomness=randomness, execution="pallas", chunk_steps=8),
+            device=device)
+        rex = tempering.ReplicaExchange(tempering.Ladder.geometric(3, 0.5), eng, swap_every=6)
+        inits = np.broadcast_to(init, (3, *init.shape))
+        if device == "cpu":
+            assert rex.tie_events(prng.PRNGKey(7), target, 20, inits) == {"moves": 0, "swaps": 0}
+        ann = tempering.Annealer.geometric(3, 6, 0.5, 2.0)
+        runs[str(device)] = (rex.run(prng.PRNGKey(7), target, 20, inits),
+                             ann.run(prng.PRNGKey(7), target, init, engine=eng))
+    (rc, ac), (rg, ag) = runs["cpu"], runs[str(cuda)]
+    for f in ("samples", "accept_count", "final_words", "final_logp"):
+        assert torch.equal(getattr(rg, f).cpu(), getattr(rc, f)), f
+    assert rg.swap.summary() == rc.swap.summary()
+    for f in ("best_words", "best_logp", "final_words", "accept_count"):
+        assert torch.equal(getattr(ag, f).cpu(), getattr(ac, f)), f
+
+
+@pytest.mark.parametrize("workload,randomness", [("gmm", "fused"), ("gmm", "host"),
+                                                 ("ising", "fused"), ("ising", "cim")])
+def test_packed_chunk_is_one_launch(cuda, workload, randomness):
+    """A packed pallas chunk is one kernel launch for all slots, and each
+    served request equals its solo run on the card."""
+    from repro_torch import serving
+
+    ex = serving.PackedExecutor.for_workload(workload, n_slots=3, randomness=randomness,
+                                             execution="pallas", smoke=True, chunk_steps=8)
+    reqs = [serving.ServeRequest(rid=i, workload=workload, n_steps=16 + 8 * i, seed=i,
+                                 collect=("all", "thin:3", "last")[i]) for i in range(3)]
+    ex.admit(reqs[0])
+    ex.advance_chunk()
+    for r in reqs[1:]:
+        ex.admit(r)
+    mh.reset_launches()
+    gk.reset_launches()
+    chunks = 0
+    while ex.active_count:
+        before = sum(mh.LAUNCHES.values()) + sum(gk.LAUNCHES.values())
+        ex.advance_chunk()
+        chunks += 1
+        assert sum(mh.LAUNCHES.values()) + sum(gk.LAUNCHES.values()) == before + 1
+    ex.drain()
+    assert chunks > 0
+    for r in reqs:
+        k_init, k_run = prng.split(prng.PRNGKey(r.seed, device=cuda))
+        wl = workloads.build(workload, k_init, randomness=randomness, backend="pallas",
+                             smoke=True)
+        ref_ = wl.engine.run(k_run, wl.target, r.n_steps, wl.init_words, collect=r.collect)
+        assert np.array_equal(r.samples, ref_.samples.cpu().numpy())
+        assert np.array_equal(r.final_words, ref_.final_words.cpu().numpy())
+        assert np.array_equal(r.accept_count, ref_.accept_count.cpu().numpy())
