@@ -148,6 +148,36 @@ Phases 20-23 (tempering and serving) run between 19 and 12 as well:
      with the port's pinned ``non_blocking`` retirement copies and with a
      blocking copy, in turns; then a ``cim`` class at smoke size.
 
+Phases 24-28 (the autotuner, the CLIs, the serving mesh) run after 23:
+
+ 24. ``autotune_mh``: ``samplers.autotune_config`` on the MH main path
+     (B = 64, V = 49,155, C = 256, ``fused``, ``execution="auto"``: scan
+     and the kernel in the grid), with a fresh cache; each candidate's
+     rate and the tuner's seconds; a second call must hit the cache with
+     an equal config; the tuned engine's 1,024-step stream must equal the
+     incumbent's;
+ 25. ``autotune_gibbs``: the same for ``ising`` 1024 x 1024 x 4 under
+     ``fused`` with ``backend="pallas"`` (the band kernel, chunks 16, 32,
+     64, 256), the stream ``thin:16``;
+ 26. ``cli_sample``: ``repro_torch.launch.sample.main`` in this process on
+     ``ising`` 1024 x 1024 x 4 (``fused`` and ``host``, 1,024 steps,
+     ``--thin 16``), ``gmm`` at its defaults (``fused``, ``cim``), the
+     spin glass at 1024 x 1024 x 4 under ``--ladder 8`` (64 steps: the CLI
+     keeps every replica's rows) and ``--anneal 8`` (256 steps),
+     ``--autotune`` and ``--trace`` (validated by ``launch.monitor``);
+ 27. ``cli_serve_engine``: ``serve_engine.main`` on a ``gmm,ising`` burst
+     at the workloads' defaults (12 requests, 4 slots, ``pallas``,
+     ``fused``, Poisson arrivals at 200/s), printing its footer row;
+ 28. ``serving_mesh``: a ``Scheduler(execution="scan")`` on a one-rank
+     ``nccl`` ``DeviceMesh`` serves a mixed burst at the serving phase's
+     shapes (4 ``gmm`` requests of 512 steps at their default widths, 2
+     ``ising`` requests of 256 steps at 1024 x 1024 x 2, one shape class)
+     equal to the unsharded one request for request, then both are timed
+     warm in turns; under ``pallas`` the mesh is refused.
+
+Each path of 24-27 counts its launches from 0 and holds each kernel's
+first launch there against its plain version (tolerance 0).
+
 Each phase prints one JSON line; any failure raises and exits non-zero.
 The second-to-last line lists the kernels; the last line is the device
 record.  Without a CUDA device, or without the repository around it, it
@@ -250,6 +280,13 @@ T_MH_REPLICAS, T_MH_SWAP, T_MH_THIN = 4, 64, "thin:64"  # on the MH main path's 
 # the serving burst: gmm at its defaults, ising at LAT x LAT with S_BATCH
 # lattices a request, so that 4 slots' lattices fit one cooperative launch
 S_GMM, S_ISING, S_BATCH = 12, 8, 2
+# the tuner on the MH main path: the JAX defaults (256 steps, best of 3)
+TUNE_MH_STEPS, TUNE_MH_REPEATS = 256, 3
+CLI_LADDER_STEPS = 64  # the sample CLI's ladder: 8 replicas x 1024 x 1024 x 4, all rows kept
+# the mesh burst under scan: the serving burst's shapes with fewer requests
+# and steps (scan runs ~1 ms of host-driven torch ops a step: 4 gmm requests
+# of 2,048 steps took 9-12 s a burst on the H100); one warm pair in turns
+M_GMM, M_GMM_STEPS, M_ISING, M_ISING_STEPS, MESH_TURNS = 4, 512, 2, 256, 1
 
 
 def emit(**record):
@@ -1816,6 +1853,213 @@ def main() -> int:
          requests=len(done), launches=launches_now(), seconds=secs, served_equals_solo=exact,
          kernel_launches_per_chunk={k: sorted(set(v)) for k, v in per_chunk.items()})
     del sched, done, glass_wl, glass, rex
+
+    # 24-28. the autotuner, the CLIs and the serving mesh ---------------------
+    from repro_torch.launch import monitor as cli_monitor
+    from repro_torch.launch import sample as cli_sample
+    from repro_torch.launch import serve_engine as cli_serve
+
+    scratch = ROOT / "build" / "chip_smoke_cli"  # tuner caches and traces
+    shutil.rmtree(scratch, ignore_errors=True)
+    scratch.mkdir(parents=True)
+
+    def hold_first(seen, kernel, where):
+        """The path's first launch of ``kernel`` against its plain version
+        (not added to the timed cases)."""
+        check(kernel in seen, f"{where} launched no {kernel}")
+        args, kw = seen[kernel]
+        return hold(kernel, f"{where} first launch", from_launch(args), kw, record=False)[:2]
+
+    @contextlib.contextmanager
+    def path_run(path):
+        """Count a path's launches from 0 and record each kernel's first
+        launch; the counts land in ``launches_by_path``."""
+        torch.cuda.synchronize()
+        reset_launches()
+        with first_launches(mh) as seen_mh, first_launches(gk) as seen_gk:
+            seen = {}
+            yield seen
+            torch.cuda.synchronize()
+        seen.update(seen_mh)
+        seen.update(seen_gk)
+        launches_by_path[path] = launches_now()
+
+    def tune_phase(path, kernel, cfg, target, init_words, plan, **kw):
+        """``autotune_config`` twice on one cache (measured, then a hit);
+        the tuned engine's stream against the incumbent's."""
+        cache = str(scratch / f"{path}.json")
+        with path_run(path) as seen:
+            t0 = time.perf_counter()
+            tuned, res = samplers.autotune_config(cfg, target, init_words, cache_path=cache, **kw)
+            tune_s = time.perf_counter() - t0
+        launches = launches_by_path[path]
+        check(launches[kernel] > 0, f"{path} launched no {kernel}")
+        diff, err = hold_first(seen, kernel, path)
+        check(res.source == "measured", f"{path}: {res.source}")
+        check(res.candidates[0][:3] == (cfg.chunk_steps, cfg.block_c, "pallas"),
+              f"{path}: the incumbent is not candidate 0: {res.candidates[0]}")
+        check({c[1] for c in res.candidates} == {cfg.block_c}, f"{path}: a block_c axis")
+        check(res.steps_per_s == max(c[3] for c in res.candidates)
+              and res.steps_per_s >= res.baseline_steps_per_s, f"{path}: not the argmax")
+        t0 = time.perf_counter()
+        tuned2, res2 = samplers.autotune_config(cfg, target, init_words, cache_path=cache, **kw)
+        hit_s = time.perf_counter() - t0
+        check(res2.source == "cache" and tuned2 == tuned, f"{path}: no cache hit")
+        a = samplers.MHEngine(cfg).submit(plan).result
+        b = samplers.MHEngine(tuned).submit(plan).result
+        check(same_result(a, b), f"{path}: the tuned stream differs from the incumbent's")
+        emit(phase=path, launches=launches, first_launch_mismatches=diff, max_abs_err=err,
+             incumbent=list(res.candidates[0][:3]), tuned=[res.chunk_steps, res.block_c,
+                                                          res.execution],
+             # the tuner's rate: steps x state elements (chains or sites) a second
+             candidates=[dict(chunk_steps=c[0], block_c=c[1], execution=c[2],
+                              steps_per_s=c[3]) for c in res.candidates],
+             tuned_over_incumbent=res.steps_per_s / res.baseline_steps_per_s,
+             tune_seconds=tune_s, cache_hit_seconds=hit_s, stream_n_steps=plan.n_steps,
+             stream_collect=plan.collect or "all", tuned_stream_equals_incumbent=True,
+             tuner_kw=kw)
+        return res
+
+    # 24. autotune_mh: the MH main path's table, fused, auto (scan and pallas)
+    mh_cfg = samplers.EngineConfig(randomness="fused")
+    mh_target = samplers.TableTarget(logits)
+    res = tune_phase("autotune_mh", "mh_chain_fused", mh_cfg, mh_target, init,
+                     samplers.RunPlan(target=mh_target, n_steps=N_STEPS, init_words=init,
+                                      seed=SEED),
+                     n_steps=TUNE_MH_STEPS, repeats=TUNE_MH_REPEATS)
+    check({c[2] for c in res.candidates} == {"scan", "pallas"}, "autotune_mh: one executor")
+
+    # 25. autotune_gibbs: ising 1024 x 1024 x 4, fused, pinned to the kernels
+    wl = workloads.build("ising", prng.PRNGKey(SEED, device=dev), randomness="fused",
+                         backend="pallas", height=LAT, width=LAT, batch=LAT_B, beta=BETA)
+    tune_phase("autotune_gibbs", "gibbs_chain_fused", wl.engine.config, wl.target,
+               wl.init_words, wl.plan(prng.PRNGKey(SEED + 1, device=dev), n_steps=N_STEPS,
+                                      collect=G_THIN))
+    del wl
+
+    # 26. cli_sample: repro_torch.launch.sample.main in this process
+    lattice = ["--height", str(LAT), "--width", str(LAT), "--batch", str(LAT_B)]
+
+    def ising_argv(randomness):
+        return ["--workload", "ising", *lattice, "--randomness", randomness, "--backend",
+                "pallas", "--steps", str(N_STEPS), "--thin", "16"]
+
+    ising_main = ising_argv("fused")
+    glass_kw = ["--workload", "spin_glass", *lattice, "--randomness", "fused", "--backend",
+                "pallas"]
+    trace_path = str(scratch / "sample.trace.jsonl")
+    cli_runs = {
+        "ising_fused": (ising_main, "gibbs_chain_fused"),
+        "ising_host": (ising_argv("host"), "gibbs_chain"),
+        "gmm_fused": (["--workload", "gmm", "--randomness", "fused"], "mh_chain_fused"),
+        "gmm_cim": (["--workload", "gmm", "--randomness", "cim"], "mh_chain"),
+        # the CLI keeps every replica's every row (it refuses --thin with a
+        # ladder): 256 MB a step at this width, so the ladder runs CLI_LADDER_STEPS
+        "spin_glass_ladder": ([*glass_kw, "--steps", str(CLI_LADDER_STEPS), "--ladder",
+                               str(T_REPLICAS), "--swap-every", str(T_SWAP)],
+                              "gibbs_chain_fused"),
+        "spin_glass_anneal": ([*glass_kw, "--steps", str(T_STEPS), "--anneal", "8"],
+                              "gibbs_chain_fused"),
+        "ising_autotune": ([*ising_main, "--autotune", "--autotune-cache",
+                            str(scratch / "cli.json")], "gibbs_chain_fused"),
+        "ising_trace": ([*ising_main, "--trace", trace_path], "gibbs_chain_fused"),
+    }
+    for name, (argv, kernel) in cli_runs.items():
+        path = f"cli_sample_{name}"
+        with path_run(path) as seen:
+            t0 = time.perf_counter()
+            row = cli_sample.main(argv)
+            seconds = time.perf_counter() - t0
+        launches = launches_by_path[path]
+        check(launches[kernel] > 0, f"{path} launched no {kernel}")
+        diff, err = hold_first(seen, kernel, path)
+        rate = row.get("flip_rate", row.get("acceptance_rate"))
+        check(0.0 < rate < 1.0, f"{path}: rate {rate}")
+        check(all(np.isfinite(v) for v in row.values() if isinstance(v, float)),
+              f"{path}: a non-finite field in {row}")
+        emit(phase="cli_sample", run=name, argv=argv, launches=launches,
+             first_launch_mismatches=diff, max_abs_err=err, seconds=seconds, row=row)
+    check(cli_monitor.main(["--check", trace_path]) == 0, "the CLI's trace does not validate")
+    header, events = cli_monitor.read_events(trace_path)
+    spans = cli_monitor.summarize_events(events)
+    check(any(r["span"] == "engine.submit" for r in spans), "no engine.submit span traced")
+    cli_monitor.main([trace_path])
+    emit(phase="cli_monitor", trace=trace_path.split("/")[-1], valid=True, events=len(events),
+         spans=spans)
+
+    # 27. cli_serve_engine: a mixed burst at the workloads' own defaults
+    with path_run("cli_serve_engine") as seen:
+        t0 = time.perf_counter()
+        row = cli_serve.main(["--workload", "gmm,ising", "--backend", "pallas", "--randomness",
+                              "fused", "--slots", "4", "--requests", "12", "--poisson-rate",
+                              "200"])
+        seconds = time.perf_counter() - t0
+    launches = launches_by_path["cli_serve_engine"]
+    holds = {k: hold_first(seen, k, "cli_serve_engine")
+             for k in ("mh_chain_fused", "gibbs_chain_fused")}
+    check(row["n_requests"] == 12 and row["shape_classes"] == 2, f"cli_serve_engine: {row}")
+    emit(phase="cli_serve_engine", launches=launches, seconds=seconds, row=row,
+         first_launch_mismatches={k: v[0] for k, v in holds.items()},
+         max_abs_err={k: v[1] for k, v in holds.items()})
+    shutil.rmtree(scratch, ignore_errors=True)
+
+    # 28. serving_mesh: the scan class's slot axis on a one-rank nccl mesh
+    with socket.socket() as s_:
+        s_.bind(("localhost", 0))
+        port = s_.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", world_size=1,
+                            rank=0, device_id=dev)
+    try:
+        mesh = DeviceMesh("cuda", [0], mesh_dim_names=("data",))
+
+        def mesh_burst():
+            """The serving phase's shapes under scan: gmm at its default
+            widths, ising at LAT x LAT x S_BATCH, in one shape class."""
+            return ([serving.ServeRequest(rid=i, workload="gmm", n_steps=M_GMM_STEPS,
+                                          seed=100 + i, t_arrive=0.004 * i)
+                     for i in range(M_GMM)]
+                    + [serving.ServeRequest(rid=M_GMM + j, workload="ising",
+                                            n_steps=M_ISING_STEPS, seed=200 + j,
+                                            collect="thin:64", t_arrive=0.002 + 0.006 * j)
+                       for j in range(M_ISING)])
+
+        def mesh_serve(mesh_):
+            sched = serving.Scheduler(n_slots=4, randomness="fused", execution="scan",
+                                      smoke=False, workload_kwargs=s_kw, mesh=mesh_)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            done = sched.serve(mesh_burst())
+            return {r.rid: r for r in done}, time.perf_counter() - t0, sched.shape_classes
+
+        plain, mesh_cold_s, n_classes = mesh_serve(None)
+        reset_launches()
+        sharded, mesh_s, _ = mesh_serve(mesh)
+        launches_by_path["serving_mesh"] = launches_now()
+        check(len(sharded) == M_GMM + M_ISING, f"served {len(sharded)} requests on the mesh")
+        for rid, r in sharded.items():
+            check(all(np.array_equal(getattr(r, f), getattr(plain[rid], f)) for f in
+                      ("samples", "final_words", "accept_count", "final_logp")),
+                  f"mesh request {rid} differs from the unsharded one")
+        # warm, in turns: unsharded, mesh
+        warm = {"unsharded": [], "mesh": []}
+        for _ in range(MESH_TURNS):
+            for name, m_ in (("unsharded", None), ("mesh", mesh)):
+                warm[name].append(mesh_serve(m_)[1])
+        try:
+            serving.Scheduler(n_slots=4, execution="pallas", smoke=True,
+                              mesh=mesh).executor_for("gmm")
+            refused = None
+        except ValueError as e:
+            refused = str(e)
+        check(refused is not None and "mesh" in refused, "a mesh under pallas was not refused")
+    finally:
+        dist.destroy_process_group()
+    emit(phase="serving_mesh", backend="nccl", ranks=1, execution="scan", n_slots=4,
+         requests={"gmm": M_GMM, "ising": M_ISING}, ising=s_kw, gmm_n_steps=M_GMM_STEPS,
+         ising_n_steps=M_ISING_STEPS,
+         shape_classes=n_classes, equals_unsharded=True, cold_unsharded_seconds=mesh_cold_s,
+         first_mesh_seconds=mesh_s, warm_seconds=warm,
+         launches=launches_by_path["serving_mesh"], pallas_refused=refused)
 
 
     # 12. timing --------------------------------------------------------------

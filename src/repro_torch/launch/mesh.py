@@ -2,13 +2,18 @@
 ``repro.launch.mesh.make_chains_mesh``.
 
 The port runs one process per device (``torch.distributed``: ``nccl``
-on cards, ``gloo`` on the CPU).  Nothing here starts a process group:
-the caller initialises it, with its address, world size and rank, and
-the mesh spans its ranks.  Every builder is a function, so importing the
-module touches no device.
+on cards, ``gloo`` on the CPU).  ``make_chains_mesh`` starts no process
+group: the caller initialises it, with its address, world size and rank,
+and the mesh spans its ranks.  The CLIs do that through
+``torchrun_group``, from the environment ``torchrun`` sets.  Every
+builder is a function, so importing the module touches no device.
 """
 
 from __future__ import annotations
+
+import contextlib
+import gc
+import os
 
 
 def make_chains_mesh(num_chains: int | None = None, *, devices=None, device_type: str = "cuda"):
@@ -39,3 +44,37 @@ def make_chains_mesh(num_chains: int | None = None, *, devices=None, device_type
 def mesh_chip_count(mesh) -> int:
     """Devices in ``mesh``."""
     return mesh.size()
+
+
+@contextlib.contextmanager
+def torchrun_group(device_type: str = "cuda"):
+    """The default process group of a ``torchrun`` launch, for the block.
+
+    With ``WORLD_SIZE`` > 1 in the environment (``torchrun`` sets it with
+    ``RANK``, ``LOCAL_RANK``, ``MASTER_ADDR`` and ``MASTER_PORT``), pins
+    this process to card ``LOCAL_RANK``, initialises the group — ``nccl``
+    on cards, ``gloo`` under ``device_type="cpu"`` — and destroys it on
+    exit; yields this process's rank.  Without ``torchrun`` it starts
+    nothing and yields 0.  The block must hold no mesh or group when it
+    ends (keep them in a function it calls): a gloo group object that
+    outlives ``destroy_process_group`` aborts the process at exit.  A
+    ``cuda`` request with no card raises the engine's error first: there
+    is no fallback to the CPU.
+    """
+    from repro_torch.samplers.engine import resolve_device
+
+    resolve_device(device_type)
+    if int(os.environ.get("WORLD_SIZE", "1")) <= 1:
+        yield 0
+        return
+    import torch
+    import torch.distributed as dist
+
+    if device_type == "cuda":
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
+    dist.init_process_group("nccl" if device_type == "cuda" else "gloo")
+    try:
+        yield dist.get_rank()
+    finally:
+        gc.collect()  # group objects the block dropped, held only in cycles
+        dist.destroy_process_group()

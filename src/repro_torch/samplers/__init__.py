@@ -3,9 +3,14 @@
 # from the returned RunHandle.  Under execution="pallas" table targets run
 # through the CUDA kernels of csrc/mh.cu and lattice models (workloads/)
 # through those of csrc/gibbs.cu on a CUDA device, and through their plain
-# versions on the CPU.  The exports are the JAX package's, less the
-# autotuner and the deprecated run_engine shim, which are not ported yet.
+# versions on the CPU.  The exports are the JAX package's: the autotuner
+# (autotune.py) and the deprecated run_engine shim included.
 
+from repro_torch.samplers.autotune import (
+    TuneResult,
+    autotune_config,
+    autotune_engine,
+)
 from repro_torch.samplers.engine import (
     EngineConfig,
     EngineResult,
@@ -14,6 +19,7 @@ from repro_torch.samplers.engine import (
     kept_count,
     parse_collect,
     resolve_execution,
+    run_engine,
 )
 from repro_torch.samplers.plan import (
     RunHandle,
@@ -37,6 +43,10 @@ from repro_torch.samplers.targets import (
 )
 
 __all__ = [
+    "TuneResult",
+    "autotune_config",
+    "autotune_engine",
+    "run_engine",
     "RunPlan",
     "RunHandle",
     "submit",

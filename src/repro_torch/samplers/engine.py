@@ -498,8 +498,12 @@ def _gather_chains(x: torch.Tensor, n: int, group) -> torch.Tensor:
 
 
 def _shard_over_chains(body, mesh, num_chains: int, device: torch.device):
-    """Wrap ``body(keys, init)`` so each rank of ``mesh`` runs its slice
-    of the chains and all ranks get the whole result.
+    """Wrap ``body(*args, **kw)`` so each rank of ``mesh`` runs its slice
+    of the chains and all ranks get the whole result: every positional
+    argument (a tensor or a list) holds one entry per chain on its leading
+    axis and is sliced to the rank's contiguous block; keywords pass as
+    they are, and each returned tensor is all-gathered along its leading
+    axis.  The serving tier shards its slot axis through the same wrap.
 
     The "chains" axis resolves through ``distributed.sharding.spec_for``
     with its divisibility filter: a chain count the mesh does not divide
@@ -528,9 +532,9 @@ def _shard_over_chains(body, mesh, num_chains: int, device: torch.device):
     group = mesh.get_group(spec[0])
     per = num_chains // n
 
-    def sharded(keys, init):
+    def sharded(*args, **kw):
         lo = rank * per
-        outs = body(keys[lo:lo + per], init[lo:lo + per])
+        outs = body(*(a[lo:lo + per] for a in args), **kw)
         return tuple(_gather_chains(x, n, group) for x in outs)
 
     return sharded
@@ -564,6 +568,13 @@ def resolve_device(device) -> torch.device:
         if dev.index is None:  # "cuda" names the current card: pin its index
             dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def _wait(device: torch.device) -> None:
+    """End a timed region: the card's queue drained, so a wall clock
+    times the work and not its enqueue."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
 
 
 class MHEngine:
@@ -785,3 +796,27 @@ class MHEngine:
 
 
 SamplerEngine = MHEngine
+
+
+def run_engine(
+    key, init_words, *, engine: MHEngine, target, n_steps: int,
+    chain_id: int = 0, step0: int = 0, collect: str | None = None,
+):
+    """Deprecated entry — build a ``RunPlan`` and call
+    ``engine.submit(plan, compiled=True)`` instead.  Warns on every call
+    and returns that submit's result, the same stream."""
+    import warnings
+
+    from repro_torch.samplers.plan import RunPlan, submit
+
+    warnings.warn(
+        "run_engine is deprecated; build a samplers.RunPlan and call "
+        "engine.submit(plan, compiled=True)",
+        DeprecationWarning,
+        stacklevel=2,
+    )
+    plan = RunPlan(
+        target=target, n_steps=n_steps, init_words=init_words, key=key,
+        chain_id=chain_id, step0=step0, collect=collect,
+    )
+    return submit(engine, plan, compiled=True).result

@@ -15,8 +15,9 @@ slot axis of one advance call a chunk:
     carry after each call (``poison_donated``) and the host/device
     overlap (``SegmentPipeline``, ``to_host``).
 
-Everything runs on one device, the card unless ``device="cpu"`` is asked
-for; sharding the slot axis over a mesh is not ported yet.
+Executors run on ``device``, the card unless ``device="cpu"`` is asked
+for; ``mesh`` (a 1-D ``DeviceMesh``, one process per device) shards a
+scan class's slot axis across ranks.
 """
 
 from repro_torch.serving.executor import PackedExecutor

@@ -8,6 +8,9 @@ the PyTorch port of ``repro.serving.dispatch``.
     occupied slot's segment through its member's engine (the exact solo
     call, ``engine.submit(RunPlan(..., step0=<slot progress>))``) and
     stores the results flat, zero-padded to the class width, as JAX does.
+    With a ``mesh`` the slot axis is sharded by the "chains" rule (the
+    JAX package's ``_slot_axis_wrap``): each rank runs the occupied slots
+    of its block and an all-gather joins the blocks.
   * ``make_pallas_advance_fn`` is the pallas edition: all slots of a
     class fold into ONE kernel call per chunk — slot-major into the MH
     column axis (per-column key words and step base ``t0c``) or the Gibbs
@@ -50,15 +53,8 @@ from repro_torch.samplers.engine import (
     _fused_gibbs_logit,
     _fused_key_cols,
     _gibbs_logp,
+    _shard_over_chains,
 )
-
-
-def mesh_not_ported():
-    raise NotImplementedError(
-        "sharding the serving slot axis over a mesh (the JAX package's "
-        "serving/dispatch.py:_slot_axis_wrap) is not ported yet (ROADMAP.md, "
-        "queue 1 item 8a); serve on one device with mesh=None"
-    )
 
 
 class Carry:
@@ -174,19 +170,28 @@ def make_class_advance_fn(members, n_pad: int, n_slots: int, mesh=None):
     MH members carry (words, logp) across segments (``init_logp``);
     Gibbs members read only words and return the final per-site
     conditional log-prob in the logp lane.
+
+    ``mesh`` (a 1-D ``DeviceMesh``, one process per device) shards the
+    slot axis through the "chains" rule, as the engine shards chains
+    (``samplers.engine._shard_over_chains``): when the mesh divides
+    ``n_slots`` each rank runs the occupied slots of its contiguous block
+    and ``all_gather_into_tensor`` joins the four outputs along the slot
+    axis; otherwise every rank runs every slot and nothing is gathered.
+    Slots never communicate, so the result equals the unsharded call word
+    for word.  Every rank must make the same calls with the same
+    ``active`` (the scheduler admits on one clock for that).
     """
-    if mesh is not None:
-        mesh_not_ported()
     members = list(members)
 
-    def body(words, logp, keys, step0s, tidx, *, seg, collect, active):
+    def block(words, logp, keys, step0s, tidx, occupied, *, seg, collect):
+        n = words.shape[0]
         dev = words.device
         kept = seg if collect == "all" else 0
-        samples = torch.zeros((n_slots, kept, n_pad), dtype=torch.int64, device=dev)
-        words_out = torch.zeros((n_slots, n_pad), dtype=torch.int64, device=dev)
-        logp_out = torch.zeros((n_slots, n_pad), dtype=torch.float32, device=dev)
-        acc = torch.zeros((n_slots, n_pad), dtype=torch.int32, device=dev)
-        for s in active:
+        samples = torch.zeros((n, kept, n_pad), dtype=torch.int64, device=dev)
+        words_out = torch.zeros((n, n_pad), dtype=torch.int64, device=dev)
+        logp_out = torch.zeros((n, n_pad), dtype=torch.float32, device=dev)
+        acc = torch.zeros((n, n_pad), dtype=torch.int32, device=dev)
+        for s in (s for s in range(n) if occupied[s]):
             m = members[tidx[s]]
             size = m.size
             kwargs = {}
@@ -203,6 +208,13 @@ def make_class_advance_fn(members, n_pad: int, n_slots: int, mesh=None):
             logp_out[s, :size] = res.final_logp.to(torch.float32).reshape(size)
             acc[s, :size] = res.accept_count.reshape(size)
         return samples, words_out, logp_out, acc
+
+    block = _shard_over_chains(block, mesh, n_slots, members[0].engine.device)
+
+    def body(words, logp, keys, step0s, tidx, *, seg, collect, active):
+        occupied = [s in active for s in range(n_slots)]
+        return block(words, logp, keys, list(step0s), list(tidx), occupied,
+                     seg=seg, collect=collect)
 
     return _advance_fn(body)
 

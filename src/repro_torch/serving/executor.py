@@ -52,7 +52,7 @@ from repro_torch.kernels.rng import MASK32
 from repro_torch.samplers import chain_key
 from repro_torch.samplers.engine import parse_collect, resolve_execution
 from repro_torch.serving import dispatch
-from repro_torch.serving.dispatch import Carry, SegmentPipeline, mesh_not_ported, to_host
+from repro_torch.serving.dispatch import Carry, SegmentPipeline, to_host
 
 
 @dataclasses.dataclass(frozen=True)
@@ -168,7 +168,10 @@ class PackedExecutor:
     ``request_init(req) -> (init_words, run_key, n_steps)`` callable.
     Additional workload members join a scan-execution executor via
     ``add_workload``/``add_member`` — the shape-class packing axis.
-    ``mesh`` is not ported yet and raises ``NotImplementedError``.
+    ``mesh`` (a 1-D ``DeviceMesh``) shards the slot axis of the scan
+    class call across its ranks (``dispatch.make_class_advance_fn``);
+    pallas execution folds the slots into one kernel call on one device
+    and refuses a mesh.
     """
 
     def __init__(
@@ -188,16 +191,22 @@ class PackedExecutor:
     ):
         if n_slots < 1:
             raise ValueError(f"n_slots must be >= 1, got {n_slots}")
-        if mesh is not None:
-            mesh_not_ported()
         self._check_engine(engine)
         self.n_slots = int(n_slots)
         self.chunk_steps = int(chunk_steps or engine.config.chunk_steps)
         self.clock = clock
+        self.mesh = mesh
         self.device = engine.device
         self.execution = resolve_execution(
             engine.config.execution, target, engine.device, engine.config.update
         )
+        if mesh is not None and self.execution != "scan":
+            raise ValueError(
+                "mesh-sharded serving shards the slot axis of the scan "
+                "class call — pallas execution folds slots into one "
+                "kernel call on a single device (use execution='scan' "
+                "with a mesh)"
+            )
         self.members: list[_Member] = [
             _Member(
                 name=workload, engine=engine, target=target,
@@ -233,7 +242,9 @@ class PackedExecutor:
 
     def _rebuild_advance(self) -> None:
         if self.execution == "scan":
-            self._advance = dispatch.make_class_advance_fn(self.members, self.n_pad, self.n_slots)
+            self._advance = dispatch.make_class_advance_fn(
+                self.members, self.n_pad, self.n_slots, mesh=self.mesh
+            )
         else:
             m = self.members[0]
             self._advance = dispatch.make_pallas_advance_fn(m.engine, m.target, m.state_shape)
@@ -258,8 +269,6 @@ class PackedExecutor:
         """An executor whose first member is workload ``name`` (see
         ``_workload_member_parts`` for the per-request derivation), on
         ``device`` (the card unless ``"cpu"`` is asked for)."""
-        if mesh is not None:
-            mesh_not_ported()
         engine, target, shape, request_init, default_steps = _workload_member_parts(
             name, randomness=randomness, execution=execution, smoke=smoke, device=device,
             **builder_kwargs,
@@ -275,6 +284,7 @@ class PackedExecutor:
             pipeline_depth=pipeline_depth,
             clock=clock,
             workload=name,
+            mesh=mesh,
         )
 
     # -- shape-class membership ----------------------------------------

@@ -33,7 +33,6 @@ import numpy as np
 
 from repro_torch import telemetry
 from repro_torch.samplers.engine import parse_collect
-from repro_torch.serving.dispatch import mesh_not_ported
 from repro_torch.serving.executor import PackedExecutor
 
 
@@ -143,8 +142,13 @@ class Scheduler:
     ``PackedExecutor.for_workload``).
 
     ``device`` is where every executor runs (the port's device rule:
-    the card unless ``"cpu"`` is asked for).  ``mesh`` (sharding the slot
-    axis) is not ported yet and raises ``NotImplementedError``.
+    the card unless ``"cpu"`` is asked for).  ``mesh`` (a 1-D
+    ``DeviceMesh``, one process per device) shards each class call's slot
+    axis across its ranks through the "chains" sharding rule — slots
+    never communicate, so sharded serving equals unsharded word for word
+    (scan execution only).  Every rank runs this loop on the same
+    requests; they admit on rank 0's clock, so all ranks pack the same
+    slots and make the same calls.
     """
 
     def __init__(
@@ -162,8 +166,6 @@ class Scheduler:
     ):
         if n_slots < 1:
             raise ValueError(f"n_slots must be >= 1, got {n_slots}")
-        if mesh is not None:
-            mesh_not_ported()
         self.n_slots = int(n_slots)
         self.randomness = randomness
         self.execution = execution
@@ -172,6 +174,7 @@ class Scheduler:
         self.pipeline_depth = pipeline_depth
         self.workload_kwargs = dict(workload_kwargs or {})
         self.device = device
+        self.mesh = mesh
         self.pending = FIFOQueue()
         self.executors: dict[tuple, PackedExecutor] = {}   # by shape class
         self._by_workload: dict[str, PackedExecutor] = {}
@@ -188,6 +191,21 @@ class Scheduler:
         return time.perf_counter() - self._t0 + self._skip
 
     _skip: float = 0.0  # virtual fast-forward (non-realtime idle gaps)
+
+    def _admission_clock(self) -> float:
+        """The time admission reads: this process's clock, or with a mesh
+        rank 0's, broadcast to every rank, so that arrivals between two
+        ranks' readings cannot split their admissions."""
+        now = self.clock()
+        if self.mesh is None:
+            return now
+        import torch
+        import torch.distributed as dist
+
+        group = self.mesh.get_group()
+        t = torch.tensor([now], dtype=torch.float64, device=self.mesh.device_type)
+        dist.broadcast(t, src=dist.get_global_rank(group, 0), group=group)
+        return float(t.item())
 
     # -- queue + groups ------------------------------------------------
     def submit(self, request: ServeRequest) -> None:
@@ -217,6 +235,7 @@ class Scheduler:
                 chunk_steps=self.chunk_steps,
                 pipeline_depth=self.pipeline_depth,
                 clock=self.clock,
+                mesh=self.mesh,
                 device=self.device,
                 **self.workload_kwargs,
             )
@@ -298,7 +317,7 @@ class Scheduler:
         for r in sorted(requests, key=lambda r: r.t_arrive):
             self.submit(r)
         while self.pending or self.active:
-            self.admit_ready(self.clock())
+            self.admit_ready(self._admission_clock())
             telemetry.gauge(
                 "serving_queue_depth", "pending requests"
             ).set(len(self.pending))

@@ -7,6 +7,8 @@ that has the card and no JAX:
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -634,3 +636,56 @@ def test_packed_chunk_is_one_launch(cuda, workload, randomness):
         assert np.array_equal(r.samples, ref_.samples.cpu().numpy())
         assert np.array_equal(r.final_words, ref_.final_words.cpu().numpy())
         assert np.array_equal(r.accept_count, ref_.accept_count.cpu().numpy())
+
+
+# --- the autotuner and the CLIs on the card ------------------------------------------
+
+
+def test_autotune_on_the_card(cuda, tmp_path):
+    """The tuner on the card: the incumbent first, the winner at least as
+    fast as it under the tuner's own clock (each run ended by a
+    synchronise), a cache hit after, and the tuned stream unchanged."""
+    rs = np.random.default_rng(5)
+    table = torch.from_numpy((rs.normal(size=(8, 4096)) * 2).astype(np.float32)).to(cuda)
+    target = samplers.TableTarget(table)
+    init = torch.from_numpy(rs.integers(0, 4096, size=(8, 256))).to(cuda)
+    cfg = samplers.EngineConfig(randomness="fused", chunk_steps=64)
+    kw = dict(n_steps=64, repeats=2, chunk_candidates=(16, 256),
+              cache_path=str(tmp_path / "tune.json"))
+    tuned, res = samplers.autotune_config(cfg, target, init, **kw)
+    assert res.source == "measured"
+    assert res.candidates[0][:3] == (64, cfg.block_c, "pallas")  # auto on a card
+    assert {c[2] for c in res.candidates} == {"scan", "pallas"}
+    assert res.steps_per_s >= res.baseline_steps_per_s
+    assert samplers.autotune_config(cfg, target, init, **kw)[1].source == "cache"
+    plan = samplers.RunPlan(target=target, n_steps=200, init_words=init, seed=3)
+    a = samplers.MHEngine(cfg).submit(plan).result
+    b = samplers.MHEngine(tuned).submit(plan).result
+    for f in ("samples", "accept_count", "final_words", "final_logp"):
+        assert torch.equal(getattr(a, f), getattr(b, f)), f
+
+
+def test_clis_default_to_the_card(cuda, capsys):
+    """``sample`` and ``serve_engine`` run on the card by default and give
+    the CPU's rows (the kernels equal their plain versions)."""
+    from repro_torch.launch import sample, serve_engine
+
+    argv = ["--workload", "ising", "--height", "64", "--width", "64", "--batch", "2",
+            "--randomness", "fused", "--backend", "pallas", "--steps", "64", "--thin", "4"]
+    gk.reset_launches()
+    card = sample.main(argv)
+    assert gk.LAUNCHES["gibbs_chain_fused"] > 0
+    cpu = sample.main(argv + ["--device", "cpu"])
+    drop = ("wall_s", "site_steps_per_s")
+    assert {k: v for k, v in card.items() if k not in drop} == {
+        k: v for k, v in cpu.items() if k not in drop}
+    capsys.readouterr()
+    serve = ["--smoke", "--workload", "gmm,ising", "--requests", "4", "--slots", "2",
+             "--randomness", "fused", "--backend", "pallas", "--collect", "all"]
+    mh.reset_launches()
+    row = serve_engine.main(serve)
+    on_card = capsys.readouterr().out
+    assert row["n_requests"] == 4 and mh.LAUNCHES["mh_chain_fused"] > 0
+    serve_engine.main(serve + ["--device", "cpu"])
+    rate = re.compile(r"req (\d+): workload=(\w+) .* (acceptance_rate|flip_rate)=(\S+)")
+    assert rate.findall(on_card) == rate.findall(capsys.readouterr().out)

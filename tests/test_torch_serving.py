@@ -343,11 +343,16 @@ def test_carry_owns_its_storage():
     assert words.untyped_storage().data_ptr() != samples.untyped_storage().data_ptr()
 
 
-def test_mesh_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Scheduler(n_slots=2, smoke=True, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PackedExecutor.for_workload("gmm", n_slots=2, smoke=True, mesh=object(), device="cpu")
+def test_mesh_under_pallas_is_refused():
+    """A mesh shards only the scan executor's slot axis: under pallas
+    execution it is refused with ``ValueError``, as in JAX (the sharded
+    cases are in ``test_torch_serving_mesh.py``)."""
+    sched = Scheduler(n_slots=2, smoke=True, mesh=object(), execution="pallas", device="cpu")
+    with pytest.raises(ValueError, match="mesh"):
+        sched.executor_for("gmm")
+    with pytest.raises(ValueError, match="mesh"):
+        PackedExecutor.for_workload("gmm", n_slots=2, smoke=True, execution="pallas",
+                                    mesh=object(), device="cpu")
 
 
 # --- the queue and the scheduler ---------------------------------------------------
