@@ -178,6 +178,25 @@ Phases 24-28 (the autotuner, the CLIs, the serving mesh) run after 23:
 Each path of 24-27 counts its launches from 0 and holds each kernel's
 first launch there against its plain version (tolerance 0).
 
+Phase 29 (the LLM server, ``launch/serve.py``) runs after 28:
+
+ 29. ``serve_lm``: granite-3 8B at full width and depth (40 layers,
+     d_model 4,096, bfloat16, V = 49,155) through
+     ``launch/serve.py:main`` (8 requests, 4 slots, prompts of 128-130
+     tokens, 32 generated, ``--sampler mcmc``, ``--backend auto``): one
+     ``mh_chain`` launch per sample (8 admissions and every decode step),
+     the first held against its plain version (tolerance 0), tokens/s and
+     acceptance; the same burst under ``greedy`` and ``categorical``; a
+     server built here, its parameter bytes and peak memory, prefill and,
+     step by step, the model's and the sampler's milliseconds beside the
+     step's bound, and one decode step's device busy share and kernel
+     count under the profiler; the head's bfloat16 product against the
+     widened one; then the model cut to 2 layers in float32, made on the
+     CPU and copied to the card: prefill and 3 greedy decode steps at
+     B = 2 with prompts of 12 and 17 tokens, card against CPU (logits
+     within ``LLM_LOGIT_TOL``, tokens equal where the top-two gap exceeds
+     the difference) and packed against solo on the card.
+
 Each phase prints one JSON line; any failure raises and exits non-zero.
 The second-to-last line lists the kernels; the last line is the device
 record.  Without a CUDA device, or without the repository around it, it
@@ -287,6 +306,18 @@ CLI_LADDER_STEPS = 64  # the sample CLI's ladder: 8 replicas x 1024 x 1024 x 4, 
 # and steps (scan runs ~1 ms of host-driven torch ops a step: 4 gmm requests
 # of 2,048 steps took 9-12 s a burst on the H100); one warm pair in turns
 M_GMM, M_GMM_STEPS, M_ISING, M_ISING_STEPS, MESH_TURNS = 4, 512, 2, 256, 1
+# the LLM server: granite-3 8B at full width and depth (bfloat16) through
+# launch/serve.py:main; then decode steps timed one by one
+LLM_ARCH, LLM_REQUESTS, LLM_SLOTS, LLM_PROMPT, LLM_GEN = "granite3_8b", 8, 4, 128, 32
+LLM_TIMED_STEPS = 16
+BF16_OPS_PER_S = 989e12  # H100 SXM dense bfloat16 tensor-core peak
+# card against CPU: the same model cut to 2 layers in float32, B = 2
+# prompts of these lengths, 3 greedy decode steps; logits (about N(0, 1)
+# under the init rule) within LLM_LOGIT_TOL, stated before the first run
+LLM_CHECK_LAYERS, LLM_CHECK_LENS, LLM_CHECK_STEPS, LLM_LOGIT_TOL = 2, (12, 17), 3, 1e-3
+# the head's bfloat16 product with float32 results (torch.mm's out_dtype)
+# against the widened float32 product, relative to the largest logit
+LLM_HEAD_RTOL = 1e-4
 
 
 def emit(**record):
@@ -2061,6 +2092,220 @@ def main() -> int:
          first_mesh_seconds=mesh_s, warm_seconds=warm,
          launches=launches_by_path["serving_mesh"], pallas_refused=refused)
 
+    # 29. serve_lm: granite-3 8B at full width through launch/serve.py ---------
+    def serve_lm_phase():
+        """Phase 29; its names stay out of the phases after it."""
+        t_phase = time.perf_counter()
+        from repro_torch import configs as llm_configs
+        from repro_torch.launch import serve as cli_llm
+        from repro_torch.models import lm as llm
+
+        gcfg = llm_configs.get_config(LLM_ARCH)
+        llm_argv = ["--arch", LLM_ARCH, "--requests", str(LLM_REQUESTS), "--slots",
+                    str(LLM_SLOTS), "--prompt-len", str(LLM_PROMPT), "--gen", str(LLM_GEN)]
+        llm_rows = {}
+        for sampler in ("mcmc", "greedy", "categorical"):
+            path = f"serve_lm_{sampler}"
+            torch.cuda.empty_cache()
+            with path_run(path) as seen:
+                t0 = time.perf_counter()
+                row = cli_llm.main([*llm_argv, "--sampler", sampler])
+                main_s = time.perf_counter() - t0
+            launches = launches_by_path[path]
+            streams = row.pop("streams")
+            check(row["device"].startswith("cuda"), f"{path} ran on {row['device']}")
+            check(len(streams) == LLM_REQUESTS and all(
+                len(t) == LLM_GEN + 1 and all(0 <= x < gcfg.vocab_size for x in t)
+                for t in streams.values()), f"{path}: streams {streams}")
+            check(row["tokens"] == LLM_REQUESTS * (LLM_GEN + 1), f"{path}: {row}")
+            want = row["samples"] if sampler == "mcmc" else 0
+            check(launches == {**{k: 0 for k in launches}, "mh_chain": want},
+                  f"{path}: launches {launches}, {want} mh_chain wanted (one a sample)")
+            record = dict(phase="serve_lm", argv=llm_argv, main_s=main_s, **row,
+                          launches=launches)
+            if sampler == "mcmc":  # the first launch is also timed in 12
+                check("mh_chain" in seen, f"{path} launched no mh_chain")
+                args, kw = seen["mh_chain"]
+                diff, err, _ = hold("mh_chain", f"{path} first launch", from_launch(args), kw)
+                record.update(first_launch_mismatches=diff, max_abs_err=err)
+                check(0.0 < row["acceptance"] < 1.0, f"{path}: acceptance {row['acceptance']}")
+            llm_rows[sampler] = row
+            emit(**record)
+            del seen
+
+        # a server built here: memory, prefill, and decode steps timed one by one
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        max_len = LLM_PROMPT + 2 + LLM_GEN + 8  # main's sizing
+        server = cli_llm.BatchedServer(gcfg, cli_llm.ServeConfig(
+            n_slots=LLM_SLOTS, max_len=max_len, gen_tokens=LLM_GEN, sampler="mcmc"))
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        model = server.model
+        param_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+        embed_bytes = model.embed.numel() * model.embed.element_size()
+        n_params = sum(p.numel() for p in model.parameters())
+        check(param_bytes == 2 * n_params and n_params == gcfg.padded_vocab * gcfg.d_model * 2
+              + gcfg.n_layers * (gcfg.layer_params() + 2 * gcfg.d_model) + gcfg.d_model,
+              f"{n_params} parameters, {param_bytes} bytes")
+        rs = np.random.default_rng(SEED)
+        prompts = [rs.integers(0, gcfg.vocab_size, LLM_PROMPT + i % 3) for i in range(LLM_SLOTS)]
+        prefill_ms = []
+        with torch.inference_mode():
+            for slot, prompt in enumerate(prompts):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                server._prefill_slot(slot, cli_llm.Request(rid=slot, prompt=prompt))
+                torch.cuda.synchronize()
+                prefill_ms.append((time.perf_counter() - t0) * 1e3)
+            server.last_tokens = torch.randint(0, gcfg.vocab_size, (LLM_SLOTS, 1), generator=gen,
+                                               device=dev, dtype=torch.int32)
+
+            def llm_model_step():
+                logits, server.cache = llm.decode_step(model, gcfg, server.last_tokens,
+                                                       server.cache)
+                return logits
+
+            def llm_step():
+                tokens = server._sample(llm_model_step())
+                server.last_tokens = tokens[:, None]
+
+            model_ms, sample_ms = [], []
+            for _ in range(LLM_TIMED_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                logits = llm_model_step()
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                tokens = server._sample(logits)
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+                server.last_tokens = tokens[:, None]
+                model_ms.append((t1 - t0) * 1e3)
+                sample_ms.append((t2 - t1) * 1e3)
+            # the head's bfloat16 product (float32 results) against the widened one
+            hidden = torch.randn((LLM_SLOTS, gcfg.d_model), generator=gen, device=dev).to(
+                torch.bfloat16)
+            head = llm.head_logits(model, gcfg, hidden)
+            wide = hidden.float() @ model.lm_head.float()
+            wide[:, gcfg.vocab_size:] = -1e30
+            head_err = float((head - wide)[:, :gcfg.vocab_size].abs().max())
+            head_scale = float(wide[:, :gcfg.vocab_size].abs().max())
+            check(head.dtype == torch.float32 and head_err <= LLM_HEAD_RTOL * head_scale,
+                  f"head product: max |err| {head_err} for logits up to {head_scale}")
+            del wide, head
+            step_events, step_wall_ms = traced(torch, llm_step, "mh_chain_kernel",
+                                               lambda: mh.LAUNCHES["mh_chain"], cpu=True)
+            model_events, model_wall_ms = traced(torch, llm_model_step, cpu=True)
+        peak_bytes = torch.cuda.max_memory_allocated()
+        smax, b_ = max_len, LLM_SLOTS
+        kv_bytes = 2 * gcfg.n_layers * b_ * smax * gcfg.n_kv_heads * gcfg.d_head * 2
+        body = gcfg.n_layers * gcfg.layer_params()
+        head_ops = 2 * gcfg.d_model * gcfg.padded_vocab
+        attn_ops = 4 * gcfg.n_layers * gcfg.n_heads * gcfg.d_head  # x query x key positions
+        step_bytes = param_bytes - embed_bytes + kv_bytes
+        step_ops = b_ * (2 * body + head_ops + attn_ops * smax)
+        plen = LLM_PROMPT + 2
+        prefill_ops = 2 * body * plen + head_ops + attn_ops * plen * plen
+        step_bound = max(step_bytes / HBM_BYTES_PER_S, step_ops / BF16_OPS_PER_S) * 1e3
+        prefill_bound = max((param_bytes - embed_bytes) / HBM_BYTES_PER_S,
+                            prefill_ops / BF16_OPS_PER_S) * 1e3
+        busy = sum(e.self_device_time_total for e in step_events) / 1e3
+        model_busy = sum(e.self_device_time_total for e in model_events) / 1e3
+        emit(phase="serve_lm_steps", arch=LLM_ARCH, layers=gcfg.n_layers, d_model=gcfg.d_model,
+             vocab=gcfg.vocab_size, dtype=str(gcfg.param_dtype), parameters=n_params,
+             param_bytes=param_bytes, max_memory_allocated=peak_bytes, server_init_s=init_s,
+             prompt_lens=[len(p) for p in prompts], prefill_ms=prefill_ms,
+             prefill_bound_ms=prefill_bound, prefill_ops=prefill_ops,
+             decode_model_ms=model_ms, decode_sample_ms=sample_ms,
+             decode_model_ms_median=float(np.median(model_ms)),
+             decode_sample_ms_median=float(np.median(sample_ms)),
+             decode_step_bound_ms=step_bound, decode_step_bytes=step_bytes,
+             decode_step_ops=step_ops,
+             decode_step_bound_by="bytes" if step_bytes / HBM_BYTES_PER_S
+             >= step_ops / BF16_OPS_PER_S else "operations",
+             traced_step_wall_ms=step_wall_ms, traced_step_busy_ms=busy,
+             traced_step_busy_share=busy / step_wall_ms, traced_step_device_events=len(step_events),
+             traced_model_wall_ms=model_wall_ms, traced_model_busy_ms=model_busy,
+             traced_model_busy_share=model_busy / model_wall_ms,
+             traced_model_device_events=len(model_events),
+             head_max_abs_err=head_err, head_max_logit=head_scale,
+             tokens_per_s={k: r["tokens_per_s"] for k, r in llm_rows.items()},
+             acceptance=llm_rows["mcmc"]["acceptance"])
+        del server, model, logits, tokens
+        torch.cuda.empty_cache()
+
+        # the model cut to 2 layers in float32: card against CPU, packed against solo
+        cfg2 = dataclasses.replace(gcfg, n_layers=LLM_CHECK_LAYERS, dtype="float32",
+                                   param_dtype_str="float32", cache_dtype_str="float32")
+        t0 = time.perf_counter()
+        host_model = llm.init_lm(cfg2, seed=SEED, device="cpu")
+        card_model = llm.LM(cfg2, device=dev)
+        card_model.load_state_dict(host_model.state_dict())
+        copy_s = time.perf_counter() - t0
+        check_prompts = [rs.integers(0, gcfg.vocab_size, n) for n in LLM_CHECK_LENS]
+        v_ = gcfg.vocab_size
+
+        def greedy_logits(model_, device, rows):
+            """Per-row prefills spliced into one cache with a (B,) index, then
+            greedy decode steps: the logits of every step, on the host."""
+            max_len_ = max(LLM_CHECK_LENS) + LLM_CHECK_STEPS + 1
+            with torch.inference_mode():
+                cache = llm.init_cache(cfg2, len(rows), max_len_, device)
+                cache["index"] = torch.zeros(len(rows), dtype=torch.int32, device=device)
+                first = []
+                for r, i in enumerate(rows):
+                    prompt = torch.as_tensor(check_prompts[i], dtype=torch.int32, device=device)
+                    row_logits, row = llm.prefill(model_, cfg2, {"tokens": prompt[None]},
+                                                  llm.init_cache(cfg2, 1, max_len_, device))
+                    for name in ("k", "v"):
+                        cache["layers"][name][:, r:r + 1] = row["layers"][name]
+                    cache["index"][r] = row["index"]
+                    first.append(row_logits[0])
+                out = [torch.stack(first)]
+                for _ in range(LLM_CHECK_STEPS):
+                    tokens = out[-1][:, :v_].argmax(-1).to(torch.int32)
+                    step_logits, cache = llm.decode_step(model_, cfg2, tokens[:, None], cache)
+                    out.append(step_logits)
+            return [x[:, :v_].cpu() for x in out]
+
+        def agree(a, b, what):
+            """Largest logit difference of two runs, and their greedy tokens
+            equal at every step whose top-two gap exceeds it (a step with a
+            smaller gap fails: the seed must then be replaced)."""
+            diff = max(float((x - y).abs().max()) for x, y in zip(a, b))
+            for t, (x, y) in enumerate(zip(a, b)):
+                top = torch.topk(x, 2).values
+                gap = float((top[:, 0] - top[:, 1]).min())
+                check(gap > diff, f"{what}: a near tie at step {t} (gap {gap}, difference {diff}): "
+                      f"replace SEED")
+                check(torch.equal(x.argmax(-1), y.argmax(-1)), f"{what}: greedy tokens differ at "
+                      f"step {t}")
+            return diff
+
+        t0 = time.perf_counter()
+        host_run = greedy_logits(host_model, torch.device("cpu"), [0, 1])
+        host_s = time.perf_counter() - t0
+        card_run = greedy_logits(card_model, dev, [0, 1])
+        card_cpu_diff = agree(card_run, host_run, "card against CPU")
+        check(card_cpu_diff <= LLM_LOGIT_TOL, f"card against CPU: max |logit difference| "
+              f"{card_cpu_diff} > {LLM_LOGIT_TOL}")
+        solo = [greedy_logits(card_model, dev, [i]) for i in (0, 1)]
+        solo_run = [torch.cat([solo[0][t], solo[1][t]]) for t in range(LLM_CHECK_STEPS + 1)]
+        packed_diff = agree(card_run, solo_run, "packed against solo on the card")
+        check(packed_diff <= LLM_LOGIT_TOL, f"packed against solo: {packed_diff} > {LLM_LOGIT_TOL}")
+        emit(phase="serve_lm_card_equals_cpu", layers=LLM_CHECK_LAYERS, d_model=cfg2.d_model,
+             dtype="float32", prompt_lens=list(LLM_CHECK_LENS), decode_steps=LLM_CHECK_STEPS,
+             max_logit=max(float(x.abs().max()) for x in host_run),
+             card_cpu_max_abs_diff=card_cpu_diff, packed_solo_max_abs_diff=packed_diff,
+             tolerance=LLM_LOGIT_TOL, greedy_tokens=[x.argmax(-1).tolist() for x in card_run],
+             build_and_copy_s=copy_s, cpu_run_s=host_s)
+        del host_model, card_model, host_run, card_run, solo, solo_run
+        torch.cuda.empty_cache()
+        emit(phase="serve_lm_total", seconds=time.perf_counter() - t_phase)
+
+    serve_lm_phase()
 
     # 12. timing --------------------------------------------------------------
     # The table (12.6 MB at V = 49,155) stays in the 50 MB L2 between

@@ -1,8 +1,8 @@
 """Carry state from the JAX package to the port and results back.
 
-The system has no weights: what crosses between the two packages is a
-PRNG key, a (B, V) table, a lattice model's or a density's parameters, a
-grid codec, the chain's init words and an engine config.
+What crosses between the two packages is a PRNG key, a (B, V) table, a
+lattice model's or a density's parameters, a grid codec, the chain's
+init words, an engine config, and a language model's weights.
 The JAX side hands them over as numpy arrays (``np.asarray`` of a jax
 array) and a plain dict; these functions turn them into the port's
 tensors on a device (the current CUDA card unless ``device="cpu"`` is
@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.targets import GaussianMixture, GridCodec, MultivariateGaussian
+from repro_torch.models.lm import LM
 from repro_torch.samplers.engine import (
     EngineConfig,
     EngineResult,
@@ -124,3 +125,82 @@ def result_to_numpy(result: EngineResult) -> dict:
         "final_logp": result.final_logp.cpu().numpy().astype(np.float32),
         "n_steps": np.int32(result.n_steps),
     }
+
+
+def _leaf_tensor(value) -> torch.Tensor:
+    """A numpy leaf as a CPU tensor; a bfloat16 leaf (numpy's extension
+    dtype, which ``torch.from_numpy`` refuses) crosses by its bits."""
+    value = np.asarray(value)
+    if value.dtype.name == "bfloat16":
+        return torch.from_numpy(value.view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(value.copy())
+
+
+def _lm_leaves(model: LM):
+    """(JAX tree path, layer or None, parameter) for every leaf: block
+    leaves sit under "layers" with a leading (L,) axis in the JAX tree."""
+    for name, p in model.named_parameters():
+        parts = name.split(".")
+        if parts[0] == "layers":
+            yield ("layers", *parts[2:]), int(parts[1]), p
+        else:
+            yield tuple(parts), None, p
+
+
+def lm_from_numpy(values, cfg, device=None) -> LM:
+    """The port's ``LM`` holding the JAX package's weights: ``values`` is
+    ``init_lm_values(key, cfg)[0]`` as numpy arrays (nested dicts; the
+    ``layers`` leaves stacked on a leading (L,) axis).  Every leaf of the
+    tree must be used and of the module's shape; each is cast to the
+    config's parameter dtype."""
+    model = LM(cfg, device=resolve_device(device))
+    used = set()
+    for path, layer, p in _lm_leaves(model):
+        node = values
+        for key in path:
+            if not isinstance(node, dict) or key not in node:
+                raise ValueError(f"the weight tree has no leaf {'/'.join(path)}")
+            node = node[key]
+        leaf = _leaf_tensor(node if layer is None else np.asarray(node)[layer])
+        if tuple(leaf.shape) != tuple(p.shape):
+            raise ValueError(f"{'/'.join(path)}: shape {tuple(leaf.shape)}, the model's "
+                             f"{tuple(p.shape)}")
+        with torch.no_grad():
+            p.copy_(leaf.to(p.dtype))
+        used.add(path)
+
+    def paths(node, prefix=()):
+        if isinstance(node, dict):
+            for key, sub in node.items():
+                yield from paths(sub, prefix + (key,))
+        else:
+            yield prefix
+
+    extra = set(paths(values)) - used
+    if extra:
+        raise ValueError(f"the model has no parameter for {sorted(extra)}")
+    return model
+
+
+def lm_to_numpy(model: LM) -> dict:
+    """The model's weights as the JAX package's value tree of numpy arrays
+    (``layers`` leaves stacked on a leading (L,) axis); a bfloat16 leaf is
+    widened to float32, which ``lm_from_numpy`` narrows back exactly."""
+    tree: dict = {}
+    stacks: dict = {}
+    for path, layer, p in _lm_leaves(model):
+        value = p.detach().float().cpu().numpy() if p.dtype == torch.bfloat16 else (
+            p.detach().cpu().numpy())
+        if layer is None:
+            node = tree
+            for key in path[:-1]:
+                node = node.setdefault(key, {})
+            node[path[-1]] = value
+        else:
+            stacks.setdefault(path, []).append(value)
+    for path, values in stacks.items():
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = np.stack(values)
+    return tree

@@ -9,9 +9,7 @@
 #   macro         compartment-parallel macro + 28 nm energy/time ledger
 #   energy        calibrated per-op energy/latency model (paper Fig. 14/16)
 #   targets       GMM / MGD / categorical targets + grid codecs
-#
-# token_sampler (softmax-free MCMC token sampling for LLM decode) is not
-# ported yet (ROADMAP.md queue 1, item 10).
+#   token_sampler softmax-free MCMC token sampling for LLM decode
 
 from repro_torch.core import (  # noqa: F401
     bitcell,
@@ -21,6 +19,7 @@ from repro_torch.core import (  # noqa: F401
     msxor,
     proposal,
     targets,
+    token_sampler,
     uniform_rng,
 )
 from repro_torch.core.macro import CIMMacro, MacroConfig  # noqa: F401

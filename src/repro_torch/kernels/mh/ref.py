@@ -14,6 +14,8 @@ cannot depend on whether a denormal survived.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from repro_torch.kernels import rng
@@ -99,6 +101,21 @@ def tie_events(table, init, flips, u, nbits: int, logp_ulps: int = 0) -> torch.T
     near_flush = (u == 0) & (torch.abs(e - FLUSH) <= FLUSH * 2.0**-20)
     tie = torch.isfinite(logp_cand) & ((torch.abs(u - e) <= window) | near_flush)
     return torch.nonzero(tie)
+
+
+def accept_margin(table, init, flips, u, nbits: int) -> float:
+    """The least ``|log u - min(Δ, 0)|`` (float64) over the steps of the
+    chain ``mh_chain_ref`` runs whose candidate has a finite log-prob and
+    whose ``u`` is above 0: a second table within half of it of
+    ``table``, entry by entry, takes every accept decision the same way
+    (``inf`` when no step qualifies)."""
+    samples, _ = mh_chain_ref(table, init, flips, u, nbits)
+    prev = torch.cat([init.to(torch.int64)[None], samples[:-1]])
+    logp = table_log_prob(table, prev).double()
+    logp_cand = table_log_prob(table, prev ^ (flips & ((1 << nbits) - 1))).double()
+    live = torch.isfinite(logp_cand) & (u > 0)
+    gap = torch.abs(torch.log(u.double()) - torch.clamp(logp_cand - logp, max=0.0))
+    return float(gap[live].min()) if bool(live.any()) else math.inf
 
 
 def fused_operands(

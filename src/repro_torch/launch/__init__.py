@@ -1,3 +1,5 @@
-# Launch helpers of the PyTorch port: the sampler engine's scale-out mesh
-# (mesh.py).  The CLIs and the LLM meshes wait for later slices
-# (ROADMAP.md queue 1, items 9 and 10).
+# Launch helpers and CLIs of the PyTorch port: the sampler engine's
+# scale-out mesh (mesh.py), the sample / serve_engine / monitor CLIs and
+# the LLM server (serve.py: BatchedServer, continuous batching with
+# MCMC token sampling).  The LLM meshes and the trainer wait for later
+# slices (ROADMAP.md queue 1, item 10).

@@ -1,0 +1,279 @@
+"""Grouped-query attention with RoPE, sliding windows, and a blockwise
+(flash-style) softmax for long sequences — the port of
+``repro.models.attention``.
+
+The blockwise path never materialises the full (Sq, Sk) score matrix: it
+walks query blocks (outer) and key/value blocks (inner) carrying the
+running max / normaliser / accumulator, with the JAX package's block
+sizes, padding and recurrence.  The JAX package computes attention in
+``jnp`` outside any Pallas kernel, so the port computes it in torch ops;
+no library attention kernel is used.
+
+Scores and the value products are float32 whatever the operands' type,
+as the JAX package's einsums ask with ``preferred_element_type``
+(``layers.matmul_f32``).
+
+The JAX package's ``_gqa_layout`` and ``shard(...)`` annotations place
+heads and the cache on a device mesh; on one device without a mesh they
+are the identity, so the port leaves them out.  A decode step writes the
+KV cache in place (the stacked buffer is the server's one allocation).
+The audio family's non-causal encoder attention and cross-attention are
+not ported yet.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.models.layers import apply_rope, matmul_f32, param, rms_norm
+
+NEG_INF = -1e30
+GLOBAL_WINDOW = 2**30  # "no window" sentinel
+
+
+def init_attention(gen, cfg, device=None) -> torch.nn.ParameterDict:
+    """cfg needs: d_model, n_heads, n_kv_heads, d_head, param_dtype, qk_norm."""
+    d, h, kv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    dtype = cfg.param_dtype
+    p = {
+        "wq": param(gen, (d, h, dh), ("embed", "heads", "head_dim"), dtype, device=device),
+        "wk": param(gen, (d, kv, dh), ("embed", "kv_heads", "head_dim"), dtype, device=device),
+        "wv": param(gen, (d, kv, dh), ("embed", "kv_heads", "head_dim"), dtype, device=device),
+        "wo": param(gen, (h, dh, d), ("heads", "head_dim", "embed"), dtype, device=device),
+    }
+    if getattr(cfg, "qk_norm", False):
+        p["q_norm"] = param(gen, (dh,), ("head_dim",), dtype, mode="ones", device=device)
+        p["k_norm"] = param(gen, (dh,), ("head_dim",), dtype, mode="ones", device=device)
+    return torch.nn.ParameterDict(p)
+
+
+def _mask(q_pos, k_pos, window, causal: bool, sk_valid=None):
+    """q_pos: (bq,), k_pos: (bk,) -> (bq, bk) bool validity mask."""
+    valid = torch.ones((q_pos.shape[0], k_pos.shape[0]), dtype=torch.bool, device=q_pos.device)
+    if sk_valid is not None:
+        valid &= k_pos[None, :] < sk_valid  # key-side padding
+    if causal:
+        valid &= k_pos[None, :] <= q_pos[:, None]
+        if window is not None:
+            valid &= (q_pos[:, None] - k_pos[None, :]) < window
+    return valid
+
+
+def _scale(dh: int) -> float:
+    """``1 / sqrt(dh)`` rounded as float32 arithmetic rounds it (``1.0 /
+    jnp.sqrt(dh)``), as a Python number: a factor that crosses no copy."""
+    return float(np.float32(1.0) / np.sqrt(np.float32(dh)))
+
+
+def _q_block(qt, q_pos, kb, vb, n_kv: int, block_kv: int, window, causal, sk_valid, scale):
+    """One query block against its first ``n_kv`` key/value blocks.
+
+    qt: (B, KV, R, bq, dh); kb, vb: (nk, B, bk, KV, dh).  Returns
+    (B, bq, KV, R, dh) float32."""
+    b, kvh, r, bq, dh = qt.shape
+    dev = qt.device
+    m_run = torch.full((b, kvh, r, bq), NEG_INF, dtype=torch.float32, device=dev)
+    l_run = torch.zeros((b, kvh, r, bq), dtype=torch.float32, device=dev)
+    acc = torch.zeros((b, kvh, r, bq, dh), dtype=torch.float32, device=dev)
+    for kj in range(n_kv):
+        kt = kb[kj].transpose(1, 2)  # (B, KV, bk, dh)
+        vt = vb[kj].transpose(1, 2)
+        k_pos = kj * block_kv + torch.arange(block_kv, device=dev)
+        mask = _mask(q_pos, k_pos, window, causal, sk_valid)
+        s = matmul_f32(qt, kt[:, :, None].transpose(-1, -2)) * scale  # (B,KV,R,bq,bk)
+        s = torch.where(mask[None, None, None], s, NEG_INF)
+        m_new = torch.maximum(m_run, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        correction = torch.exp(m_run - m_new)
+        l_run = l_run * correction + p.sum(dim=-1)
+        acc = acc * correction[..., None] + matmul_f32(p.to(vt.dtype), vt[:, :, None])
+        m_run = m_new
+    out = acc / torch.clamp_min(l_run, 1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4)  # (B, bq, KV, R, dh)
+
+
+def flash_attention(
+    q, k, v, *, causal: bool, window, q_offset: int, block_q: int, block_kv: int,
+    unroll_causal_skip: bool = False,
+):
+    """Blockwise softmax attention.
+
+    q: (B, Sq, KV, R, dh); k, v: (B, Sk, KV, dh).  window may be None or
+    an int.  q_offset is the absolute position of q[:, 0].  Returns
+    (B, Sq, KV, R, dh) in q's dtype.  With ``unroll_causal_skip`` (causal,
+    no window) query block i visits only the key blocks its positions
+    can see, and padded keys are left to the causal mask, as in JAX.
+    """
+    b, sq, kvh, r, dh = q.shape
+    sk = k.shape[1]
+    block_q = min(block_q, sq)
+    block_kv = min(block_kv, sk)
+    sq_orig, sk_orig = sq, sk
+    # pad seq dims to block multiples; padded keys are masked, padded query
+    # rows are sliced off the output
+    if sq % block_q:
+        pad = block_q - sq % block_q
+        q = torch.nn.functional.pad(q, (0, 0, 0, 0, 0, 0, 0, pad))
+        sq += pad
+    if sk % block_kv:
+        pad = block_kv - sk % block_kv
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+        sk += pad
+    sk_valid = sk_orig if sk != sk_orig else None
+    scale = _scale(dh)
+
+    nq, nk = sq // block_q, sk // block_kv
+    qb = q.reshape(b, nq, block_q, kvh, r, dh).transpose(0, 1)  # (nq, B, bq, KV, R, dh)
+    kb = k.reshape(b, nk, block_kv, kvh, dh).transpose(0, 1)    # (nk, B, bk, KV, dh)
+    vb = v.reshape(b, nk, block_kv, kvh, dh).transpose(0, 1)
+
+    skip = unroll_causal_skip and causal and window is None
+    outs = []
+    for qi in range(nq):
+        qt = qb[qi].permute(0, 2, 3, 1, 4)  # (B, KV, R, bq, dh)
+        q_pos = q_offset + qi * block_q + torch.arange(block_q, device=q.device)
+        if skip:  # static per-block key extent: true causal FLOP skipping
+            hi = min(nk, (qi * block_q + block_q + block_kv - 1) // block_kv)
+            outs.append(_q_block(qt, q_pos, kb, vb, hi, block_kv, None, True, None, scale))
+        else:
+            outs.append(_q_block(qt, q_pos, kb, vb, nk, block_kv, window, causal, sk_valid,
+                                 scale))
+    out = torch.cat(outs, dim=1)
+    return out[:, :sq_orig].to(q.dtype)
+
+
+def decode_attention(q, k_cache, v_cache, *, index, window):
+    """Single-token attention against a (B, Smax, KV, dh) cache.
+
+    q: (B, 1, KV, R, dh); index = number of valid cache entries (q is at
+    position index - 1; the cache already holds this step's k/v).
+    ``index`` is a scalar or a (B,) per-row index.
+    """
+    b, _, kvh, r, dh = q.shape
+    smax = k_cache.shape[1]
+    dev = q.device
+    scale = _scale(dh)
+    qt = q[:, 0]  # (B, KV, R, dh)
+    pos = torch.arange(smax, device=dev)
+    idx = torch.as_tensor(index, device=dev).broadcast_to((b,))  # scalar -> per-row
+    q_pos = idx - 1
+    valid = pos[None, :] < idx[:, None]  # (B, Smax)
+    if window is not None:
+        valid &= (q_pos[:, None] - pos[None, :]) < window
+    s = matmul_f32(qt, k_cache.permute(0, 2, 3, 1)) * scale  # (B, KV, R, Smax)
+    s = torch.where(valid[:, None, None, :], s, NEG_INF)
+    # jax.nn.softmax: exp(s - max) over its sum, a true division
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    p = e / e.sum(dim=-1, keepdim=True)
+    out = matmul_f32(p.to(v_cache.dtype), v_cache.transpose(1, 2))  # (B, KV, R, dh)
+    return out[:, None].to(q.dtype)  # (B, 1, KV, R, dh)
+
+
+def update_rows(buf, upd, start) -> None:
+    """``jax.lax.dynamic_update_slice`` of ``upd`` (B, s, ...) into
+    ``buf`` (B, Smax, ...) along the sequence axis at ``start`` (a
+    non-negative int or scalar tensor, or a (B,) per-row start as under
+    ``vmap``), in place.  Each start is clamped to [0, Smax - s] as XLA clamps it: an idle server
+    slot keeps decoding past its cache, and its rows then rewrite the
+    last position."""
+    b, s = upd.shape[:2]
+    last = buf.shape[1] - s
+    if isinstance(start, int):  # a prefill's 0: a slice, no index tensor
+        start = min(max(start, 0), last)
+        buf[:, start:start + s] = upd.to(buf.dtype)
+        return
+    dev = buf.device
+    pos = start.clamp(0, last).reshape(-1, 1) + torch.arange(s, device=dev)  # (1 or B, s)
+    buf[torch.arange(b, device=dev)[:, None], pos] = upd.to(buf.dtype)
+
+
+def attention(
+    params,
+    x,
+    cfg,
+    *,
+    positions,
+    mode: str,
+    cache=None,
+    cache_index=None,
+    window=None,
+):
+    """Causal self-attention with RoPE.  Returns (out, new_cache).
+
+    mode: "full" (prefill over the whole sequence) or "decode".  The
+    cache is dict(k, v) of (B, Smax, KV, dh), written in place;
+    ``cache_index`` is the number of valid entries *before* this call
+    (an int32 scalar or (B,) tensor).
+    """
+    b, s, d = x.shape
+    h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    r = h // kv
+
+    def project(w, heads):  # "bsd,dhk->bshk"
+        return (x @ w.to(x.dtype).reshape(d, heads * dh)).reshape(b, s, heads, dh)
+
+    q = project(params["wq"], h)
+    k = project(params["wk"], kv)
+    v = project(params["wv"], kv)
+
+    if "q_norm" in params:
+        q = rms_norm(q, params["q_norm"])
+        k = rms_norm(k, params["k_norm"])
+
+    q = _rope_heads(q, positions, cfg.rope_theta)
+    k = _rope_heads(k, positions, cfg.rope_theta)
+
+    q = q.reshape(b, s, kv, r, dh)
+
+    new_cache = cache
+    if mode == "decode":
+        # append this step's k/v at the cache index; a (B,) per-row index
+        # writes each row at its own position
+        update_rows(cache["k"], k, cache_index)
+        update_rows(cache["v"], v, cache_index)
+        out = decode_attention(
+            q, cache["k"], cache["v"], index=cache_index + s, window=window,
+        )
+        out = out.reshape(b, s, h, dh)
+    else:
+        if cache is not None:  # prefill: write the whole sequence into the cache
+            update_rows(cache["k"], k, 0)
+            update_rows(cache["v"], v, 0)
+        out = flash_attention(
+            q, k, v,
+            causal=True,
+            window=window,
+            q_offset=0,
+            block_q=cfg.attn_block_q,
+            block_kv=cfg.attn_block_kv,
+            unroll_causal_skip=getattr(cfg, "attn_causal_skip", False),
+        ).reshape(b, s, h, dh)
+
+    out = out.reshape(b, s, h * dh) @ params["wo"].to(x.dtype).reshape(h * dh, d)
+    return out, new_cache
+
+
+def _rope_heads(x, positions, theta):
+    """x: (B, S, H, dh), positions: (B, S) or (S,)."""
+    if positions.ndim == 1:
+        positions = positions[None, :]
+    return apply_rope(x.transpose(1, 2), positions[:, None, :], theta).transpose(1, 2)
+
+
+def init_kv_cache(cfg, batch: int, max_len: int, n_layers=None, dtype=torch.bfloat16,
+                  device=None):
+    """KV cache; stacked (L-major) when n_layers is given.
+
+    Logical axes: ("layers", "batch", "cache_seq", "kv_heads", "head_dim").
+    """
+    kv, dh = cfg.n_kv_heads, cfg.d_head
+    lead = () if n_layers is None else (n_layers,)
+    return {
+        "k": torch.zeros((*lead, batch, max_len, kv, dh), dtype=dtype, device=device),
+        "v": torch.zeros((*lead, batch, max_len, kv, dh), dtype=dtype, device=device),
+    }
+
+
+KV_CACHE_AXES = ("layers", "batch", "cache_seq", "kv_heads", "head_dim")

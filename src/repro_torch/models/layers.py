@@ -1,0 +1,124 @@
+"""Basic layers and the parameter init rule — the port of
+``repro.models.layers``.
+
+Every parameter is a ``torch.nn.Parameter`` made by ``param(...)``, which
+applies the JAX package's init rule (normal x scale, with scale
+``1/sqrt(shape[-2])`` for a leaf of two or more axes and
+``1/sqrt(shape[-1])`` for a vector, unless a scale is given; or all zeros,
+or all ones) and records the leaf's logical sharding axes as its
+``logical_axes`` attribute; ``lm.LM.param_axes`` gathers them into a table
+for a sharding layer to read.  The values are drawn from an explicit
+``torch.Generator`` on the target device, so they are not
+``jax.random.normal``'s (whose inverse error function is XLA's): the two
+packages hold the same function of the weights, and the weights cross
+between them through ``repro_torch.convert.lm_from_numpy``.
+
+Parameters are made with ``requires_grad=False``: this is the serving
+half of the model (ROADMAP.md queue 1 item 10).
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def param(gen, shape, axes, dtype=torch.float32, scale: float | None = None,
+          mode: str = "normal", device=None) -> nn.Parameter:
+    """One parameter leaf with its logical axis names.
+
+    ``gen`` is the ``torch.Generator`` the normal draw takes (its device
+    is the leaf's); ``gen=None`` allocates the leaf uninitialised on
+    ``device`` for a caller that fills it (the weight converter)."""
+    shape = tuple(int(d) for d in shape)
+    if len(axes) != len(shape):
+        raise ValueError(f"axes {axes} do not match shape {shape}")
+    device = gen.device if gen is not None else device
+    if gen is None:
+        value = torch.empty(shape, dtype=dtype, device=device)
+    elif mode == "zeros":
+        value = torch.zeros(shape, dtype=dtype, device=device)
+    elif mode == "ones":
+        value = torch.ones(shape, dtype=dtype, device=device)
+    else:
+        if scale is None:
+            fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
+            scale = 1.0 / np.sqrt(max(1, fan_in))
+        value = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
+        value = (value * float(scale)).to(dtype)
+    leaf = nn.Parameter(value, requires_grad=False)
+    leaf.logical_axes = tuple(axes)
+    return leaf
+
+
+# --- numerics --------------------------------------------------------------
+
+
+def rms_norm(x, weight, eps: float = 1e-5):
+    dtype = x.dtype
+    x = x.float()
+    var = torch.mean(torch.square(x), dim=-1, keepdim=True)
+    out = x * torch.rsqrt(var + eps)
+    return (out * weight.float()).to(dtype)
+
+
+def layer_norm(x, weight, bias, eps: float = 1e-5):
+    dtype = x.dtype
+    x = x.float()
+    mean = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.var(x, dim=-1, keepdim=True, correction=0)
+    out = (x - mean) * torch.rsqrt(var + eps)
+    return (out * weight.float() + bias.float()).to(dtype)
+
+
+def activation(name: str):
+    # jax.nn.gelu approximates with tanh unless told otherwise
+    return {
+        "silu": F.silu,
+        "gelu": lambda x: F.gelu(x, approximate="tanh"),
+        "relu": F.relu,
+        "gelu_tanh": lambda x: F.gelu(x, approximate="tanh"),
+    }[name]
+
+
+def matmul_f32(a, b):
+    """``a @ b`` with float32 results, as the JAX package's dots with
+    ``preferred_element_type=float32``: the operands' products summed in
+    float32.  On the card two matrices of one narrower type take
+    ``torch.mm(..., out_dtype=float32)`` (cuBLAS sums in float32 and
+    writes float32: the head's product, whose weight is too large to
+    widen every step); other operands are widened first, which is exact
+    (a bfloat16 product fits a float32), so the sum is the same function."""
+    if a.dtype == torch.float32 and b.dtype == torch.float32:
+        return a @ b
+    if a.is_cuda and a.ndim == 2 and b.ndim == 2 and a.dtype == b.dtype:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return a.float() @ b.float()
+
+
+# --- rotary position embedding --------------------------------------------
+
+
+@functools.lru_cache(maxsize=16)
+def rope_frequencies(d_head: int, theta: float = 10000.0, device=None):
+    """The inverse frequencies in float64 numpy, then float32, as JAX makes
+    them; kept per (d_head, theta, device), so a decode step copies
+    nothing from the host (a copy from pageable memory waits for the
+    card).  Callers must not write to the tensor."""
+    inv = 1.0 / (theta ** (np.arange(0, d_head, 2, dtype=np.float64) / d_head))
+    return torch.tensor(inv, dtype=torch.float32, device=device)
+
+
+def apply_rope(x, positions, theta: float = 10000.0):
+    """x: (..., S, dh) with positions (..., S) -> rotated x, f32 math."""
+    dh = x.shape[-1]
+    inv = rope_frequencies(dh, theta, device=x.device)
+    angles = positions[..., None].float() * inv                    # (..., S, dh/2)
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)

@@ -11,8 +11,11 @@ JAX, for the partitionable Threefry layout (``jax_threefry_partitionable
   * ``split(k, n)[i]``   = ``threefry2x32(k, (i >> 32, i & 0xFFFFFFFF))``
   * ``bits(k, shape)``   = ``x0 ^ x1`` of ``threefry2x32(k, (hi, lo))``
     over the row-major 64-bit iota of ``shape``
-  * ``uniform``          = ``bitcast((bits >> 9) | 0x3F800000) - 1``
+  * ``uniform``          = ``bitcast((bits >> 9) | 0x3F800000) - 1``,
+    then on ``[minval, maxval)`` ``max(minval, u * (maxval - minval) + minval)``
   * ``bernoulli(k, p)``  = ``uniform < float32(p)``
+  * ``gumbel``           = ``-log(-log(uniform(tiny, 1)))`` (jax's default
+    ``mode="low"``); ``categorical`` = ``argmax(gumbel + logits)``
 
 A key is an int64 tensor of shape ``(..., 2)`` holding two uint32 words;
 leading axes batch independent keys, and every draw prepends them to its
@@ -74,10 +77,48 @@ def bits(key: torch.Tensor, shape: tuple) -> torch.Tensor:
     return x0 ^ x1
 
 
-def uniform(key: torch.Tensor, shape: tuple) -> torch.Tensor:
-    """float32 U[0, 1) of ``shape`` from the 23 high bits of each word."""
+def uniform(
+    key: torch.Tensor, shape: tuple, minval: float = 0.0, maxval: float = 1.0
+) -> torch.Tensor:
+    """float32 U[minval, maxval) of ``shape`` from the 23 high bits of each
+    word: U[0, 1) scaled and shifted in float32, then held at ``minval``
+    or above, as ``jax.random.uniform`` computes it."""
     mant = (bits(key, shape) >> 9) | 0x3F800000
-    return mant.to(torch.int32).view(torch.float32) - 1.0
+    floats = mant.to(torch.int32).view(torch.float32) - 1.0
+    if minval == 0.0 and maxval == 1.0:  # u * 1 + 0 and max(0, u) are u
+        return floats
+    lo = torch.tensor(minval, dtype=torch.float32, device=key.device)
+    hi = torch.tensor(maxval, dtype=torch.float32, device=key.device)
+    return torch.maximum(lo, _fma32(floats, hi - lo, lo))
+
+
+def _fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """float32 ``a * b + c`` with one rounding, as XLA contracts it into a
+    fused multiply-add: the product is exact in float64, the sum is
+    rounded to odd there (the neighbour of the nearest sum whose last bit
+    is 1 when the sum is inexact), and the one rounding to float32 is then
+    the fused one."""
+    p = a.double() * b.double()
+    c = c.double()
+    s = p + c
+    t = s - p
+    err = (p - (s - t)) + (c - t)  # the exact sum is s + err
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.where(err > 0, torch.full_like(s, math.inf), torch.full_like(s, -math.inf))
+    s = torch.where((err != 0) & even, torch.nextafter(s, toward), s)
+    return s.float()
+
+
+def gumbel(key: torch.Tensor, shape: tuple) -> torch.Tensor:
+    """float32 standard Gumbel draws of ``shape`` (jax's ``mode="low"``)."""
+    tiny = torch.finfo(torch.float32).tiny
+    return -torch.log(-torch.log(uniform(key, shape, minval=tiny, maxval=1.0)))
+
+
+def categorical(key: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
+    """One category a row of float32 ``logits`` (..., V), by the Gumbel-max
+    trick over the last axis; int64 indices, the first on a tie."""
+    return torch.argmax(gumbel(key, tuple(logits.shape)) + logits, dim=-1)
 
 
 def bernoulli(key: torch.Tensor, p: float, shape: tuple) -> torch.Tensor:

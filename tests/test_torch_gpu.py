@@ -689,3 +689,115 @@ def test_clis_default_to_the_card(cuda, capsys):
     serve_engine.main(serve + ["--device", "cpu"])
     rate = re.compile(r"req (\d+): workload=(\w+) .* (acceptance_rate|flip_rate)=(\S+)")
     assert rate.findall(on_card) == rate.findall(capsys.readouterr().out)
+
+
+# --- the LLM server (slice 10) -------------------------------------------------------
+
+
+def _smoke_servers(cuda, sampler, n_slots, max_len, gen):
+    """The smoke granite server on the CPU and on the card, with the CPU
+    server's weights copied to the card."""
+    from repro_torch import configs
+    from repro_torch.launch import serve
+
+    cfg = configs.get_smoke_config("granite3_8b")
+    scfg = serve.ServeConfig(n_slots=n_slots, max_len=max_len, gen_tokens=gen, sampler=sampler,
+                             mcmc_steps=16, seed=0)
+    host = serve.BatchedServer(cfg, scfg, device="cpu")
+    card = serve.BatchedServer(cfg, scfg, device=cuda)
+    card.model.load_state_dict(host.model.state_dict())
+    return cfg, host, card
+
+
+def _serve_all(server, prompts):
+    from repro_torch.launch import serve
+
+    queue, done = [serve.Request(rid=i, prompt=p) for i, p in enumerate(prompts)], []
+    while queue or server.active():
+        while queue and server.free_slot() is not None:
+            server.submit(server.free_slot(), queue.pop(0))
+        done.extend(server.step())
+    return {r.rid: r.out_tokens for r in done}
+
+
+class _Recorded:
+    """Keeps each ``_sample`` call's logits (on the host) and key."""
+
+    def __init__(self, server):
+        self.calls, real = [], server._sample
+
+        def sample(logits):
+            self.calls.append((logits.float().cpu(), server.key.cpu()))
+            return real(logits)
+
+        server._sample = sample
+
+
+@pytest.mark.parametrize("sampler", ["greedy", "mcmc"])
+def test_smoke_server_card_equals_cpu(cuda, sampler):
+    """5 requests on 4 slots past ``main``'s cache sizing (the idle slots'
+    writes clamp on the card without a device assert), with one
+    ``mh_chain`` launch a sample under ``mcmc``.  Each sample is held
+    under the tie rule: its greedy top-two gap, or its chain's accept
+    margin over two, exceeds the card/CPU logit difference."""
+    from repro_torch.samplers import chain_key
+
+    gen = 12
+    cfg, host, card = _smoke_servers(cuda, sampler, 4, 4 + 2 + gen + 8, gen)
+    rec_h, rec_c = _Recorded(host), _Recorded(card)
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab_size, size=4 + i % 3) for i in range(5)]
+    ref_streams = _serve_all(host, prompts)
+    mh.reset_launches()
+    out = _serve_all(card, prompts)
+    torch.cuda.synchronize()
+    v = cfg.vocab_size
+    diff = max(float((a[0][:, :v] - b[0][:, :v]).abs().max())
+               for a, b in zip(rec_h.calls, rec_c.calls))
+    eng = samplers.MHEngine(host.sampler_cfg.engine_config(), device="cpu")
+    for logits, key in rec_h.calls:
+        table = logits[:, :v].contiguous()
+        top = torch.topk(table, 2).values
+        assert float((top[:, 0] - top[:, 1]).min()) > diff, "a near tie: replace the seed"
+        if sampler == "mcmc":
+            init = torch.argmax(table, dim=-1)[:, None]
+            flips, u = eng.randomness.chunk(chain_key(prng.split(key)[1], 0), 0,
+                                            host.sampler_cfg.n_steps, tuple(init.shape),
+                                            host.sampler_cfg.nbits)
+            margin = ref.accept_margin(table, init, flips, u, host.sampler_cfg.nbits)
+            assert margin > 2 * diff, "a near tie: replace the seed"
+    assert out == ref_streams
+    assert int(card.cache["index"].max()) > card.scfg.max_len  # the clamped writes ran
+    assert torch.equal(card.cache["index"].cpu(), host.cache["index"])
+    want = 5 + 2 * gen if sampler == "mcmc" else 0
+    assert mh.LAUNCHES == {"mh_chain": want, "mh_chain_fused": 0}
+    if sampler == "mcmc":
+        assert card.acceptance == host.acceptance
+
+
+def test_clamped_cache_write_on_the_card(cuda):
+    from repro_torch.models import attention as attn
+
+    buf = torch.zeros((4, 6, 2, 8), device=cuda)
+    upd = torch.randn((4, 1, 2, 8), device=cuda)
+    start = torch.tensor([0, 5, 6, 40], dtype=torch.int32, device=cuda)
+    attn.update_rows(buf, upd, start)
+    torch.cuda.synchronize()
+    for row, pos in enumerate((0, 5, 5, 5)):
+        assert torch.equal(buf[row, pos], upd[row, 0])
+        assert int((buf[row] != 0).any(dim=(-1, -2)).sum()) == 1
+
+
+def test_float32_products_on_the_card(cuda):
+    """``matmul_f32`` on bfloat16 operands (the head's product on the
+    card) against the widened float32 product: the same sums in another
+    order."""
+    from repro_torch.models.layers import matmul_f32
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    h = torch.randn((4, 4096), generator=gen, device=cuda).to(torch.bfloat16)
+    w = (torch.randn((4096, 4096), generator=gen, device=cuda) / 64).to(torch.bfloat16)
+    out = matmul_f32(h, w)
+    assert out.dtype == torch.float32
+    ref_ = h.float() @ w.float()
+    assert float((out - ref_).abs().max()) <= 1e-4 * float(ref_.abs().max())
