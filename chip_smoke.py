@@ -197,6 +197,33 @@ Phase 29 (the LLM server, ``launch/serve.py``) runs after 28:
      within ``LLM_LOGIT_TOL``, tokens equal where the top-two gap exceeds
      the difference) and packed against solo on the card.
 
+Phases 30-32 (the MoE, SSM and hybrid families, ``launch/serve.py``) run
+after 29, each with phase 29's burst through ``launch/serve.py:main`` at
+full width and depth in bfloat16 (8 requests, 4 slots, prompts of 128-130
+tokens, 32 generated), the previous model freed first.  Every prefill,
+decode step and sample of a burst is timed between two synchronisations:
+tokens/s, samples and ``mh_chain`` launches (equal under ``mcmc``, the
+first held against its plain version at tolerance 0 and timed in 12),
+acceptance, prefill ms, the model's and ``_sample``'s ms a step beside
+the step's bytes bound, peak memory.  Then the model cut to 2 layers in
+float32, made on the card and copied to the CPU, card against CPU
+(logits within ``LLM_LOGIT_TOL``, greedy tokens equal where the top-two
+gap exceeds the difference, the same experts chosen):
+
+ 30. ``serve_lm_moe``: qwen3-moe-30b-a3b (48 layers, d_model 2,048, 128
+     experts top-8, V = 151,936: ``mh_chain`` gathers its row) under
+     ``mcmc`` and ``greedy``, with each prefill's capacity drops and the
+     experts each decode step's layers use, and the step's bound if only
+     those experts were read; the cut on prompts of 12 and 17 tokens,
+     packed against solo on the card too;
+ 31. ``serve_lm_ssm``: mamba2-1.3b under ``mcmc``; the cut on one prompt
+     of 130 tokens, one chunk of the SSD whose accumulated decay passes
+     ~88 (where the reference's unmasked exponent overflows): finite
+     logits, and a full-width layer's chunked output against its step
+     recurrence on the card within ``SSM_LAYER_RTOL``;
+ 32. ``serve_lm_hybrid``: hymba-1.5b under ``mcmc``, and the same
+     130-token check.
+
 Each phase prints one JSON line; any failure raises and exits non-zero.
 The second-to-last line lists the kernels; the last line is the device
 record.  Without a CUDA device, or without the repository around it, it
@@ -318,6 +345,28 @@ LLM_CHECK_LAYERS, LLM_CHECK_LENS, LLM_CHECK_STEPS, LLM_LOGIT_TOL = 2, (12, 17), 
 # the head's bfloat16 product with float32 results (torch.mm's out_dtype)
 # against the widened float32 product, relative to the largest logit
 LLM_HEAD_RTOL = 1e-4
+# phases 30-32: the MoE, SSM and hybrid families at full width and depth
+# through launch/serve.py:main (the burst of phase 29), each cut to 2 layers
+# in float32 for its card-against-CPU check: qwen3-moe on prompts of
+# LLM_CHECK_LENS, packed and solo; the SSM and hybrid on one prompt of
+# FAMILY_SSM_PROMPT tokens, one chunk of the SSD whose accumulated decay
+# passes ~88, where the reference's unmasked exponent overflows
+FAMILY_PHASES = (  # (phase, arch, samplers of the full-width bursts)
+    ("serve_lm_moe", "qwen3_moe_30b", ("mcmc", "greedy")),
+    ("serve_lm_ssm", "mamba2_1p3b", ("mcmc",)),
+    ("serve_lm_hybrid", "hymba_1p5b", ("mcmc",)),
+)
+FAMILY_SSM_PROMPT = 130
+# a full-width Mamba-2 layer's chunked output against its step recurrence on
+# the card (float32, one 130-token chunk), relative to the largest output:
+# the CPU gives 2.2e-6 (mamba2) and 1.3e-6 (hymba)
+SSM_LAYER_RTOL = 1e-5
+# the cuts' float32 logits on the card against a float64 run of the same
+# weights on the CPU: within LLM_LOGIT_TOL, or within this factor of the
+# CPU's own float32 error where a near one-hot attention magnifies rounding
+# past it (hymba's cut: 1.7e-3 card against CPU in PR 21's first run; the
+# CPU's float32 4.8e-4 from float64 on other weights of the same cut)
+FAMILY_F32_FACTOR = 4
 
 
 def emit(**record):
@@ -2306,6 +2355,301 @@ def main() -> int:
         emit(phase="serve_lm_total", seconds=time.perf_counter() - t_phase)
 
     serve_lm_phase()
+
+    # 30-32. the MoE, SSM and hybrid families through launch/serve.py ------------
+    @contextlib.contextmanager
+    def recorded_routes(llm_moe, routes):
+        """Keep each MoE layer's chosen experts (on their device) in
+        ``routes`` while a run goes; restores the router on exit."""
+        real = llm_moe.route
+
+        def route(*args, **kw):
+            out = real(*args, **kw)
+            routes.append(out[1])
+            return out
+
+        llm_moe.route = route
+        try:
+            yield
+        finally:
+            llm_moe.route = real
+
+    @contextlib.contextmanager
+    def served_calls(cli_llm, llm, timers, info):
+        """Time every prefill, decode step and sample of a burst, each
+        between two synchronisations (``timers``, ms), and note the served
+        model's and cache's bytes once (``info``).  Restores all on exit."""
+        real = (llm.prefill, llm.decode_step, cli_llm.BatchedServer._sample)
+
+        def timed(fn, key):
+            def run(*args, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*args, **kw)
+                torch.cuda.synchronize()
+                timers[key].append((time.perf_counter() - t0) * 1e3)
+                return out
+            return run
+
+        timed_sample = timed(real[2], "sample")
+
+        def sample(server, logits):
+            if not info:
+                model, layers = server.model, server.cache["layers"]
+                ssm_part = layers if server.cfg.family == "ssm" else layers.get("ssm", {})
+                leaves, ssm_leaves = [], []
+                llm.tree_map(leaves.append, layers)
+                llm.tree_map(ssm_leaves.append, ssm_part)
+                info.update(
+                    param_bytes=sum(p.numel() * p.element_size() for p in model.parameters()),
+                    parameters=sum(p.numel() for p in model.parameters()),
+                    embed_bytes=model.embed.numel() * model.embed.element_size(),
+                    cache_bytes=sum(t.numel() * t.element_size() for t in leaves),
+                    ssm_cache_bytes=sum(t.numel() * t.element_size() for t in ssm_leaves))
+            return timed_sample(server, logits)
+
+        llm.prefill, llm.decode_step = timed(real[0], "prefill"), timed(real[1], "model")
+        cli_llm.BatchedServer._sample = sample
+        try:
+            yield
+        finally:
+            llm.prefill, llm.decode_step, cli_llm.BatchedServer._sample = real
+
+    def serve_family_phase(phase, arch, samplers_):
+        """Phases 30-32; their names stay out of the phases after them."""
+        import gc
+
+        t_phase = time.perf_counter()
+        from repro_torch import configs as llm_configs
+        from repro_torch.launch import serve as cli_llm
+        from repro_torch.models import lm as llm
+        from repro_torch.models import moe as llm_moe
+        from repro_torch.models import ssm as llm_ssm
+
+        fcfg = llm_configs.get_config(arch)
+        argv = ["--arch", arch, "--requests", str(LLM_REQUESTS), "--slots", str(LLM_SLOTS),
+                "--prompt-len", str(LLM_PROMPT), "--gen", str(LLM_GEN)]
+        is_moe = fcfg.family == "moe"
+        for sampler in samplers_:
+            path = f"{phase}_{sampler}"
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            timers, routes, info = {"prefill": [], "model": [], "sample": []}, [], {}
+            with served_calls(cli_llm, llm, timers, info), recorded_routes(llm_moe, routes), \
+                    path_run(path) as seen:
+                t0 = time.perf_counter()
+                row = cli_llm.main([*argv, "--sampler", sampler])
+                main_s = time.perf_counter() - t0
+            peak_bytes = torch.cuda.max_memory_allocated()
+            launches = launches_by_path[path]
+            streams = row.pop("streams")
+            check(row["device"].startswith("cuda"), f"{path} ran on {row['device']}")
+            check(len(streams) == LLM_REQUESTS and all(
+                len(t) == LLM_GEN + 1 and all(0 <= x < fcfg.vocab_size for x in t)
+                for t in streams.values()), f"{path}: streams {streams}")
+            check(row["tokens"] == LLM_REQUESTS * (LLM_GEN + 1), f"{path}: {row}")
+            want = row["samples"] if sampler == "mcmc" else 0
+            check(launches == {**{k: 0 for k in launches}, "mh_chain": want},
+                  f"{path}: launches {launches}, {want} mh_chain wanted (one a sample)")
+            check(len(timers["prefill"]) == LLM_REQUESTS
+                  and len(timers["model"]) == row["decode_steps"]
+                  and len(timers["sample"]) == row["samples"], f"{path}: timers {timers}")
+            # the step's bound: the weights but the embedding, and the cache,
+            # read once; the SSM state and conv inputs written once
+            n_layers = fcfg.n_layers
+            step_bytes = (info["param_bytes"] - info["embed_bytes"] + info["cache_bytes"]
+                          + info["ssm_cache_bytes"])
+            record = dict(phase=phase, arch=arch, path=path, argv=argv, main_s=main_s, **row,
+                          launches=launches, layers=n_layers, d_model=fcfg.d_model,
+                          vocab=fcfg.vocab_size, dtype=str(fcfg.param_dtype),
+                          parameters=info["parameters"], param_bytes=info["param_bytes"],
+                          max_memory_allocated=peak_bytes,
+                          prefill_ms=timers["prefill"],
+                          decode_model_ms_median=float(np.median(timers["model"])),
+                          decode_model_ms_range=[min(timers["model"]), max(timers["model"])],
+                          sample_ms_median=float(np.median(timers["sample"])),
+                          decode_step_bytes=step_bytes,
+                          decode_step_bound_ms=step_bytes / HBM_BYTES_PER_S * 1e3,
+                          decode_step_bound_by="bytes")
+            if is_moe:  # capacity drops of each prefill, experts used a decode step
+                e, k = fcfg.n_experts, fcfg.moe_top_k
+                ids = torch.arange(e, device=dev)
+                per_call = []
+                for experts in routes:
+                    b, s = experts.shape[:2]
+                    counts = (experts.reshape(b, -1)[..., None] == ids).sum(1)  # (B, E)
+                    cap = llm_moe.capacity(s, e, k, fcfg.moe_capacity_factor)
+                    per_call.append((s, int((counts - cap).clamp_min(0).sum()),
+                                     int((counts.sum(0) > 0).sum())))
+                prefills = [per_call[i:i + n_layers] for i in range(0, len(per_call), n_layers)
+                            if per_call[i][0] > 1]
+                steps = [per_call[i:i + n_layers] for i in range(0, len(per_call), n_layers)
+                         if per_call[i][0] == 1]
+                check(len(prefills) == LLM_REQUESTS and len(steps) == row["decode_steps"]
+                      and len(per_call) == n_layers * (LLM_REQUESTS + row["decode_steps"]),
+                      f"{path}: {len(per_call)} routed layers")
+                expert_bytes = 3 * fcfg.d_model * fcfg.d_ff * fcfg.param_dtype.itemsize
+                used_bound = [(step_bytes - expert_bytes * sum(e - u for _, _, u in st))
+                              / HBM_BYTES_PER_S * 1e3 for st in steps]
+                distinct = [float(np.mean([u for _, _, u in st])) for st in steps]
+                record.update(
+                    prefill_capacity_drops=[[sum(d for _, d, _ in pf), pf[0][0] * k * n_layers]
+                                            for pf in prefills],
+                    prefill_capacity=llm_moe.capacity(LLM_PROMPT, e, k, fcfg.moe_capacity_factor),
+                    decode_capacity_drops=sum(d for st in steps for _, d, _ in st),
+                    decode_distinct_experts_per_layer_mean=distinct,
+                    decode_distinct_experts_per_layer_max=max(u for st in steps
+                                                              for _, _, u in st),
+                    decode_step_used_experts_bound_ms_median=float(np.median(used_bound)),
+                    decode_step_used_experts_bound_ms_range=[min(used_bound), max(used_bound)])
+                check(record["decode_capacity_drops"] == 0, f"{path}: a decode step dropped")
+            if sampler == "mcmc":  # the first launch is also timed in 12
+                check("mh_chain" in seen, f"{path} launched no mh_chain")
+                args, kw = seen["mh_chain"]
+                diff, err, _ = hold("mh_chain", f"{path} first launch", from_launch(args), kw)
+                record.update(first_launch_mismatches=diff, max_abs_err=err,
+                              first_launch_shape=list(args[0].shape))
+                check(0.0 < row["acceptance"] < 1.0, f"{path}: acceptance {row['acceptance']}")
+            emit(**record)
+            del seen, routes
+
+        # the model cut to 2 layers in float32: card against CPU (and, with
+        # two prompts, packed against solo on the card)
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg2 = dataclasses.replace(
+            fcfg, n_layers=LLM_CHECK_LAYERS, dtype="float32", param_dtype_str="float32",
+            cache_dtype_str="float32",
+            global_layers=tuple(g for g in fcfg.global_layers if g < LLM_CHECK_LAYERS))
+        t0 = time.perf_counter()
+        card_model = llm.init_lm(cfg2, seed=SEED, device=dev)
+        host_model = llm.LM(cfg2, device="cpu")
+        host_model.load_state_dict(card_model.state_dict())
+        copy_s = time.perf_counter() - t0
+        rs = np.random.default_rng(SEED)
+        lens = LLM_CHECK_LENS if is_moe else (FAMILY_SSM_PROMPT,)
+        check_prompts = [rs.integers(0, fcfg.vocab_size, n) for n in lens]
+        v_ = fcfg.vocab_size
+
+        def greedy_logits(model_, device, rows, cfg_=cfg2):
+            """Per-row prefills spliced into one cache with a (B,) index, then
+            greedy decode steps: the logits of every step and the experts
+            chosen, on the host."""
+            max_len_ = max(lens) + LLM_CHECK_STEPS + 1
+            chosen = []
+            with torch.inference_mode(), recorded_routes(llm_moe, chosen):
+                cache = llm.init_cache(cfg_, len(rows), max_len_, device)
+                cache["index"] = torch.zeros(len(rows), dtype=torch.int32, device=device)
+                first = []
+                for r, i in enumerate(rows):
+                    prompt = torch.as_tensor(check_prompts[i], dtype=torch.int32, device=device)
+                    row_logits, row = llm.prefill(model_, cfg_, {"tokens": prompt[None]},
+                                                  llm.init_cache(cfg_, 1, max_len_, device))
+
+                    def splice(shared, new):
+                        shared[:, r:r + 1] = new
+
+                    llm.tree_map(splice, cache["layers"], row["layers"])
+                    cache["index"][r] = row["index"]
+                    first.append(row_logits[0])
+                out = [torch.stack(first)]
+                for _ in range(LLM_CHECK_STEPS):
+                    tokens = out[-1][:, :v_].argmax(-1).to(torch.int32)
+                    step_logits, cache = llm.decode_step(model_, cfg_, tokens[:, None], cache)
+                    out.append(step_logits)
+            return [x[:, :v_].cpu() for x in out], [x.cpu() for x in chosen]
+
+        def agree(a, b, what):
+            """Largest logit difference of two runs, and their greedy tokens
+            equal at every step whose top-two gap exceeds it (a step with a
+            smaller gap fails: the seed must then be replaced)."""
+            diff = max(float((x - y).abs().max()) for x, y in zip(a, b))
+            for t, (x, y) in enumerate(zip(a, b)):
+                top = torch.topk(x, 2).values
+                gap = float((top[:, 0] - top[:, 1]).min())
+                check(gap > diff, f"{what}: a near tie at step {t} (gap {gap}, difference {diff}): "
+                      f"replace SEED")
+                check(torch.equal(x.argmax(-1), y.argmax(-1)), f"{what}: greedy tokens differ at "
+                      f"step {t}")
+            return diff
+
+        rows_ = list(range(len(lens)))
+        t0 = time.perf_counter()
+        host_run, host_routes = greedy_logits(host_model, torch.device("cpu"), rows_)
+        host_s = time.perf_counter() - t0
+        card_run, card_routes = greedy_logits(card_model, dev, rows_)
+        check(all(bool(torch.isfinite(x).all()) for x in card_run + host_run),
+              f"{phase}: non-finite logits")
+        # routing is discrete: the card must choose the CPU's experts (a
+        # difference is a near tie of router probabilities: replace SEED)
+        check(len(card_routes) == len(host_routes) and all(
+            torch.equal(a, b) for a, b in zip(card_routes, host_routes)),
+            f"{phase}: the card's experts differ from the CPU's")
+        card_cpu_diff = agree(card_run, host_run, "card against CPU")
+        # the same weights in float64 on the CPU: the float32 runs' own
+        # rounding, which a near one-hot attention over random weights
+        # magnifies; the card must be within LLM_LOGIT_TOL of it, or within
+        # FAMILY_F32_FACTOR times the CPU's float32 error where that is larger
+        cfg64 = dataclasses.replace(cfg2, dtype="float64", param_dtype_str="float64",
+                                    cache_dtype_str="float64")
+        exact_model = llm.LM(cfg64, device="cpu")
+        exact_model.load_state_dict({k: v.double() for k, v in host_model.state_dict().items()})
+        exact_run, exact_routes = greedy_logits(exact_model, torch.device("cpu"), rows_, cfg64)
+        del exact_model
+        check(len(exact_routes) == len(host_routes) and all(
+            torch.equal(a, b) for a, b in zip(exact_routes, host_routes)),
+            f"{phase}: float64 chooses other experts than float32 (a near tie: replace SEED)")
+        agree(host_run, [x.float() for x in exact_run], "float32 against float64 on the CPU")
+        cpu_err = max(float((x.double() - y).abs().max()) for x, y in zip(host_run, exact_run))
+        card_err = max(float((x.double() - y).abs().max()) for x, y in zip(card_run, exact_run))
+        tol = max(LLM_LOGIT_TOL, FAMILY_F32_FACTOR * cpu_err)
+        check(card_err <= tol, f"card against float64: max |logit difference| {card_err} > "
+              f"{tol} (the CPU's float32 {cpu_err})")
+        record = dict(phase=f"{phase}_card_equals_cpu", arch=arch, layers=LLM_CHECK_LAYERS,
+                      d_model=cfg2.d_model, dtype="float32", prompt_lens=list(lens),
+                      decode_steps=LLM_CHECK_STEPS,
+                      max_logit=max(float(x.abs().max()) for x in host_run),
+                      card_cpu_max_abs_diff=card_cpu_diff, card_float64_max_abs_diff=card_err,
+                      cpu_float64_max_abs_diff=cpu_err, tolerance=tol,
+                      greedy_tokens=[x.argmax(-1).tolist() for x in card_run],
+                      routed_layers=len(card_routes), build_and_copy_s=copy_s,
+                      cpu_run_s=host_s)
+        if len(lens) > 1:
+            solo = [greedy_logits(card_model, dev, [i])[0] for i in rows_]
+            solo_run = [torch.cat([s_[t] for s_ in solo]) for t in range(LLM_CHECK_STEPS + 1)]
+            packed_diff = agree(card_run, solo_run, "packed against solo on the card")
+            check(packed_diff <= LLM_LOGIT_TOL,
+                  f"packed against solo: {packed_diff} > {LLM_LOGIT_TOL}")
+            record["packed_solo_max_abs_diff"] = packed_diff
+        if not is_moe:
+            # one full-width Mamba-2 layer over the prompt's one chunk: the
+            # chunked SSD (masked before its exponent) against the recurrence
+            layer = card_model.layers[0]["mamba"]
+            with torch.inference_mode():
+                x = torch.randn((1, FAMILY_SSM_PROMPT, cfg2.d_model), generator=gen, device=dev)
+                chunked, _ = llm_ssm.mamba2_full(layer, x, cfg2)
+                recurrence = llm_ssm.mamba2_reference(layer, x, cfg2)
+                dt = llm_ssm._softplus(llm_ssm._project(layer, x)[4].float() + layer["dt_bias"])
+                decay = float((dt * torch.exp(layer["A_log"])).sum(1).max())
+            scale = float(recurrence.abs().max())
+            layer_diff = float((chunked - recurrence).abs().max())
+            check(bool(torch.isfinite(chunked).all()), f"{phase}: the chunked SSD is not finite")
+            check(decay > 88.0, f"{phase}: the chunk's decay {decay} does not pass 88")
+            check(layer_diff <= SSM_LAYER_RTOL * scale, f"{phase}: chunked against the "
+                  f"recurrence {layer_diff} > {SSM_LAYER_RTOL} x {scale}")
+            record.update(ssm_chunk=min(cfg2.ssm_chunk, FAMILY_SSM_PROMPT),
+                          max_chunk_decay=decay, layer_chunked_vs_recurrence=layer_diff,
+                          layer_max_output=scale, layer_rtol=SSM_LAYER_RTOL)
+            del x, chunked, recurrence, dt
+        emit(**record)
+        del host_model, card_model, host_run, card_run, host_routes, card_routes, exact_run
+        gc.collect()
+        torch.cuda.empty_cache()
+        emit(phase=f"{phase}_total", seconds=time.perf_counter() - t_phase)
+
+    for phase_, arch_, samplers_ in FAMILY_PHASES:
+        serve_family_phase(phase_, arch_, samplers_)
 
     # 12. timing --------------------------------------------------------------
     # The table (12.6 MB at V = 49,155) stays in the 50 MB L2 between

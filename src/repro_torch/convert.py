@@ -151,8 +151,10 @@ def lm_from_numpy(values, cfg, device=None) -> LM:
     """The port's ``LM`` holding the JAX package's weights: ``values`` is
     ``init_lm_values(key, cfg)[0]`` as numpy arrays (nested dicts; the
     ``layers`` leaves stacked on a leading (L,) axis).  Every leaf of the
-    tree must be used and of the module's shape; each is cast to the
-    config's parameter dtype."""
+    tree must be used and of the module's shape; each is cast to its
+    module leaf's dtype: the parameter dtype, or float32 for the MoE
+    router, the SSM's ``A_log``, ``D`` and ``dt_bias`` and the hybrid's
+    ``branch_scale``, as in the JAX tree."""
     model = LM(cfg, device=resolve_device(device))
     used = set()
     for path, layer, p in _lm_leaves(model):

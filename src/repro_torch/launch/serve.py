@@ -103,8 +103,12 @@ class BatchedServer:
                                  device=self.device)[None, :]
         row_cache = lm.init_cache(cfg, 1, self.scfg.max_len, self.device)
         logits, row_cache = lm.prefill(self.model, cfg, {"tokens": prompt}, row_cache)
-        for name, shared in self.cache["layers"].items():
-            shared[:, slot:slot + 1] = row_cache["layers"][name]
+        # splice the prefilled row into the shared slot cache, leaf by
+        # leaf (a KV cache, an SSM state, or the hybrid's nested pair)
+        def splice(shared, row):
+            shared[:, slot:slot + 1] = row
+
+        lm.tree_map(splice, self.cache["layers"], row_cache["layers"])
         # only this slot's decode position moves — other slots keep
         # decoding at their own indices mid-flight
         self.cache["index"][slot] = row_cache["index"]

@@ -1,5 +1,7 @@
 # The language models of the PyTorch port (the port of repro.models):
 # config (ModelConfig), layers (the init rule, norms, RoPE), attention
-# (GQA, blockwise and decode attention, the KV cache), blocks and lm (the
-# LM module, prefill and decode).  The dense family is ported; the other
-# families raise NotImplementedError (ROADMAP.md queue 1 item 10).
+# (GQA, blockwise and decode attention, the KV cache), moe (top-k routing
+# and capacity dispatch), ssm (Mamba-2), blocks and lm (the LM module,
+# prefill and decode).  The dense, MoE, SSM and hybrid families are
+# ported; the VLM and audio families raise NotImplementedError (ROADMAP.md
+# queue 1 item 10).

@@ -1,28 +1,29 @@
-"""Transformer blocks of the attention families — the port of
+"""Transformer, SSM, hybrid and MoE blocks — the port of
 ``repro.models.blocks``.
 
 A block's parameters sit under the JAX tree's names (``ln1``, ``attn``,
-``ln2``, ``mlp``) in a ``Block``, a ``ModuleDict`` of ``ParameterDict``s,
-so the weight converter maps leaf paths one to one.  ``init_block`` /
-``apply_block`` keep the JAX signatures.  The ``ssm``, ``hybrid``,
-``moe``, ``encoder`` and ``encoder_cross`` kinds are not ported yet and
+``ln2``, ``mlp``, ``moe``, ``mamba``, ``branch_scale``) in a ``Block``, a
+``ModuleDict`` of ``ParameterDict``s (``branch_scale`` is a parameter of
+the block itself), so the weight converter maps leaf paths one to one.
+``init_block`` / ``apply_block`` keep the JAX signatures.  The audio
+family's ``encoder`` and ``encoder_cross`` kinds are not ported yet and
 raise ``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
 
+import torch
 from torch import nn
 
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import activation, layer_norm, param, rms_norm
 
-ATTENTION_KINDS = ("dense", "vlm")
+KINDS = ("dense", "vlm", "moe", "ssm", "hybrid")
 
 # the kinds still to port, and where (ROADMAP.md queue 1 item 10)
 NOT_PORTED = {
-    "moe": "queue 1 item 10b (the MoE family)",
-    "ssm": "queue 1 item 10c (the SSM and hybrid families)",
-    "hybrid": "queue 1 item 10c (the SSM and hybrid families)",
     "encoder": "queue 1 item 10e (the audio family)",
     "encoder_cross": "queue 1 item 10e (the audio family)",
 }
@@ -34,7 +35,7 @@ def check_kind(kind: str) -> None:
         raise NotImplementedError(
             f"the {kind!r} block is not ported yet: ROADMAP.md {NOT_PORTED[kind]}"
         )
-    if kind not in ATTENTION_KINDS:
+    if kind not in KINDS:
         raise ValueError(f"unknown block kind {kind!r}")
 
 
@@ -81,12 +82,21 @@ def apply_mlp(p, x, cfg):
 
 class Block(nn.ModuleDict):
     """One layer's parameters under the JAX tree's names; calling it
-    applies the layer (``apply_block``)."""
+    applies the layer (``apply_block``).  A parameter leaf of the block
+    itself (``branch_scale``) is registered on it and read by name too."""
 
     def __init__(self, cfg, kind: str, params: dict):
-        super().__init__(params)
+        super().__init__({k: v for k, v in params.items() if not isinstance(v, nn.Parameter)})
+        for name, value in params.items():
+            if isinstance(value, nn.Parameter):
+                self.register_parameter(name, value)
         self.cfg = cfg
         self.kind = kind
+
+    def __getitem__(self, key):
+        if key in self._parameters:
+            return self._parameters[key]
+        return super().__getitem__(key)
 
     def forward(self, x, **kw):
         return apply_block(self, x, self.cfg, kind=self.kind, **kw)
@@ -97,12 +107,23 @@ def init_block(gen, cfg, *, kind: str | None = None, device=None) -> Block:
     uninitialised on ``device`` (the weight converter fills them)."""
     kind = kind or cfg.family
     check_kind(kind)
-    return Block(cfg, kind, {
-        "ln1": _norm_params(gen, cfg, device),
-        "attn": attn_mod.init_attention(gen, cfg, device),
-        "ln2": _norm_params(gen, cfg, device),
-        "mlp": init_mlp(gen, cfg, device),
-    })
+    p = {"ln1": _norm_params(gen, cfg, device)}
+    if kind == "ssm":
+        p["mamba"] = ssm_mod.init_mamba2(gen, cfg, device)
+    elif kind == "hybrid":
+        p["attn"] = attn_mod.init_attention(gen, cfg, device)
+        p["mamba"] = ssm_mod.init_mamba2(gen, cfg, device)
+        p["branch_scale"] = param(gen, (2,), (None,), torch.float32, mode="ones", device=device)
+        p["ln2"] = _norm_params(gen, cfg, device)
+        p["mlp"] = init_mlp(gen, cfg, device)
+    else:
+        p["attn"] = attn_mod.init_attention(gen, cfg, device)
+        p["ln2"] = _norm_params(gen, cfg, device)
+        if kind == "moe":
+            p["moe"] = moe_mod.init_moe(gen, cfg, device)
+        else:
+            p["mlp"] = init_mlp(gen, cfg, device)
+    return Block(cfg, kind, p)
 
 
 def apply_block(
@@ -117,8 +138,14 @@ def apply_block(
     meta=None,
     kind: str | None = None,
 ):
-    """Returns (x, new_cache, aux_loss); the cache is {"k", "v"}, and the
-    auxiliary loss of the attention kinds is 0.0.
+    """Returns (x, new_cache, aux_loss).
+
+    Cache contract (per layer; the stacked index lives at the LM level),
+    written in place:
+      dense/moe/vlm : {"k", "v"}
+      ssm           : {"state", "conv_x", "conv_B", "conv_C"}
+      hybrid        : {"attn": {...}, "ssm": {...}}
+    The auxiliary loss is the MoE router's (a float32 scalar), else 0.0.
 
     ``meta`` is this layer's slice of ``lm.layer_metas``: ``is_global``
     picks the layer's window when ``cfg.sliding_window`` is set."""
@@ -129,19 +156,43 @@ def apply_block(
         window = cfg.sliding_window
         if meta is not None and meta.get("is_global", False):
             window = attn_mod.GLOBAL_WINDOW
+    attn_mode = "decode" if mode == "decode" else "full"
+
+    def mamba(h, ssm_cache):
+        if mode == "decode":
+            return ssm_mod.mamba2_decode(p["mamba"], h, cfg, ssm_cache)
+        return ssm_mod.mamba2_full(p["mamba"], h, cfg, ssm_cache)
 
     h = apply_norm(p["ln1"], x, cfg)
+    if kind == "ssm":
+        out, new_cache = mamba(h, cache)
+        return x + out, new_cache, 0.0
+
+    if kind == "hybrid":
+        a_out, a_cache = attn_mod.attention(
+            p["attn"], h, cfg, positions=positions, mode=attn_mode,
+            cache=None if cache is None else cache["attn"], cache_index=cache_index,
+            window=window,
+        )
+        s_out, s_cache = mamba(h, None if cache is None else cache["ssm"])
+        scale = p["branch_scale"].to(x.dtype)
+        x = x + scale[0] * a_out + scale[1] * s_out
+        x = x + apply_mlp(p["mlp"], apply_norm(p["ln2"], x, cfg), cfg)
+        return x, None if cache is None else {"attn": a_cache, "ssm": s_cache}, 0.0
+
     a_out, new_cache = attn_mod.attention(
         p["attn"],
         h,
         cfg,
         positions=positions,
-        mode="decode" if mode == "decode" else "full",
+        mode=attn_mode,
         cache=cache,
         cache_index=cache_index,
         window=window,
     )
     x = x + a_out
     h2 = apply_norm(p["ln2"], x, cfg)
-    x = x + apply_mlp(p["mlp"], h2, cfg)
-    return x, new_cache, 0.0
+    if kind == "moe":
+        m_out, aux = moe_mod.moe_ffn(p["moe"], h2, cfg, activation(cfg.act))
+        return x + m_out, new_cache, aux
+    return x + apply_mlp(p["mlp"], h2, cfg), new_cache, 0.0

@@ -4,18 +4,22 @@
 final norm -> head, with the JAX tree's names (``embed``, ``layers``,
 ``final_norm``, ``lm_head``).  ``lm_forward``, ``head_logits``,
 ``prefill`` and ``decode_step`` keep the JAX signatures with the model
-in place of the value tree.  The dense family is ported; the MoE, SSM,
-hybrid, VLM and audio families raise ``NotImplementedError``, and the
-training half (``chunked_ce_loss``, ``train_loss``) waits for the
-training slice (ROADMAP.md queue 1 item 10).
+in place of the value tree.  The dense, MoE, SSM (Mamba-2) and hybrid
+(Hymba) families are ported; the VLM and audio families raise
+``NotImplementedError``, and the training half (``chunked_ce_loss``,
+``train_loss``) waits for the training slice (ROADMAP.md queue 1 item
+10).
 
 Cache contract: ``{"index": int32 scalar or (B,) per-row tensor,
-"layers": {"k", "v"}}`` with stacked ``(L, B, Smax, KV, dh)`` leaves, the
-JAX package's layout.  A per-row index lets rows sit at different cache
-depths — the slot-local positions continuous-batching serving needs.
-Unlike the JAX functions, ``prefill`` and ``decode_step`` write the
-layer buffers in place and return them in the new cache (with a new
-index): the caller's old cache dict shares them.
+"layers": <stacked per-layer tree>}``, the JAX package's layout: every
+leaf leads with the layer axis — ``{"k", "v"}`` of ``(L, B, Smax, KV,
+dh)`` for the attention families, the SSM state and conv inputs
+(``ssm.init_ssm_cache``) for ``ssm``, and ``{"attn": ..., "ssm": ...}``
+for ``hybrid``.  A per-row index lets rows sit at different cache depths
+— the slot-local positions continuous-batching serving needs.  Unlike
+the JAX functions, ``prefill`` and ``decode_step`` write the layer
+buffers in place and return them in the new cache (with a new index):
+the caller's old cache dict shares them.
 """
 
 from __future__ import annotations
@@ -26,15 +30,13 @@ from torch import nn
 
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import blocks
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.blocks import apply_norm
 from repro_torch.models.layers import matmul_f32, param
 from repro_torch.samplers.engine import resolve_device
 
 # the families still to port, and where (ROADMAP.md queue 1 item 10)
 FAMILIES_NOT_PORTED = {
-    "moe": "queue 1 item 10b (the MoE family)",
-    "ssm": "queue 1 item 10c (the SSM and hybrid families)",
-    "hybrid": "queue 1 item 10c (the SSM and hybrid families)",
     "vlm": "queue 1 item 10d (the VLM family)",
     "audio": "queue 1 item 10e (the audio family)",
 }
@@ -86,9 +88,25 @@ def init_lm(cfg, seed: int = 0, device=None) -> LM:
 # --- caches ------------------------------------------------------------------
 
 
+def tree_map(fn, *trees):
+    """``fn`` over the leaves of nested dicts of one structure (a cache
+    tree), as ``jax.tree.map`` maps it."""
+    if isinstance(trees[0], dict):
+        return {k: tree_map(fn, *(t[k] for t in trees)) for k in trees[0]}
+    return fn(*trees)
+
+
 def _layer_cache(cfg, batch: int, max_len: int, device=None):
     _check_family(cfg)
-    return attn_mod.init_kv_cache(cfg, batch, max_len, cfg.n_layers, cfg.cache_dtype, device)
+    L, dt = cfg.n_layers, cfg.cache_dtype
+    if cfg.family == "ssm":
+        return ssm_mod.init_ssm_cache(cfg, batch, n_layers=L, dtype=dt, device=device)
+    if cfg.family == "hybrid":
+        return {
+            "attn": attn_mod.init_kv_cache(cfg, batch, max_len, L, dt, device),
+            "ssm": ssm_mod.init_ssm_cache(cfg, batch, n_layers=L, dtype=dt, device=device),
+        }
+    return attn_mod.init_kv_cache(cfg, batch, max_len, L, dt, device)
 
 
 def init_cache(cfg, batch: int, max_len: int, device=None):
@@ -117,7 +135,8 @@ def layer_metas(cfg):
 
 def lm_forward(model: LM, cfg, batch, *, mode: str, cache=None):
     """Backbone forward: returns (hidden (B,S,d), new_cache, aux_loss);
-    the auxiliary loss is the blocks' sum (0.0 for the dense family).
+    the auxiliary loss is the blocks' sum (the MoE routers' losses; 0.0
+    for the other families).
 
     batch: {"tokens": (B, S) int}.  mode: "prefill" or "decode" ("train"
     runs the prefill path without a cache).
@@ -138,7 +157,7 @@ def lm_forward(model: LM, cfg, batch, *, mode: str, cache=None):
     metas = layer_metas(cfg)
     aux = 0.0
     for i, layer in enumerate(model.layers):
-        cl = None if cache is None else {n: t[i] for n, t in cache["layers"].items()}
+        cl = None if cache is None else tree_map(lambda t: t[i], cache["layers"])
         meta = None if metas is None else {n: bool(v[i]) for n, v in metas.items()}
         x, _, a = layer(
             x, mode="decode" if mode == "decode" else "full", positions=positions,

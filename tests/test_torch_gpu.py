@@ -694,13 +694,13 @@ def test_clis_default_to_the_card(cuda, capsys):
 # --- the LLM server (slice 10) -------------------------------------------------------
 
 
-def _smoke_servers(cuda, sampler, n_slots, max_len, gen):
-    """The smoke granite server on the CPU and on the card, with the CPU
-    server's weights copied to the card."""
+def _smoke_servers(cuda, sampler, n_slots, max_len, gen, arch="granite3_8b"):
+    """An architecture's smoke server on the CPU and on the card, with the
+    CPU server's weights copied to the card."""
     from repro_torch import configs
     from repro_torch.launch import serve
 
-    cfg = configs.get_smoke_config("granite3_8b")
+    cfg = configs.get_smoke_config(arch)
     scfg = serve.ServeConfig(n_slots=n_slots, max_len=max_len, gen_tokens=gen, sampler=sampler,
                              mcmc_steps=16, seed=0)
     host = serve.BatchedServer(cfg, scfg, device="cpu")
@@ -733,8 +733,7 @@ class _Recorded:
         server._sample = sample
 
 
-@pytest.mark.parametrize("sampler", ["greedy", "mcmc"])
-def test_smoke_server_card_equals_cpu(cuda, sampler):
+def _server_card_equals_cpu(cuda, sampler, arch="granite3_8b", prompt_seed=3):
     """5 requests on 4 slots past ``main``'s cache sizing (the idle slots'
     writes clamp on the card without a device assert), with one
     ``mh_chain`` launch a sample under ``mcmc``.  Each sample is held
@@ -743,9 +742,9 @@ def test_smoke_server_card_equals_cpu(cuda, sampler):
     from repro_torch.samplers import chain_key
 
     gen = 12
-    cfg, host, card = _smoke_servers(cuda, sampler, 4, 4 + 2 + gen + 8, gen)
+    cfg, host, card = _smoke_servers(cuda, sampler, 4, 4 + 2 + gen + 8, gen, arch)
     rec_h, rec_c = _Recorded(host), _Recorded(card)
-    rng = np.random.default_rng(3)
+    rng = np.random.default_rng(prompt_seed)
     prompts = [rng.integers(0, cfg.vocab_size, size=4 + i % 3) for i in range(5)]
     ref_streams = _serve_all(host, prompts)
     mh.reset_launches()
@@ -773,6 +772,19 @@ def test_smoke_server_card_equals_cpu(cuda, sampler):
     assert mh.LAUNCHES == {"mh_chain": want, "mh_chain_fused": 0}
     if sampler == "mcmc":
         assert card.acceptance == host.acceptance
+
+
+@pytest.mark.parametrize("sampler", ["greedy", "mcmc"])
+def test_smoke_server_card_equals_cpu(cuda, sampler):
+    _server_card_equals_cpu(cuda, sampler)
+
+
+@pytest.mark.parametrize("sampler", ["greedy", "mcmc"])
+@pytest.mark.parametrize("arch", ["hymba_1p5b", "mamba2_1p3b", "qwen3_moe_30b"])
+def test_family_server_card_equals_cpu(cuda, arch, sampler):
+    """The MoE, SSM and hybrid smoke servers (the prompts of
+    tests/test_torch_serve.py's family cases)."""
+    _server_card_equals_cpu(cuda, sampler, arch, prompt_seed=4)
 
 
 def test_clamped_cache_write_on_the_card(cuda):

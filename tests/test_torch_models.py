@@ -329,22 +329,44 @@ def test_init_cache(which):
         assert not tc["layers"][name].any()
 
 
-@pytest.mark.parametrize("which", ["granite3_8b_smoke", "per_row_config"])
+# every ported architecture's smoke config (ROADMAP.md queue 3 item 4)
+PORTED_ARCHS = ("granite3_8b", "granite_34b", "minitron_4b", "phi3_medium_14b", "qwen3_moe_30b",
+                "phi35_moe_42b", "mamba2_1p3b", "hymba_1p5b")
+
+
+def _flat(tree, prefix=""):
+    """A cache tree's leaves by path, in sorted key order."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in _flat(tree[k], f"{prefix}/{k}")]
+    return [(prefix, tree)]
+
+
+@pytest.mark.parametrize("which", [f"{a}_smoke" for a in PORTED_ARCHS] + ["per_row_config"])
 def test_prefill_and_decode_match_jax(which):
     """Prefill then 3 decode steps per row (scalar index), and the packed
-    batch (per-row index), against the JAX functions on carried weights."""
+    batch (per-row index), against the JAX functions on carried weights.
+    The packed cache is spliced leaf by leaf, as ``launch/serve.py`` does
+    (a KV cache, an SSM state, or the hybrid's nested pair)."""
     if which == "per_row_config":
         jcfg, tcfg = JModelConfig(**PER_ROW), ModelConfig(**PER_ROW)
         lens, max_len = (5, 9), 20
     else:
-        jcfg, tcfg = jconfigs.get_smoke_config("granite3_8b"), configs.get_smoke_config(
-            "granite3_8b")
-        lens, max_len = (5, 11), 16  # row 1 prefills past two attention blocks
+        arch = which.removesuffix("_smoke")
+        jcfg, tcfg = jconfigs.get_smoke_config(arch), configs.get_smoke_config(arch)
+        # row 1 prefills past two attention blocks, past hymba's window of
+        # 8 and past the SSM chunk of 8 (11 = one chunk and a padded one)
+        lens, max_len = (5, 11), 16
     values, model = _carried(jcfg, tcfg, 3)
     toks = np.random.default_rng(7).integers(0, jcfg.vocab_size, (2, 20)).astype(np.int32)
-    # measured: logits 1.2e-5 (granite smoke) and 7.9e-6 (the per-row
-    # config), for logits up to 4; caches 3.9e-5, for entries up to 23
-    tol, cache_tol = 5e-5, 1e-4
+    # measured |logit difference| (logits up to 4.2): granite-3 1.2e-5,
+    # granite-34b 1.2e-4 (row 1's last step: its MQA attention, nearly
+    # one-hot under the init rule, magnifies its scores' rounding),
+    # minitron 6.5e-6, phi-3-medium 9.8e-6, qwen3-moe 1.7e-6, phi-3.5-moe
+    # 7.5e-6, mamba2 2.1e-6, hymba 1.0e-5, the per-row config 7.9e-6.
+    # Caches: KV and conv inputs 8.7e-5 at most (entries up to 27), SSM
+    # states 2.1e-4 (hymba; entries up to 255)
+    tol = 2e-4 if which == "granite_34b_smoke" else 5e-5
+    cache_tol = {"state": 5e-4}
     for r, plen in enumerate(lens):
         jc, tc = jlm.init_cache(jcfg, 1, max_len), lm.init_cache(tcfg, 1, max_len, "cpu")
         jl, jc = jlm.prefill(values, jcfg, {"tokens": toks[r:r + 1, :plen]}, jc)
@@ -356,7 +378,10 @@ def test_prefill_and_decode_match_jax(which):
             tl, tc = lm.decode_step(model, tcfg, torch.from_numpy(step), tc)
             _assert_close(jl, tl, tol, f"row {r} step {t}")
         assert int(tc["index"]) == int(jc["index"]) == plen + 3
-        _assert_close(jc["layers"]["k"], tc["layers"]["k"], cache_tol, "cache")
+        jleaves, tleaves = _flat(jc["layers"]), _flat(tc["layers"])
+        assert [p for p, _ in jleaves] == [p for p, _ in tleaves]
+        for (path, a), (_, b) in zip(jleaves, tleaves):
+            _assert_close(a, b, cache_tol.get(path.rsplit("/", 1)[-1], 1e-4), f"cache {path}")
 
     # packed: per-row prefills spliced into one cache with a (B,) index
     jshared, tshared = jlm.init_cache(jcfg, 2, max_len), lm.init_cache(tcfg, 2, max_len, "cpu")
@@ -370,8 +395,11 @@ def test_prefill_and_decode_match_jax(which):
         jshared["layers"] = jax.tree.map(lambda s, x: s.at[:, r:r + 1].set(x),
                                          jshared["layers"], jrow["layers"])
         jshared["index"] = jshared["index"].at[r].set(jrow["index"])
-        for name in ("k", "v"):
-            tshared["layers"][name][:, r:r + 1] = trow["layers"][name]
+
+        def splice(shared, row):
+            shared[:, r:r + 1] = row
+
+        lm.tree_map(splice, tshared["layers"], trow["layers"])
         tshared["index"][r] = trow["index"]
     for t in range(3):
         step = np.stack([toks[r, lens[r] + t] for r in range(2)])[:, None]
@@ -450,9 +478,36 @@ def test_converter_round_trip():
         convert.lm_from_numpy(jax.tree.map(np.asarray, bad), tcfg, device="cpu")
 
 
-@pytest.mark.parametrize("arch,family", [("mamba2_1p3b", "ssm"), ("qwen3_moe_30b", "moe"),
-                                         ("hymba_1p5b", "hybrid"),
-                                         ("whisper_large_v3", "audio"),
+@pytest.mark.parametrize("arch", ["qwen3_moe_30b", "mamba2_1p3b", "hymba_1p5b"])
+def test_converter_carries_family_leaves(arch):
+    """The ``moe``, ``mamba`` and ``branch_scale`` leaves cross at their own
+    dtypes: a bfloat16 JAX tree keeps the router, ``A_log``, ``D``,
+    ``dt_bias`` and ``branch_scale`` in float32, bit for bit, both ways."""
+    jcfg = dataclasses.replace(jconfigs.get_smoke_config(arch), param_dtype_str="bfloat16")
+    tcfg = dataclasses.replace(configs.get_smoke_config(arch), param_dtype_str="bfloat16")
+    # jitted: the eager init compiles op by op, several times slower here
+    values = jax.jit(lambda k: jlm.init_lm_values(k, jcfg)[0])(jax.random.PRNGKey(5))
+    values = jax.tree.map(np.asarray, values)
+    model = convert.lm_from_numpy(values, tcfg, device="cpu")
+    flat = dict(jax.tree_util.tree_flatten_with_path(values)[0])
+    float32 = {"router", "A_log", "D", "dt_bias", "branch_scale"}
+    seen = set()
+    for name, p in model.named_parameters():
+        leaf = name.split(".")[-1]
+        want = torch.float32 if leaf in float32 else torch.bfloat16
+        assert p.dtype == want, (name, p.dtype)
+        seen.add(leaf)
+    assert seen & float32 == float32 & {
+        "qwen3_moe_30b": {"router"}, "mamba2_1p3b": {"A_log", "D", "dt_bias"},
+        "hymba_1p5b": {"A_log", "D", "dt_bias", "branch_scale"}}[arch]
+    back = convert.lm_to_numpy(model)
+    flat_back = dict(jax.tree_util.tree_flatten_with_path(back)[0])
+    assert list(flat) == list(flat_back)
+    for path, a in flat.items():
+        np.testing.assert_array_equal(a.astype(np.float32), flat_back[path], err_msg=str(path))
+
+
+@pytest.mark.parametrize("arch,family", [("whisper_large_v3", "audio"),
                                          ("phi3_vision_4p2b", "vlm")])
 def test_unported_families_refuse(arch, family):
     cfg = configs.get_smoke_config(arch)
@@ -462,7 +517,7 @@ def test_unported_families_refuse(arch, family):
         lm.init_cache(cfg, 1, 8, device="cpu")
 
 
-@pytest.mark.parametrize("kind", ["ssm", "hybrid", "moe", "encoder", "encoder_cross"])
+@pytest.mark.parametrize("kind", ["encoder", "encoder_cross"])
 def test_unported_block_kinds_refuse(kind):
     cfg = configs.get_smoke_config("granite3_8b")
     gen = torch.Generator().manual_seed(0)
