@@ -199,7 +199,7 @@ Phase 29 (the LLM server, ``launch/serve.py``) runs after 28:
 
 Phases 30-32 (the MoE, SSM and hybrid families, ``launch/serve.py``) run
 after 29, each with phase 29's burst through ``launch/serve.py:main`` at
-full width and depth in bfloat16 (8 requests, 4 slots, prompts of 128-130
+full width and depth (qwen3's depth cut) in bfloat16 (8 requests, 4 slots, prompts of 128-130
 tokens, 32 generated), the previous model freed first.  Every prefill,
 decode step and sample of a burst is timed between two synchronisations:
 tokens/s, samples and ``mh_chain`` launches (equal under ``mcmc``, the
@@ -210,7 +210,8 @@ float32, made on the card and copied to the CPU, card against CPU
 (logits within ``LLM_LOGIT_TOL``, greedy tokens equal where the top-two
 gap exceeds the difference, the same experts chosen):
 
- 30. ``serve_lm_moe``: qwen3-moe-30b-a3b (48 layers, d_model 2,048, 128
+ 30. ``serve_lm_moe``: qwen3-moe-30b-a3b (cut to 12 of its 48 layers,
+     ``DEPTH_CUTS``; d_model 2,048, 128
      experts top-8, V = 151,936: ``mh_chain`` gathers its row) under
      ``mcmc`` and ``greedy``, with each prefill's capacity drops and the
      experts each decode step's layers use, and the step's bound if only
@@ -223,6 +224,36 @@ gap exceeds the difference, the same experts chosen):
      recurrence on the card within ``SSM_LAYER_RTOL``;
  32. ``serve_lm_hybrid``: hymba-1.5b under ``mcmc``, and the same
      130-token check.
+
+Phases 33-35 (the VLM and audio families, and training) run after 32,
+each at full width and depth in bfloat16 with random weights from a seed:
+
+ 33. ``serve_lm_vlm``: phi-3-vision-4.2b (32 layers, d_model 3,072, 576
+     image tokens before each prompt, V = 32,064).  ``launch/serve.py:main``
+     at this width must raise on its first prefill (its cache, prompt + 2
+     + gen + 8 rows, leaves out the image tokens, as the reference's
+     does); then phase 29's burst through a ``BatchedServer`` whose cache
+     holds 576 + 130 + 32 + 8 rows, under ``mcmc`` and ``greedy``, with
+     phase 30's numbers; the cut (2 layers, float32) card against CPU and
+     float64 on prompts of 12 and 17 tokens after seeded patch
+     embeddings, packed against solo;
+ 34. ``serve_lm_audio``: whisper-large-v3 (32 encoder layers over 1,500
+     frames, 32 decoder layers with cross-attention, V = 51,866) through
+     ``launch/serve.py:main``, the same numbers and the cross cache's
+     bytes; the cut (2 + 2 layers) on seeded frames, held in float64 on
+     the card against float64 on the CPU and packed against solo
+     (``AUDIO_F64_TOL``), its float32 run reported;
+ 35. ``train_lm``: ``launch/train.py:main --arch hymba_1p5b --steps 6
+     --batch 8 --seq 1024 --n-micro 2`` (Markov data; each block
+     recomputed in the backward pass): per step the loss, the gradient
+     norm and the synchronised seconds beside the step's FLOP bound, peak
+     memory, every loss, gradient norm and parameter finite; then
+     ``make_decode_sample_step`` on the trained weights, its ``mh_chain``
+     launch held against its plain version (tolerance 0); then the model
+     cut to 2 layers in float32 trains 2 AdamW steps on the card and on
+     the CPU from the same weights and batches: losses, gradient norms
+     and parameters within the tolerances stated beside
+     ``TRAIN_LOSS_TOL``.
 
 Each phase prints one JSON line; any failure raises and exits non-zero.
 The second-to-last line lists the kernels; the last line is the device
@@ -352,11 +383,15 @@ LLM_HEAD_RTOL = 1e-4
 # FAMILY_SSM_PROMPT tokens, one chunk of the SSD whose accumulated decay
 # passes ~88, where the reference's unmasked exponent overflows
 FAMILY_PHASES = (  # (phase, arch, samplers of the full-width bursts)
-    ("serve_lm_moe", "qwen3_moe_30b", ("mcmc", "greedy")),
+    ("serve_lm_moe", "qwen3_moe_30b", ("mcmc", "greedy")),  # depth cut: DEPTH_CUTS
     ("serve_lm_ssm", "mamba2_1p3b", ("mcmc",)),
     ("serve_lm_hybrid", "hymba_1p5b", ("mcmc",)),
 )
 FAMILY_SSM_PROMPT = 130
+# earlier phases served at full width but cut in depth (layers of the
+# full config), so that the script stays near its time aim with phases
+# 33-35: qwen3-moe's 48 layers (61.09 GB, 36-56 s a phase at full depth)
+DEPTH_CUTS = {"qwen3_moe_30b": 12}
 # a full-width Mamba-2 layer's chunked output against its step recurrence on
 # the card (float32, one 130-token chunk), relative to the largest output:
 # the CPU gives 2.2e-6 (mamba2) and 1.3e-6 (hymba)
@@ -367,6 +402,41 @@ SSM_LAYER_RTOL = 1e-5
 # past it (hymba's cut: 1.7e-3 card against CPU in PR 21's first run; the
 # CPU's float32 4.8e-4 from float64 on other weights of the same cut)
 FAMILY_F32_FACTOR = 4
+# phases 33-34: phi-3-vision through a BatchedServer whose cache holds its 576
+# image tokens (main's prompt + 2 + gen + 8 rows do not, and main raises, as
+# the reference's does), whisper through launch/serve.py:main; each with the
+# burst of phase 29 and, cut to 2 layers (and 2 encoder layers) in float32,
+# card against CPU on prompts of LLM_CHECK_LENS with seeded patch embeddings
+# or frames
+VLM_ARCH, AUDIO_ARCH = "phi3_vision_4p2b", "whisper_large_v3"
+# whisper's cut is held in float64 on the card against float64 on the CPU
+# (and packed against solo in float64), within AUDIO_F64_TOL; its float32
+# card run is reported beside the CPU's.  Under the init rule every
+# attention is near one-hot (query and key projections scaled
+# 1/sqrt(heads), scores in the hundreds), and over 1,500 frames the cut
+# magnifies float32 rounding about 10^5-fold: its float32 logits were 0.16
+# and 0.043 apart card against CPU in two runs on the H100 (frames from
+# SEED, then seed 3), near ties either way, while float64's rounding is
+# 2^29 times finer.  The frames come from AUDIO_CHECK_SEED
+AUDIO_CHECK_SEED = 3
+AUDIO_F64_TOL = 1e-6
+VLM_MAX_LEN = 576 + (LLM_PROMPT + 2) + LLM_GEN + 8
+# phase 35: launch/train.py:main on hymba-1.5b at full width and depth
+# (bfloat16, Markov data), then make_decode_sample_step on its weights; the
+# cut (2 layers, float32) trains TRAIN_CHECK_STEPS AdamW steps on the card,
+# on the CPU and in float64 on the CPU from the same weights, and the card
+# is held to the float64 run as the serving cuts are: each loss within
+# TRAIN_LOSS_TOL, each gradient norm within TRAIN_GNORM_RTOL relative, each
+# parameter leaf's RMS difference within TRAIN_PARAM_RMS_RTOL of its
+# update's RMS, or within FAMILY_F32_FACTOR times the CPU's own float32
+# error where that is larger; no parameter past 2 x the summed lr (Adam
+# moves one by up to lr a step, whatever sign its near-zero gradient takes).
+# The cut's near one-hot attention magnifies rounding: its gradients were
+# 3.3e-3 of the largest apart card against CPU in the card's first test
+# (tests/test_torch_gpu.py), the CPU's float32 1.5e-3 from float64
+TRAIN_ARCH, TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO = "hymba_1p5b", 6, 8, 1024, 2
+TRAIN_CHECK_STEPS, TRAIN_CHECK_BATCH, TRAIN_CHECK_SEQ = 2, 2, 64
+TRAIN_LOSS_TOL, TRAIN_GNORM_RTOL, TRAIN_PARAM_RMS_RTOL = 1e-4, 1e-4, 1e-3
 
 
 def emit(**record):
@@ -2397,15 +2467,23 @@ def main() -> int:
             if not info:
                 model, layers = server.model, server.cache["layers"]
                 ssm_part = layers if server.cfg.family == "ssm" else layers.get("ssm", {})
-                leaves, ssm_leaves = [], []
+                leaves, ssm_leaves, cross_leaves = [], [], []
                 llm.tree_map(leaves.append, layers)
                 llm.tree_map(ssm_leaves.append, ssm_part)
+                llm.tree_map(cross_leaves.append, layers.get("cross", {}))
+                nbytes = lambda ts: sum(t.numel() * t.element_size() for t in ts)  # noqa: E731
                 info.update(
-                    param_bytes=sum(p.numel() * p.element_size() for p in model.parameters()),
+                    param_bytes=nbytes(model.parameters()),
                     parameters=sum(p.numel() for p in model.parameters()),
-                    embed_bytes=model.embed.numel() * model.embed.element_size(),
-                    cache_bytes=sum(t.numel() * t.element_size() for t in leaves),
-                    ssm_cache_bytes=sum(t.numel() * t.element_size() for t in ssm_leaves))
+                    embed_bytes=nbytes([model.embed]),
+                    # what a decode step reads: the decoder's blocks, the
+                    # final norm and the head (not the embedding table, the
+                    # frontend stubs' projections or whisper's encoder)
+                    decode_param_bytes=nbytes(p for n, p in model.named_parameters()
+                                              if n.split(".")[0] in ("layers", "final_norm",
+                                                                     "lm_head")),
+                    cache_bytes=nbytes(leaves), ssm_cache_bytes=nbytes(ssm_leaves),
+                    cross_cache_bytes=nbytes(cross_leaves))
             return timed_sample(server, logits)
 
         llm.prefill, llm.decode_step = timed(real[0], "prefill"), timed(real[1], "model")
@@ -2415,8 +2493,54 @@ def main() -> int:
         finally:
             llm.prefill, llm.decode_step, cli_llm.BatchedServer._sample = real
 
-    def serve_family_phase(phase, arch, samplers_):
-        """Phases 30-32; their names stay out of the phases after them."""
+    def served_burst(cli_llm, fcfg, sampler, max_len):
+        """``launch/serve.py:main``'s burst through a ``BatchedServer`` of the
+        given cache length (the VLM's holds its image tokens): the same
+        prompts, admission loop and summary row."""
+        server = cli_llm.BatchedServer(fcfg, cli_llm.ServeConfig(
+            n_slots=LLM_SLOTS, max_len=max_len, gen_tokens=LLM_GEN, sampler=sampler), device=dev)
+        rs = np.random.default_rng(0)
+        queue = [cli_llm.Request(rid=rid, prompt=rs.integers(0, fcfg.vocab_size,
+                                                            size=LLM_PROMPT + rid % 3))
+                 for rid in range(LLM_REQUESTS)]
+        finished, steps = [], 0
+        torch.cuda.synchronize()
+        t0 = time.time()
+        while queue or server.active():
+            while queue and server.free_slot() is not None:
+                server.submit(server.free_slot(), queue.pop(0))
+            finished.extend(server.step())
+            steps += 1
+        torch.cuda.synchronize()
+        dt = time.time() - t0
+        tokens = sum(len(r.out_tokens) for r in finished)
+        acceptance = float(np.mean(server.acceptance)) if server.acceptance else None
+        return {"requests": LLM_REQUESTS, "slots": LLM_SLOTS, "sampler": sampler,
+                "backend": "auto", "device": str(server.device), "tokens": tokens,
+                "seconds": dt, "tokens_per_s": tokens / dt, "decode_steps": steps,
+                "samples": LLM_REQUESTS + steps, "acceptance": acceptance, "max_len": max_len,
+                "streams": {r.rid: list(r.out_tokens) for r in finished}}
+
+    @contextlib.contextmanager
+    def depth_cut(arch):
+        """The configs' ``get_config(arch)`` with ``DEPTH_CUTS[arch]``
+        layers (every width kept) while the phase runs; restored on exit."""
+        from repro_torch import configs as llm_configs
+
+        real = llm_configs.get_config
+        if arch in DEPTH_CUTS:
+            llm_configs.get_config = lambda name: (
+                dataclasses.replace(real(name), n_layers=DEPTH_CUTS[arch])
+                if name == arch else real(name))
+        try:
+            yield
+        finally:
+            llm_configs.get_config = real
+
+    def serve_family_phase(phase, arch, samplers_, max_len=None):
+        """Phases 30-34; their names stay out of the phases after them.
+        With ``max_len`` the burst runs through a ``BatchedServer`` with a
+        cache that long, else through ``launch/serve.py:main``."""
         import gc
 
         t_phase = time.perf_counter()
@@ -2430,6 +2554,26 @@ def main() -> int:
         argv = ["--arch", arch, "--requests", str(LLM_REQUESTS), "--slots", str(LLM_SLOTS),
                 "--prompt-len", str(LLM_PROMPT), "--gen", str(LLM_GEN)]
         is_moe = fcfg.family == "moe"
+        has_ssm = fcfg.family in ("ssm", "hybrid")
+        if max_len is not None:
+            # main's cache, prompt + 2 + gen + 8 rows, leaves out the VLM's
+            # image tokens: its first prefill raises, as the reference's does
+            gc.collect()
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            try:
+                cli_llm.main([*argv, "--sampler", "greedy"])
+                raised = None
+            except ValueError as e:
+                raised = str(e)
+            check(raised is not None and "longer than the buffer" in raised,
+                  f"{phase}: main at full width did not refuse its short cache: {raised}")
+            emit(phase=f"{phase}_main_refuses", argv=argv, error=raised,
+                 main_max_len=LLM_PROMPT + 2 + LLM_GEN + 8,
+                 prefill_rows=fcfg.n_image_tokens + LLM_PROMPT,
+                 seconds=time.perf_counter() - t0)
+            gc.collect()
+            torch.cuda.empty_cache()
         for sampler in samplers_:
             path = f"{phase}_{sampler}"
             gc.collect()
@@ -2439,7 +2583,10 @@ def main() -> int:
             with served_calls(cli_llm, llm, timers, info), recorded_routes(llm_moe, routes), \
                     path_run(path) as seen:
                 t0 = time.perf_counter()
-                row = cli_llm.main([*argv, "--sampler", sampler])
+                if max_len is None:
+                    row = cli_llm.main([*argv, "--sampler", sampler])
+                else:
+                    row = served_burst(cli_llm, fcfg, sampler, max_len)
                 main_s = time.perf_counter() - t0
             peak_bytes = torch.cuda.max_memory_allocated()
             launches = launches_by_path[path]
@@ -2455,10 +2602,11 @@ def main() -> int:
             check(len(timers["prefill"]) == LLM_REQUESTS
                   and len(timers["model"]) == row["decode_steps"]
                   and len(timers["sample"]) == row["samples"], f"{path}: timers {timers}")
-            # the step's bound: the weights but the embedding, and the cache,
-            # read once; the SSM state and conv inputs written once
+            # the step's bound: the decoder's weights but the embedding, and
+            # the cache (whisper's cross K/V included), read once; the SSM
+            # state and conv inputs written once
             n_layers = fcfg.n_layers
-            step_bytes = (info["param_bytes"] - info["embed_bytes"] + info["cache_bytes"]
+            step_bytes = (info["decode_param_bytes"] + info["cache_bytes"]
                           + info["ssm_cache_bytes"])
             record = dict(phase=phase, arch=arch, path=path, argv=argv, main_s=main_s, **row,
                           launches=launches, layers=n_layers, d_model=fcfg.d_model,
@@ -2471,7 +2619,13 @@ def main() -> int:
                           sample_ms_median=float(np.median(timers["sample"])),
                           decode_step_bytes=step_bytes,
                           decode_step_bound_ms=step_bytes / HBM_BYTES_PER_S * 1e3,
-                          decode_step_bound_by="bytes")
+                          decode_step_bound_by="bytes", cache_bytes=info["cache_bytes"])
+            if fcfg.is_encdec:
+                record.update(cross_cache_bytes=info["cross_cache_bytes"],
+                              encoder_layers=fcfg.n_encoder_layers,
+                              encoder_len=fcfg.encoder_len)
+            if fcfg.family == "vlm":
+                record.update(image_tokens=fcfg.n_image_tokens)
             if is_moe:  # capacity drops of each prefill, experts used a decode step
                 e, k = fcfg.n_experts, fcfg.moe_top_k
                 ids = torch.arange(e, device=dev)
@@ -2521,22 +2675,32 @@ def main() -> int:
         cfg2 = dataclasses.replace(
             fcfg, n_layers=LLM_CHECK_LAYERS, dtype="float32", param_dtype_str="float32",
             cache_dtype_str="float32",
-            global_layers=tuple(g for g in fcfg.global_layers if g < LLM_CHECK_LAYERS))
+            global_layers=tuple(g for g in fcfg.global_layers if g < LLM_CHECK_LAYERS),
+            n_encoder_layers=min(fcfg.n_encoder_layers, LLM_CHECK_LAYERS))
         t0 = time.perf_counter()
         card_model = llm.init_lm(cfg2, seed=SEED, device=dev)
         host_model = llm.LM(cfg2, device="cpu")
         host_model.load_state_dict(card_model.state_dict())
         copy_s = time.perf_counter() - t0
         rs = np.random.default_rng(SEED)
-        lens = LLM_CHECK_LENS if is_moe else (FAMILY_SSM_PROMPT,)
+        lens = (FAMILY_SSM_PROMPT,) if has_ssm else LLM_CHECK_LENS
         check_prompts = [rs.integers(0, fcfg.vocab_size, n) for n in lens]
         v_ = fcfg.vocab_size
+        # the frontend stubs' inputs of each prompt, from a seed on the host
+        host_gen = torch.Generator().manual_seed(AUDIO_CHECK_SEED if fcfg.is_encdec else SEED)
+        check_extras = [{
+            **({"image_embeds": torch.randn((1, fcfg.n_image_tokens, fcfg.image_embed_dim),
+                                            generator=host_gen)}
+               if fcfg.family == "vlm" else {}),
+            **({"frames": torch.randn((1, fcfg.encoder_len, fcfg.frame_dim), generator=host_gen)}
+               if fcfg.is_encdec else {}),
+        } for _ in lens]
 
         def greedy_logits(model_, device, rows, cfg_=cfg2):
             """Per-row prefills spliced into one cache with a (B,) index, then
             greedy decode steps: the logits of every step and the experts
             chosen, on the host."""
-            max_len_ = max(lens) + LLM_CHECK_STEPS + 1
+            max_len_ = cfg_.n_image_tokens + max(lens) + LLM_CHECK_STEPS + 1
             chosen = []
             with torch.inference_mode(), recorded_routes(llm_moe, chosen):
                 cache = llm.init_cache(cfg_, len(rows), max_len_, device)
@@ -2544,7 +2708,9 @@ def main() -> int:
                 first = []
                 for r, i in enumerate(rows):
                     prompt = torch.as_tensor(check_prompts[i], dtype=torch.int32, device=device)
-                    row_logits, row = llm.prefill(model_, cfg_, {"tokens": prompt[None]},
+                    batch = {"tokens": prompt[None],
+                             **{k: x.to(device) for k, x in check_extras[i].items()}}
+                    row_logits, row = llm.prefill(model_, cfg_, batch,
                                                   llm.init_cache(cfg_, 1, max_len_, device))
 
                     def splice(shared, new):
@@ -2586,7 +2752,10 @@ def main() -> int:
         check(len(card_routes) == len(host_routes) and all(
             torch.equal(a, b) for a, b in zip(card_routes, host_routes)),
             f"{phase}: the card's experts differ from the CPU's")
-        card_cpu_diff = agree(card_run, host_run, "card against CPU")
+        if not fcfg.is_encdec:
+            card_cpu_diff = agree(card_run, host_run, "card against CPU")
+        else:  # whisper's float32 cut is chaotic (AUDIO_CHECK_F64): reported
+            card_cpu_diff = max(float((x - y).abs().max()) for x, y in zip(card_run, host_run))
         # the same weights in float64 on the CPU: the float32 runs' own
         # rounding, which a near one-hot attention over random weights
         # magnifies; the card must be within LLM_LOGIT_TOL of it, or within
@@ -2596,16 +2765,32 @@ def main() -> int:
         exact_model = llm.LM(cfg64, device="cpu")
         exact_model.load_state_dict({k: v.double() for k, v in host_model.state_dict().items()})
         exact_run, exact_routes = greedy_logits(exact_model, torch.device("cpu"), rows_, cfg64)
+        if fcfg.is_encdec:
+            # whisper is held in float64 on both sides, packed against solo too
+            card64 = llm.LM(cfg64, device=dev)
+            card64.load_state_dict(exact_model.state_dict())
+            card64_run, _ = greedy_logits(card64, dev, rows_, cfg64)
+            f64_diff = agree(card64_run, exact_run, "float64 card against float64 CPU")
+            check(f64_diff <= AUDIO_F64_TOL, f"{phase}: float64 card against float64 CPU: "
+                  f"{f64_diff} > {AUDIO_F64_TOL}")
+            solo64 = [greedy_logits(card64, dev, [i], cfg64)[0] for i in rows_]
+            solo64_run = [torch.cat([s_[t] for s_ in solo64])
+                          for t in range(LLM_CHECK_STEPS + 1)]
+            packed64_diff = agree(card64_run, solo64_run, "float64 packed against solo on the card")
+            check(packed64_diff <= AUDIO_F64_TOL, f"{phase}: float64 packed against solo: "
+                  f"{packed64_diff} > {AUDIO_F64_TOL}")
+            del card64, card64_run, solo64, solo64_run
         del exact_model
         check(len(exact_routes) == len(host_routes) and all(
             torch.equal(a, b) for a, b in zip(exact_routes, host_routes)),
             f"{phase}: float64 chooses other experts than float32 (a near tie: replace SEED)")
-        agree(host_run, [x.float() for x in exact_run], "float32 against float64 on the CPU")
         cpu_err = max(float((x.double() - y).abs().max()) for x, y in zip(host_run, exact_run))
         card_err = max(float((x.double() - y).abs().max()) for x, y in zip(card_run, exact_run))
         tol = max(LLM_LOGIT_TOL, FAMILY_F32_FACTOR * cpu_err)
-        check(card_err <= tol, f"card against float64: max |logit difference| {card_err} > "
-              f"{tol} (the CPU's float32 {cpu_err})")
+        if not fcfg.is_encdec:
+            agree(host_run, [x.float() for x in exact_run], "float32 against float64 on the CPU")
+            check(card_err <= tol, f"card against float64: max |logit difference| {card_err} > "
+                  f"{tol} (the CPU's float32 {cpu_err})")
         record = dict(phase=f"{phase}_card_equals_cpu", arch=arch, layers=LLM_CHECK_LAYERS,
                       d_model=cfg2.d_model, dtype="float32", prompt_lens=list(lens),
                       decode_steps=LLM_CHECK_STEPS,
@@ -2615,14 +2800,19 @@ def main() -> int:
                       greedy_tokens=[x.argmax(-1).tolist() for x in card_run],
                       routed_layers=len(card_routes), build_and_copy_s=copy_s,
                       cpu_run_s=host_s)
-        if len(lens) > 1:
+        if fcfg.is_encdec:
+            record.update(tolerance=None, float32_tolerance_rule_not_applied=True,
+                          float64_card_cpu_max_abs_diff=f64_diff,
+                          float64_packed_solo_max_abs_diff=packed64_diff,
+                          float64_tolerance=AUDIO_F64_TOL)
+        elif len(lens) > 1:
             solo = [greedy_logits(card_model, dev, [i])[0] for i in rows_]
             solo_run = [torch.cat([s_[t] for s_ in solo]) for t in range(LLM_CHECK_STEPS + 1)]
             packed_diff = agree(card_run, solo_run, "packed against solo on the card")
             check(packed_diff <= LLM_LOGIT_TOL,
                   f"packed against solo: {packed_diff} > {LLM_LOGIT_TOL}")
             record["packed_solo_max_abs_diff"] = packed_diff
-        if not is_moe:
+        if has_ssm:
             # one full-width Mamba-2 layer over the prompt's one chunk: the
             # chunked SSD (masked before its exponent) against the recurrence
             layer = card_model.layers[0]["mamba"]
@@ -2648,8 +2838,234 @@ def main() -> int:
         torch.cuda.empty_cache()
         emit(phase=f"{phase}_total", seconds=time.perf_counter() - t_phase)
 
+    @contextlib.contextmanager
+    def recorded_train_steps(cli_train, record):
+        """Time every train step ``launch/train.py`` runs between two
+        synchronisations and keep its metrics on the host (``record``);
+        restores the step factory on exit."""
+        real = cli_train.make_train_step
+
+        def factory(*args, **kw):
+            step_fn = real(*args, **kw)
+
+            def run(model, opt, batch):
+                sync = model.embed.is_cuda
+                if sync:
+                    torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = step_fn(model, opt, batch)
+                if sync:
+                    torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+                record.append(dict(seconds=seconds, **{k: float(out[2][k]) for k in (
+                    "loss", "grad_norm", "lr", "tokens", "ce_loss")}))
+                return out
+
+            return run
+
+        cli_train.make_train_step = factory
+        try:
+            yield
+        finally:
+            cli_train.make_train_step = real
+
+    def train_lm_phase():
+        """Phase 35; its names stay out of the phases after it."""
+        import gc
+
+        t_phase = time.perf_counter()
+        from repro_torch import configs as llm_configs
+        from repro_torch.launch import train as cli_train
+        from repro_torch.models import lm as llm
+        from repro_torch.optim import adamw as llm_adamw
+        from repro_torch.training import step as llm_step
+
+        # AdamW's fused multiply-adds (torch.addcmul) must round once on the
+        # card, as XLA's contracted ones do: against the emulation
+        fma_args = [torch.randn(1 << 22, generator=gen, device=dev) for _ in range(3)]
+        fma_mismatches = int((llm_adamw.fma(*fma_args) != prng._fma32(*fma_args)).sum())
+        check(fma_mismatches == 0, f"torch.addcmul is not one rounding on the card: "
+              f"{fma_mismatches} of {1 << 22} differ from the fused multiply-add")
+        del fma_args
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        tcfg = llm_configs.get_config(TRAIN_ARCH)
+        argv = ["--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS), "--batch", str(TRAIN_BATCH),
+                "--seq", str(TRAIN_SEQ), "--n-micro", str(TRAIN_MICRO)]
+        steps, optimizer_s = [], []
+        real_update = llm_step.adamw_update
+
+        def timed_update(*args, **kw):  # the optimizer's share of a step
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real_update(*args, **kw)
+            torch.cuda.synchronize()
+            optimizer_s.append(time.perf_counter() - t0)
+            return out
+
+        llm_step.adamw_update = timed_update
+        try:
+            with recorded_train_steps(cli_train, steps), path_run("train_lm_steps"):
+                t0 = time.perf_counter()
+                row = cli_train.main(argv)
+                main_s = time.perf_counter() - t0
+        finally:
+            llm_step.adamw_update = real_update
+        peak_bytes = torch.cuda.max_memory_allocated()
+        model, opt = row["model"], row["opt_state"]
+        check(launches_by_path["train_lm_steps"] == {k: 0 for k in launches_by_path[
+            "train_lm_steps"]}, f"training launched {launches_by_path['train_lm_steps']}")
+        check(len(steps) == TRAIN_STEPS and row["losses"] == [x["loss"] for x in steps],
+              f"train_lm: {len(steps)} steps recorded, losses {row['losses']}")
+        check(all(np.isfinite(x["loss"]) and np.isfinite(x["grad_norm"]) for x in steps),
+              f"train_lm: a loss or gradient is not finite: {steps}")
+        check(all(x["tokens"] == TRAIN_BATCH * TRAIN_SEQ for x in steps), f"train_lm: {steps}")
+        check(all(bool(torch.isfinite(p).all()) for p in model.parameters()),
+              "train_lm: a parameter is not finite")
+        check(int(opt["step"]) == TRAIN_STEPS, f"train_lm: optimizer step {int(opt['step'])}")
+        n_params = sum(p.numel() for p in model.parameters())
+        nbytes = lambda ts: sum(t.numel() * t.element_size() for t in ts)  # noqa: E731
+        param_bytes = nbytes(model.parameters())
+        moment_bytes = nbytes(opt["m"].values()) + nbytes(opt["v"].values())
+        tokens = TRAIN_BATCH * TRAIN_SEQ
+        # the step's arithmetic: 6 N a token for the forward and backward
+        # products and 2 N more for the blocks recomputed in the backward
+        # pass, plus attention's scores and values over every key block
+        # (JAX's formulation masks, never skips): 4 B S^2 h dh a layer
+        # forward, four times over with the backward and the recompute
+        model_flops = 8 * n_params * tokens
+        attn_flops = 16 * TRAIN_BATCH * TRAIN_SEQ ** 2 * tcfg.n_heads * tcfg.d_head * (
+            tcfg.n_layers)
+        bound_s = (model_flops + attn_flops) / BF16_OPS_PER_S
+        warm = [x["seconds"] for x in steps[1:]]
+        emit(phase="train_lm", argv=argv, main_s=main_s, arch=TRAIN_ARCH, layers=tcfg.n_layers,
+             fma_mismatches=fma_mismatches,
+             d_model=tcfg.d_model, dtype=str(tcfg.param_dtype), parameters=n_params,
+             param_bytes=param_bytes, moment_bytes=moment_bytes,
+             accumulator_bytes=4 * n_params if TRAIN_MICRO > 1 else 0,
+             max_memory_allocated=peak_bytes, tokens_per_step=tokens, steps=steps,
+             optimizer_s=optimizer_s,
+             step_s_median_after_first=float(np.median(warm)), step_s_range=[min(warm), max(warm)],
+             flop_bound_s=bound_s, model_flops=model_flops, attention_flops=attn_flops,
+             bound_by="operations", tokens_per_s_median=tokens / float(np.median(warm)),
+             launches=launches_by_path["train_lm_steps"])
+
+        # make_decode_sample_step on the trained weights: one mh_chain launch
+        b_, plen = 4, 16
+        prompt = torch.randint(0, tcfg.vocab_size, (b_, plen), generator=gen, device=dev,
+                               dtype=torch.int32)
+        cache = llm.init_cache(tcfg, b_, plen + 8, dev)
+        _, cache = llm.prefill(model, tcfg, {"tokens": prompt}, cache)
+        decode_sample = llm_step.make_decode_sample_step(tcfg)
+        with path_run("train_lm") as seen:
+            tokens_, cache, acc = decode_sample(model, prompt[:, -1:], cache,
+                                                prng.PRNGKey(SEED, device=dev))
+        launches = launches_by_path["train_lm"]
+        check(launches == {**{k: 0 for k in launches}, "mh_chain": 1},
+              f"train_lm decode-sample: launches {launches}")
+        check(tuple(tokens_.shape) == (b_, 1) and bool(((tokens_ >= 0)
+                                                        & (tokens_ < tcfg.vocab_size)).all()),
+              f"train_lm decode-sample: tokens {tokens_.tolist()}")
+        args, kw = seen["mh_chain"]
+        diff, err, _ = hold("mh_chain", "train_lm decode-sample first launch", from_launch(args),
+                            kw)
+        emit(phase="train_lm_decode_sample", batch=b_, prompt_len=plen,
+             tokens=tokens_[:, 0].tolist(), acceptance=float(acc), launches=launches,
+             first_launch_mismatches=diff, max_abs_err=err,
+             first_launch_shape=list(args[0].shape), cache_index=int(cache["index"]))
+        del model, opt, row, cache, seen, args, kw
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # the model cut to 2 layers in float32: two AdamW steps on the card,
+        # on the CPU, and in float64 on the CPU (its optimizer state float32,
+        # as AdamW keeps it), from the same weights and batches
+        cfg2 = dataclasses.replace(tcfg, n_layers=LLM_CHECK_LAYERS, dtype="float32",
+                                   param_dtype_str="float32", cache_dtype_str="float32",
+                                   global_layers=tuple(g for g in tcfg.global_layers
+                                                       if g < LLM_CHECK_LAYERS))
+        cfg64 = dataclasses.replace(cfg2, dtype="float64", param_dtype_str="float64",
+                                    cache_dtype_str="float64")
+        host_model = llm.init_lm(cfg2, seed=SEED, device="cpu")
+        start = {n: p.detach().double().clone() for n, p in host_model.named_parameters()}
+        runs = {}
+        for where, cfg_, device in (("card", cfg2, "cuda"), ("cpu", cfg2, "cpu"),
+                                    ("float64", cfg64, "cpu")):
+            model_ = llm.LM(cfg_, device=device)
+            model_.load_state_dict({k: v.to(cfg_.param_dtype)
+                                    for k, v in host_model.state_dict().items()})
+            record = []
+            t0 = time.perf_counter()
+            with recorded_train_steps(cli_train, record):
+                cli_train.run_training(cli_train.TrainRun(
+                    cfg=cfg_, steps=TRAIN_CHECK_STEPS, global_batch=TRAIN_CHECK_BATCH,
+                    seq_len=TRAIN_CHECK_SEQ, n_micro=TRAIN_MICRO, seed=SEED, log_every=100,
+                    device=device), model=model_)
+            params = {n: p.detach().cpu().double() for n, p in model_.named_parameters()}
+            runs[where] = (record, params, time.perf_counter() - t0)
+            del model_
+        ref_steps, ref_params, _ = runs["float64"]
+        lr_sum = sum(x["lr"] for x in ref_steps)
+        errs = {}
+        for where in ("card", "cpu"):
+            steps_, params, _ = runs[where]
+            rms = {}
+            for n, p in params.items():
+                update_rms = float((ref_params[n] - start[n]).square().mean().sqrt())
+                rms[n] = (float((p - ref_params[n]).square().mean().sqrt()), update_rms)
+            errs[where] = dict(
+                loss=max(abs(a["loss"] - b["loss"]) for a, b in zip(steps_, ref_steps)),
+                gnorm=max(abs(a["grad_norm"] - b["grad_norm"]) / b["grad_norm"]
+                          for a, b in zip(steps_, ref_steps)),
+                param_max=max(float((p - ref_params[n]).abs().max()) for n, p in params.items()),
+                rms=rms)
+        card_e, cpu_e = errs["card"], errs["cpu"]
+        loss_tol = max(TRAIN_LOSS_TOL, FAMILY_F32_FACTOR * cpu_e["loss"])
+        gnorm_tol = max(TRAIN_GNORM_RTOL, FAMILY_F32_FACTOR * cpu_e["gnorm"])
+        check(card_e["loss"] <= loss_tol, f"train cut: losses {card_e['loss']} from float64, "
+              f"past {loss_tol}")
+        check(card_e["gnorm"] <= gnorm_tol, f"train cut: grad norms {card_e['gnorm']} from "
+              f"float64 (relative), past {gnorm_tol}")
+        worst_leaf, worst_ratio = None, 0.0
+        for n, (card_rms, update_rms) in card_e["rms"].items():
+            allowed = max(TRAIN_PARAM_RMS_RTOL * update_rms,
+                          FAMILY_F32_FACTOR * cpu_e["rms"][n][0])
+            ratio = card_rms / allowed if allowed > 0 else (0.0 if card_rms == 0 else np.inf)
+            if ratio > worst_ratio:
+                worst_leaf, worst_ratio = n, ratio
+        check(worst_ratio <= 1.0, f"train cut: {worst_leaf}'s difference from float64 is "
+              f"{worst_ratio} of its allowance")
+        check(card_e["param_max"] <= 2 * lr_sum, f"train cut: a parameter {card_e['param_max']}"
+              f" from float64, past 2 x the summed lr {lr_sum}")
+        emit(phase="train_lm_card_equals_cpu", arch=TRAIN_ARCH, layers=LLM_CHECK_LAYERS,
+             dtype="float32", steps=TRAIN_CHECK_STEPS, batch=TRAIN_CHECK_BATCH,
+             seq=TRAIN_CHECK_SEQ, n_micro=TRAIN_MICRO,
+             losses={w: [x["loss"] for x in r[0]] for w, r in runs.items()},
+             grad_norms={w: [x["grad_norm"] for x in r[0]] for w, r in runs.items()},
+             card_loss_err=card_e["loss"], cpu_loss_err=cpu_e["loss"], loss_tolerance=loss_tol,
+             card_grad_norm_rel_err=card_e["gnorm"], cpu_grad_norm_rel_err=cpu_e["gnorm"],
+             grad_norm_tolerance=gnorm_tol,
+             card_param_max_abs_err=card_e["param_max"],
+             cpu_param_max_abs_err=cpu_e["param_max"], lr_sum=lr_sum,
+             worst_param_leaf=worst_leaf, worst_param_share_of_allowance=worst_ratio,
+             seconds={w: r[2] for w, r in runs.items()})
+        del runs, ref_params, errs
+        del host_model, start
+        gc.collect()
+        torch.cuda.empty_cache()
+        emit(phase="train_lm_total", seconds=time.perf_counter() - t_phase)
+
     for phase_, arch_, samplers_ in FAMILY_PHASES:
-        serve_family_phase(phase_, arch_, samplers_)
+        with depth_cut(arch_):
+            serve_family_phase(phase_, arch_, samplers_)
+
+    # 33-34. the VLM and audio families ----------------------------------------
+    serve_family_phase("serve_lm_vlm", VLM_ARCH, ("mcmc", "greedy"), max_len=VLM_MAX_LEN)
+    serve_family_phase("serve_lm_audio", AUDIO_ARCH, ("mcmc", "greedy"))
+
+    # 35. train_lm: launch/train.py at full width and depth ----------------------
+    train_lm_phase()
 
     # 12. timing --------------------------------------------------------------
     # The table (12.6 MB at V = 49,155) stays in the 50 MB L2 between

@@ -17,7 +17,10 @@ dataclass fields as ``.name``, ``None`` holding no leaf; a key joins its
 path with ``/``.  ``treedef`` holds the port's own description of the
 structure (JAX's is a repr its loaders never read); restores go by key.
 
-Tensors are copied to the host as they are.  The run state of a sampler
+Tensors are copied to the host as they are; a bfloat16 tensor (which
+numpy cannot hold) is written as JAX writes an ``ml_dtypes`` bfloat16
+array: its 2-byte words as a ``|V2`` npy, the manifest's dtype
+``bfloat16``, and a load onto a device turns it back into bfloat16.  The run state of a sampler
 (words, samples, accept counts, log-probs) is saved in the JAX package's
 dtypes through ``run_state``: uint32 words (the port carries them as
 int64 masked to 32 bits), int32 counts, float32 log-probs.
@@ -112,12 +115,17 @@ def _unflatten(like, leaves):
     return dataclasses.replace(like, **{f.name: v for f, v in zip(dataclasses.fields(like), new)})
 
 
+_BF16_WORDS = np.dtype("V2")  # how numpy reads back a bfloat16 npy
+
+
 def _to_host(leaf, copy: bool = False) -> np.ndarray:
     """A leaf as a host numpy array.  A CUDA tensor is copied (which waits
     for the work that writes it); a CPU tensor or array is shared unless
-    ``copy``."""
+    ``copy``; a bfloat16 tensor becomes its ``V2`` words."""
     if isinstance(leaf, torch.Tensor):
         leaf = leaf.detach()
+        if leaf.dtype == torch.bfloat16:
+            return _to_host(leaf.view(torch.int16), copy).view(_BF16_WORDS)
         if leaf.device.type != "cpu":
             return leaf.cpu().numpy()
         return leaf.clone().numpy() if copy else leaf.numpy()
@@ -142,6 +150,19 @@ def words_from_host(arr, device) -> torch.Tensor:
     """uint32 words (or spins) read from a checkpoint as the port's int64
     word tensor on ``device``."""
     return torch.from_numpy(np.asarray(arr).astype(np.int64)).to(device)
+
+
+def _save_npy(path: str, arr: np.ndarray) -> None:
+    """``np.save``, with bfloat16 words under ml_dtypes' descr (``<V2``),
+    so the file is byte for byte the JAX package's."""
+    if arr.dtype != _BF16_WORDS:
+        np.save(path, arr, allow_pickle=False)
+        return
+    header = np.lib.format.header_data_from_array_1_0(arr)
+    header["descr"] = "<V2"
+    with open(path, "wb") as f:
+        np.lib.format.write_array_header_1_0(f, header)
+        f.write(np.ascontiguousarray(arr).tobytes())
 
 
 def _sha256(path: str) -> str:
@@ -192,14 +213,14 @@ def save_checkpoint(directory: str, step: int, tree, extra: dict | None = None) 
             arr = _to_host(leaf)
             fname = f"leaf_{i:05d}.npy"
             fpath = os.path.join(tmp, fname)
-            np.save(fpath, arr, allow_pickle=False)
+            _save_npy(fpath, arr)
             nbytes += os.path.getsize(fpath)
             manifest["leaves"].append(
                 {
                     "key": key,
                     "file": fname,
                     "shape": list(arr.shape),
-                    "dtype": str(arr.dtype),
+                    "dtype": "bfloat16" if arr.dtype == _BF16_WORDS else str(arr.dtype),
                     "sha256": _sha256(fpath),
                 }
             )
@@ -236,9 +257,11 @@ def _read_leaf(path: str, entry: dict, verify: bool) -> np.ndarray:
 
 def _on_device(arr: np.ndarray, device) -> torch.Tensor:
     """A restored leaf as a tensor on ``device``; uint32 words widen to
-    the port's int64 carrier."""
+    the port's int64 carrier, bfloat16 words are bfloat16 again."""
     if arr.dtype == np.uint32:
         return words_from_host(arr, device)
+    if arr.dtype == _BF16_WORDS:
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16).to(device)
     return torch.from_numpy(arr).to(device)
 
 

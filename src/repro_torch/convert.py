@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.targets import GaussianMixture, GridCodec, MultivariateGaussian
-from repro_torch.models.lm import LM
+from repro_torch.models.lm import LM, STACKS
 from repro_torch.samplers.engine import (
     EngineConfig,
     EngineResult,
@@ -136,22 +136,65 @@ def _leaf_tensor(value) -> torch.Tensor:
     return torch.from_numpy(value.copy())
 
 
+def jax_path(name: str) -> tuple[tuple, int | None]:
+    """A parameter name's JAX tree path and its index on the stacked layer
+    axis (None for an unstacked leaf): block leaves sit under "layers"
+    (and the audio family's "encoder") with a leading (L,) axis."""
+    parts = name.split(".")
+    if parts[0] in STACKS:
+        return (parts[0], *parts[2:]), int(parts[1])
+    return tuple(parts), None
+
+
 def _lm_leaves(model: LM):
-    """(JAX tree path, layer or None, parameter) for every leaf: block
-    leaves sit under "layers" with a leading (L,) axis in the JAX tree."""
+    """(JAX tree path, layer or None, parameter) for every leaf."""
     for name, p in model.named_parameters():
-        parts = name.split(".")
-        if parts[0] == "layers":
-            yield ("layers", *parts[2:]), int(parts[1]), p
+        yield (*jax_path(name), p)
+
+
+def named_to_tree(named: dict, stack=np.stack) -> dict:
+    """Values keyed by parameter name (``{"layers.0.attn.wq": x, ...}``)
+    as the JAX package's value tree: nested dicts, the stacked leaves
+    joined on a leading (L,) axis by ``stack`` (``np.stack`` for numpy
+    arrays, ``torch.stack`` for tensors)."""
+    tree: dict = {}
+    stacks: dict = {}
+    for name, value in named.items():
+        path, layer = jax_path(name)
+        if layer is None:
+            node = tree
+            for key in path[:-1]:
+                node = node.setdefault(key, {})
+            node[path[-1]] = value
         else:
-            yield tuple(parts), None, p
+            stacks.setdefault(path, []).append((layer, value))
+    for path, values in stacks.items():
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = stack([v for _, v in sorted(values, key=lambda lv: lv[0])])
+    return tree
+
+
+def tree_to_named(tree: dict, names) -> dict:
+    """The inverse of ``named_to_tree``: each name's value (a stacked
+    leaf's row), read from the JAX layout."""
+    out = {}
+    for name in names:
+        path, layer = jax_path(name)
+        node = tree
+        for key in path:
+            node = node[key]
+        out[name] = node if layer is None else node[layer]
+    return out
 
 
 def lm_from_numpy(values, cfg, device=None) -> LM:
     """The port's ``LM`` holding the JAX package's weights: ``values`` is
     ``init_lm_values(key, cfg)[0]`` as numpy arrays (nested dicts; the
-    ``layers`` leaves stacked on a leading (L,) axis).  Every leaf of the
-    tree must be used and of the module's shape; each is cast to its
+    ``layers`` and ``encoder`` leaves stacked on a leading (L,) axis).
+    Every leaf of the tree must be used and of the module's shape; each
+    is cast to its
     module leaf's dtype: the parameter dtype, or float32 for the MoE
     router, the SSM's ``A_log``, ``D`` and ``dt_bias`` and the hybrid's
     ``branch_scale``, as in the JAX tree."""
@@ -186,23 +229,11 @@ def lm_from_numpy(values, cfg, device=None) -> LM:
 
 def lm_to_numpy(model: LM) -> dict:
     """The model's weights as the JAX package's value tree of numpy arrays
-    (``layers`` leaves stacked on a leading (L,) axis); a bfloat16 leaf is
-    widened to float32, which ``lm_from_numpy`` narrows back exactly."""
-    tree: dict = {}
-    stacks: dict = {}
-    for path, layer, p in _lm_leaves(model):
-        value = p.detach().float().cpu().numpy() if p.dtype == torch.bfloat16 else (
+    (``layers`` and ``encoder`` leaves stacked on a leading (L,) axis); a
+    bfloat16 leaf is widened to float32, which ``lm_from_numpy`` narrows
+    back exactly."""
+    return named_to_tree({
+        name: p.detach().float().cpu().numpy() if p.dtype == torch.bfloat16 else (
             p.detach().cpu().numpy())
-        if layer is None:
-            node = tree
-            for key in path[:-1]:
-                node = node.setdefault(key, {})
-            node[path[-1]] = value
-        else:
-            stacks.setdefault(path, []).append(value)
-    for path, values in stacks.items():
-        node = tree
-        for key in path[:-1]:
-            node = node.setdefault(key, {})
-        node[path[-1]] = np.stack(values)
-    return tree
+        for name, p in model.named_parameters()
+    })

@@ -1,7 +1,8 @@
 # Chain-axis sharding of the PyTorch port: the "chains" logical-axis rule
-# of repro.distributed.sharding, resolved on a torch DeviceMesh.  The LLM
-# rules (batch, heads, vocab, ...) wait for the LLM scaffolding
-# (ROADMAP.md queue 1, item 10).
+# of repro.distributed.sharding, resolved on a torch DeviceMesh; and the
+# training loop's host-only fault handling (fault.PreemptionHandler,
+# straggler.StragglerWatchdog).  The LLM rules (batch, heads, vocab, ...)
+# and the gradient compression wait for ROADMAP.md queue 1 item 10g.
 
 from repro_torch.distributed.sharding import (  # noqa: F401
     DEFAULT_RULES,

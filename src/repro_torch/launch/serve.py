@@ -102,9 +102,19 @@ class BatchedServer:
         prompt = torch.as_tensor(np.asarray(req.prompt), dtype=torch.int32,
                                  device=self.device)[None, :]
         row_cache = lm.init_cache(cfg, 1, self.scfg.max_len, self.device)
-        logits, row_cache = lm.prefill(self.model, cfg, {"tokens": prompt}, row_cache)
+        batch = {"tokens": prompt}
+        # the frontend stubs' inputs: zero patch or frame embeddings
+        if cfg.family == "vlm":
+            batch["image_embeds"] = torch.zeros(
+                (1, cfg.n_image_tokens, cfg.image_embed_dim), dtype=cfg.compute_dtype,
+                device=self.device)
+        if cfg.is_encdec:
+            batch["frames"] = torch.zeros((1, cfg.encoder_len, cfg.frame_dim),
+                                          dtype=cfg.compute_dtype, device=self.device)
+        logits, row_cache = lm.prefill(self.model, cfg, batch, row_cache)
         # splice the prefilled row into the shared slot cache, leaf by
-        # leaf (a KV cache, an SSM state, or the hybrid's nested pair)
+        # leaf (a KV cache, an SSM state, the hybrid's or whisper's nested
+        # pair)
         def splice(shared, row):
             shared[:, slot:slot + 1] = row
 

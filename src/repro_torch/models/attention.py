@@ -16,9 +16,9 @@ as the JAX package's einsums ask with ``preferred_element_type``
 The JAX package's ``_gqa_layout`` and ``shard(...)`` annotations place
 heads and the cache on a device mesh; on one device without a mesh they
 are the identity, so the port leaves them out.  A decode step writes the
-KV cache in place (the stacked buffer is the server's one allocation).
-The audio family's non-causal encoder attention and cross-attention are
-not ported yet.
+KV cache in place (the stacked buffer is the server's one allocation),
+and so does a cross-attention prefill (the encoder's K/V, stored once
+for the decode steps).
 """
 
 from __future__ import annotations
@@ -26,7 +26,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.models.layers import apply_rope, matmul_f32, param, rms_norm
+from repro_torch.models.layers import apply_rope, matmul_f32, param, rms_norm, wide
 
 NEG_INF = -1e30
 GLOBAL_WINDOW = 2**30  # "no window" sentinel
@@ -70,12 +70,12 @@ def _q_block(qt, q_pos, kb, vb, n_kv: int, block_kv: int, window, causal, sk_val
     """One query block against its first ``n_kv`` key/value blocks.
 
     qt: (B, KV, R, bq, dh); kb, vb: (nk, B, bk, KV, dh).  Returns
-    (B, bq, KV, R, dh) float32."""
+    (B, bq, KV, R, dh) float32 (float64 for float64 operands)."""
     b, kvh, r, bq, dh = qt.shape
-    dev = qt.device
-    m_run = torch.full((b, kvh, r, bq), NEG_INF, dtype=torch.float32, device=dev)
-    l_run = torch.zeros((b, kvh, r, bq), dtype=torch.float32, device=dev)
-    acc = torch.zeros((b, kvh, r, bq, dh), dtype=torch.float32, device=dev)
+    dev, acc_dtype = qt.device, wide(qt.dtype)
+    m_run = torch.full((b, kvh, r, bq), NEG_INF, dtype=acc_dtype, device=dev)
+    l_run = torch.zeros((b, kvh, r, bq), dtype=acc_dtype, device=dev)
+    acc = torch.zeros((b, kvh, r, bq, dh), dtype=acc_dtype, device=dev)
     for kj in range(n_kv):
         kt = kb[kj].transpose(1, 2)  # (B, KV, bk, dh)
         vt = vb[kj].transpose(1, 2)
@@ -177,9 +177,15 @@ def update_rows(buf, upd, start) -> None:
     non-negative int or scalar tensor, or a (B,) per-row start as under
     ``vmap``), in place.  Each start is clamped to [0, Smax - s] as XLA clamps it: an idle server
     slot keeps decoding past its cache, and its rows then rewrite the
-    last position."""
+    last position.  An update longer than the buffer raises
+    ``ValueError``, whatever the start, where JAX raises ``TypeError``:
+    a clamped start would be negative and wrap."""
     b, s = upd.shape[:2]
     last = buf.shape[1] - s
+    if last < 0:
+        raise ValueError(
+            f"an update of shape {tuple(upd.shape)} is longer than the buffer of shape "
+            f"{tuple(buf.shape)} along the sequence axis")
     if isinstance(start, int):  # a prefill's 0: a slice, no index tensor
         start = min(max(start, 0), last)
         buf[:, start:start + s] = upd.to(buf.dtype)
@@ -199,51 +205,70 @@ def attention(
     cache=None,
     cache_index=None,
     window=None,
+    causal: bool = True,
+    kv_input=None,
+    use_rope: bool = True,
+    cross: bool = False,
 ):
-    """Causal self-attention with RoPE.  Returns (out, new_cache).
+    """Full attention layer.  Returns (out, new_cache).
 
-    mode: "full" (prefill over the whole sequence) or "decode".  The
-    cache is dict(k, v) of (B, Smax, KV, dh), written in place;
-    ``cache_index`` is the number of valid entries *before* this call
-    (an int32 scalar or (B,) tensor).
+    mode: "full" (train / prefill over the whole sequence) or "decode".
+    Self-attention cache: dict(k, v) of (B, Smax, KV, dh), written in
+    place; ``cache_index`` is the number of valid entries *before* this
+    call (an int32 scalar or (B,) tensor).  Cross-attention
+    (``cross=True``): K/V come from ``kv_input`` in full mode (and are
+    written into the cache, cast to its dtype), or from ``cache`` in
+    decode, which reads all of it and writes nothing.
     """
     b, s, d = x.shape
     h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     r = h // kv
 
-    def project(w, heads):  # "bsd,dhk->bshk"
-        return (x @ w.to(x.dtype).reshape(d, heads * dh)).reshape(b, s, heads, dh)
+    def project(src, w, heads):  # "bsd,dhk->bshk"
+        return (src @ w.to(x.dtype).reshape(d, heads * dh)).reshape(*src.shape[:2], heads, dh)
 
-    q = project(params["wq"], h)
-    k = project(params["wk"], kv)
-    v = project(params["wv"], kv)
+    q = project(x, params["wq"], h)
+    kv_src = kv_input if cross else x
+    k = v = None  # cross-attention decode reads the prefilled cache
+    if not (cross and mode == "decode"):
+        k = project(kv_src, params["wk"], kv)
+        v = project(kv_src, params["wv"], kv)
 
     if "q_norm" in params:
         q = rms_norm(q, params["q_norm"])
-        k = rms_norm(k, params["k_norm"])
+        if k is not None:
+            k = rms_norm(k, params["k_norm"])
 
-    q = _rope_heads(q, positions, cfg.rope_theta)
-    k = _rope_heads(k, positions, cfg.rope_theta)
+    if use_rope and not cross:
+        q = _rope_heads(q, positions, cfg.rope_theta)
+        k = _rope_heads(k, positions, cfg.rope_theta)
 
     q = q.reshape(b, s, kv, r, dh)
 
     new_cache = cache
     if mode == "decode":
-        # append this step's k/v at the cache index; a (B,) per-row index
-        # writes each row at its own position
-        update_rows(cache["k"], k, cache_index)
-        update_rows(cache["v"], v, cache_index)
+        if not cross:
+            # append this step's k/v at the cache index; a (B,) per-row
+            # index writes each row at its own position
+            update_rows(cache["k"], k, cache_index)
+            update_rows(cache["v"], v, cache_index)
+            index = cache_index + s
+        else:
+            index = cache["k"].shape[1]
         out = decode_attention(
-            q, cache["k"], cache["v"], index=cache_index + s, window=window,
+            q, cache["k"], cache["v"], index=index, window=None if cross else window,
         )
         out = out.reshape(b, s, h, dh)
     else:
-        if cache is not None:  # prefill: write the whole sequence into the cache
+        if cache is not None and not cross:  # prefill: the whole sequence into the cache
             update_rows(cache["k"], k, 0)
             update_rows(cache["v"], v, 0)
+        elif cache is not None:  # whisper prefill: stash the encoder's K/V for decode
+            cache["k"].copy_(k)
+            cache["v"].copy_(v)
         out = flash_attention(
             q, k, v,
-            causal=True,
+            causal=causal,
             window=window,
             q_offset=0,
             block_q=cfg.attn_block_q,

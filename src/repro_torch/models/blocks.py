@@ -2,12 +2,14 @@
 ``repro.models.blocks``.
 
 A block's parameters sit under the JAX tree's names (``ln1``, ``attn``,
-``ln2``, ``mlp``, ``moe``, ``mamba``, ``branch_scale``) in a ``Block``, a
-``ModuleDict`` of ``ParameterDict``s (``branch_scale`` is a parameter of
-the block itself), so the weight converter maps leaf paths one to one.
-``init_block`` / ``apply_block`` keep the JAX signatures.  The audio
-family's ``encoder`` and ``encoder_cross`` kinds are not ported yet and
-raise ``NotImplementedError`` naming the ROADMAP item that ports them.
+``ln_cross``, ``cross``, ``ln2``, ``mlp``, ``moe``, ``mamba``,
+``branch_scale``) in a ``Block``, a ``ModuleDict`` of ``ParameterDict``s
+(``branch_scale`` is a parameter of the block itself), so the weight
+converter maps leaf paths one to one.  ``init_block`` / ``apply_block``
+keep the JAX signatures.  The audio family's ``encoder`` block is
+bidirectional self-attention without RoPE or cache; its
+``encoder_cross`` block (the whisper decoder) adds cross-attention over
+the encoder's output between self-attention and the MLP.
 """
 
 from __future__ import annotations
@@ -20,21 +22,11 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import activation, layer_norm, param, rms_norm
 
-KINDS = ("dense", "vlm", "moe", "ssm", "hybrid")
-
-# the kinds still to port, and where (ROADMAP.md queue 1 item 10)
-NOT_PORTED = {
-    "encoder": "queue 1 item 10e (the audio family)",
-    "encoder_cross": "queue 1 item 10e (the audio family)",
-}
+KINDS = ("dense", "vlm", "moe", "ssm", "hybrid", "encoder", "encoder_cross")
 
 
 def check_kind(kind: str) -> None:
-    """Raise for a block kind the port does not have yet."""
-    if kind in NOT_PORTED:
-        raise NotImplementedError(
-            f"the {kind!r} block is not ported yet: ROADMAP.md {NOT_PORTED[kind]}"
-        )
+    """Raise for an unknown block kind."""
     if kind not in KINDS:
         raise ValueError(f"unknown block kind {kind!r}")
 
@@ -118,6 +110,9 @@ def init_block(gen, cfg, *, kind: str | None = None, device=None) -> Block:
         p["mlp"] = init_mlp(gen, cfg, device)
     else:
         p["attn"] = attn_mod.init_attention(gen, cfg, device)
+        if kind == "encoder_cross":  # whisper decoder block
+            p["ln_cross"] = _norm_params(gen, cfg, device)
+            p["cross"] = attn_mod.init_attention(gen, cfg, device)
         p["ln2"] = _norm_params(gen, cfg, device)
         if kind == "moe":
             p["moe"] = moe_mod.init_moe(gen, cfg, device)
@@ -136,6 +131,7 @@ def apply_block(
     cache=None,
     cache_index=None,
     meta=None,
+    enc_out=None,
     kind: str | None = None,
 ):
     """Returns (x, new_cache, aux_loss).
@@ -145,14 +141,17 @@ def apply_block(
       dense/moe/vlm : {"k", "v"}
       ssm           : {"state", "conv_x", "conv_B", "conv_C"}
       hybrid        : {"attn": {...}, "ssm": {...}}
+      encoder_cross : {"self": {...}, "cross": {"k", "v"}}
     The auxiliary loss is the MoE router's (a float32 scalar), else 0.0.
 
     ``meta`` is this layer's slice of ``lm.layer_metas``: ``is_global``
-    picks the layer's window when ``cfg.sliding_window`` is set."""
+    picks the layer's window when ``cfg.sliding_window`` is set.
+    ``enc_out`` is the encoder's output, which an ``encoder_cross``
+    block attends to outside decode."""
     kind = kind or cfg.family
     check_kind(kind)
     window = None
-    if cfg.sliding_window > 0:
+    if cfg.sliding_window > 0 and kind != "encoder":
         window = cfg.sliding_window
         if meta is not None and meta.get("is_global", False):
             window = attn_mod.GLOBAL_WINDOW
@@ -180,17 +179,30 @@ def apply_block(
         x = x + apply_mlp(p["mlp"], apply_norm(p["ln2"], x, cfg), cfg)
         return x, None if cache is None else {"attn": a_cache, "ssm": s_cache}, 0.0
 
+    # attention families (dense / moe / vlm / encoder / encoder_cross)
+    self_cache = cache["self"] if kind == "encoder_cross" and cache is not None else cache
     a_out, new_cache = attn_mod.attention(
         p["attn"],
         h,
         cfg,
         positions=positions,
         mode=attn_mode,
-        cache=cache,
+        cache=None if kind == "encoder" else self_cache,
         cache_index=cache_index,
         window=window,
+        causal=kind != "encoder",
+        use_rope=kind != "encoder",
     )
     x = x + a_out
+    if kind == "encoder_cross":
+        c_out, cross_cache = attn_mod.attention(
+            p["cross"], apply_norm(p["ln_cross"], x, cfg), cfg, positions=positions,
+            mode=attn_mode, cache=None if cache is None else cache["cross"], causal=False,
+            kv_input=enc_out, use_rope=False, cross=True,
+        )
+        x = x + c_out
+        if cache is not None:
+            new_cache = {"self": new_cache, "cross": cross_cache}
     h2 = apply_norm(p["ln2"], x, cfg)
     if kind == "moe":
         m_out, aux = moe_mod.moe_ffn(p["moe"], h2, cfg, activation(cfg.act))

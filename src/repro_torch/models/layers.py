@@ -13,8 +13,9 @@ for a sharding layer to read.  The values are drawn from an explicit
 packages hold the same function of the weights, and the weights cross
 between them through ``repro_torch.convert.lm_from_numpy``.
 
-Parameters are made with ``requires_grad=False``: this is the serving
-half of the model (ROADMAP.md queue 1 item 10).
+Parameters are made with ``requires_grad=False``: serving records no
+graph; training turns gradients on for the model it trains
+(``training.step.make_train_step``).
 """
 
 from __future__ import annotations
@@ -58,21 +59,27 @@ def param(gen, shape, axes, dtype=torch.float32, scale: float | None = None,
 # --- numerics --------------------------------------------------------------
 
 
+def wide(dtype: torch.dtype) -> torch.dtype:
+    """The type the float32 parts of the JAX functions compute in: float32,
+    or float64 for a model run in float64 as a reference."""
+    return torch.promote_types(dtype, torch.float32)
+
+
 def rms_norm(x, weight, eps: float = 1e-5):
     dtype = x.dtype
-    x = x.float()
+    x = x.to(wide(dtype))
     var = torch.mean(torch.square(x), dim=-1, keepdim=True)
     out = x * torch.rsqrt(var + eps)
-    return (out * weight.float()).to(dtype)
+    return (out * weight.to(x.dtype)).to(dtype)
 
 
 def layer_norm(x, weight, bias, eps: float = 1e-5):
     dtype = x.dtype
-    x = x.float()
+    x = x.to(wide(dtype))
     mean = torch.mean(x, dim=-1, keepdim=True)
     var = torch.var(x, dim=-1, keepdim=True, correction=0)
     out = (x - mean) * torch.rsqrt(var + eps)
-    return (out * weight.float() + bias.float()).to(dtype)
+    return (out * weight.to(x.dtype) + bias.to(x.dtype)).to(dtype)
 
 
 def activation(name: str):
@@ -85,18 +92,43 @@ def activation(name: str):
     }[name]
 
 
+class _MmFloat32(torch.autograd.Function):
+    """``torch.mm(a, b, out_dtype=float32)``, which has no derivative of
+    its own, with one: the backward pass runs the plain products on the
+    widened operands and casts each gradient to its operand's dtype, as
+    JAX's transposed dots give them."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return torch.mm(a, b, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, grad):
+        a, b = ctx.saved_tensors
+        grad_a = grad_b = None
+        if ctx.needs_input_grad[0]:
+            grad_a = (grad @ b.float().t()).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            grad_b = (a.float().t() @ grad).to(b.dtype)
+        return grad_a, grad_b
+
+
 def matmul_f32(a, b):
     """``a @ b`` with float32 results, as the JAX package's dots with
     ``preferred_element_type=float32``: the operands' products summed in
     float32.  On the card two matrices of one narrower type take
     ``torch.mm(..., out_dtype=float32)`` (cuBLAS sums in float32 and
     writes float32: the head's product, whose weight is too large to
-    widen every step); other operands are widened first, which is exact
-    (a bfloat16 product fits a float32), so the sum is the same function."""
-    if a.dtype == torch.float32 and b.dtype == torch.float32:
+    widen every step), through ``_MmFloat32`` so that training can
+    differentiate it; other operands are widened first, which is exact
+    (a bfloat16 product fits a float32), so the sum is the same function.
+    Two float64 operands keep float64 (a model run in float64 as a
+    reference for the float32 one)."""
+    if a.dtype == b.dtype and a.dtype in (torch.float32, torch.float64):
         return a @ b
     if a.is_cuda and a.ndim == 2 and b.ndim == 2 and a.dtype == b.dtype:
-        return torch.mm(a, b, out_dtype=torch.float32)
+        return _MmFloat32.apply(a, b)
     return a.float() @ b.float()
 
 
@@ -116,9 +148,10 @@ def rope_frequencies(d_head: int, theta: float = 10000.0, device=None):
 def apply_rope(x, positions, theta: float = 10000.0):
     """x: (..., S, dh) with positions (..., S) -> rotated x, f32 math."""
     dh = x.shape[-1]
-    inv = rope_frequencies(dh, theta, device=x.device)
-    angles = positions[..., None].float() * inv                    # (..., S, dh/2)
+    w = wide(x.dtype)
+    inv = rope_frequencies(dh, theta, device=x.device).to(w)
+    angles = positions[..., None].to(w) * inv                      # (..., S, dh/2)
     cos, sin = torch.cos(angles), torch.sin(angles)
-    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    x1, x2 = torch.chunk(x.to(w), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)

@@ -1,25 +1,33 @@
-"""The language model's serving half — the port of ``repro.models.lm``.
+"""The language model — the port of ``repro.models.lm``.
 
 ``LM`` is an ``nn.Module``: embed -> blocks in an ``nn.ModuleList`` ->
 final norm -> head, with the JAX tree's names (``embed``, ``layers``,
-``final_norm``, ``lm_head``).  ``lm_forward``, ``head_logits``,
-``prefill`` and ``decode_step`` keep the JAX signatures with the model
-in place of the value tree.  The dense, MoE, SSM (Mamba-2) and hybrid
-(Hymba) families are ported; the VLM and audio families raise
-``NotImplementedError``, and the training half (``chunked_ce_loss``,
-``train_loss``) waits for the training slice (ROADMAP.md queue 1 item
-10).
+``final_norm``, ``lm_head``; the VLM's ``img_proj``; the audio family's
+``audio_proj``, ``enc_pos``, ``encoder`` and ``enc_norm``).
+``lm_forward``, ``head_logits``, ``chunked_ce_loss``, ``train_loss``,
+``prefill`` and ``decode_step`` keep the JAX signatures with the model in
+place of the value tree.  All ten architectures' families are ported:
+dense, MoE, SSM (Mamba-2), hybrid (Hymba), VLM (the patch embeddings'
+projection spliced in front of the tokens) and audio (whisper: an
+encoder over frame embeddings, cross-attended by every decoder layer).
 
 Cache contract: ``{"index": int32 scalar or (B,) per-row tensor,
 "layers": <stacked per-layer tree>}``, the JAX package's layout: every
 leaf leads with the layer axis — ``{"k", "v"}`` of ``(L, B, Smax, KV,
 dh)`` for the attention families, the SSM state and conv inputs
-(``ssm.init_ssm_cache``) for ``ssm``, and ``{"attn": ..., "ssm": ...}``
-for ``hybrid``.  A per-row index lets rows sit at different cache depths
-— the slot-local positions continuous-batching serving needs.  Unlike
-the JAX functions, ``prefill`` and ``decode_step`` write the layer
-buffers in place and return them in the new cache (with a new index):
-the caller's old cache dict shares them.
+(``ssm.init_ssm_cache``) for ``ssm``, ``{"attn": ..., "ssm": ...}`` for
+``hybrid``, and ``{"self": {k, v}, "cross": {k, v}}`` for audio, the
+cross leaves ``(L, B, encoder_len, KV, dh)``.  A per-row index lets rows
+sit at different cache depths — the slot-local positions
+continuous-batching serving needs.  Unlike the JAX functions,
+``prefill`` and ``decode_step`` write the layer buffers in place and
+return them in the new cache (with a new index): the caller's old cache
+dict shares them.
+
+In train mode each block runs under a non-reentrant
+``torch.utils.checkpoint`` when ``cfg.remat_policy`` is ``"nothing"`` or
+``"dots"`` (JAX's ``_remat``): its activations are recomputed in the
+backward pass, which changes no value.
 """
 
 from __future__ import annotations
@@ -27,6 +35,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import blocks
@@ -35,20 +44,16 @@ from repro_torch.models.blocks import apply_norm
 from repro_torch.models.layers import matmul_f32, param
 from repro_torch.samplers.engine import resolve_device
 
-# the families still to port, and where (ROADMAP.md queue 1 item 10)
-FAMILIES_NOT_PORTED = {
-    "vlm": "queue 1 item 10d (the VLM family)",
-    "audio": "queue 1 item 10e (the audio family)",
-}
+STACKS = ("layers", "encoder")  # module lists whose leaves JAX stacks on a layer axis
 
 
-def _check_family(cfg) -> None:
-    family = "audio" if cfg.is_encdec else cfg.family
-    if family in FAMILIES_NOT_PORTED:
-        raise NotImplementedError(
-            f"the {family!r} family ({cfg.name}) is not ported yet: ROADMAP.md "
-            f"{FAMILIES_NOT_PORTED[family]}"
-        )
+def _proj_params(gen, d_in: int, cfg, device=None) -> nn.ParameterDict:
+    """A frontend stub's projection (``img_proj``, ``audio_proj``)."""
+    d, dt = cfg.d_model, cfg.param_dtype
+    return nn.ParameterDict({
+        "w": param(gen, (d_in, d), (None, "embed_tp"), dt, device=device),
+        "b": param(gen, (d,), ("embed",), dt, mode="zeros", device=device),
+    })
 
 
 class LM(nn.Module):
@@ -58,19 +63,30 @@ class LM(nn.Module):
 
     def __init__(self, cfg, gen: torch.Generator | None = None, device=None):
         super().__init__()
-        _check_family(cfg)
         d, vp, dt = cfg.d_model, cfg.padded_vocab, cfg.param_dtype
         self.cfg = cfg
         self.embed = param(gen, (vp, d), ("vocab", "embed"), dt, scale=1.0, device=device)
+        kind = "encoder_cross" if cfg.is_encdec else None
         self.layers = nn.ModuleList(
-            blocks.init_block(gen, cfg, device=device) for _ in range(cfg.n_layers)
+            blocks.init_block(gen, cfg, kind=kind, device=device) for _ in range(cfg.n_layers)
         )
         self.final_norm = blocks._norm_params(gen, cfg, device)
         self.lm_head = param(gen, (d, vp), ("embed", "vocab"), dt, device=device)
-        # logical sharding axes by parameter name; a block leaf's gain the
-        # stacked "layers" axis, as in the JAX tree
+        if cfg.family == "vlm":
+            self.img_proj = _proj_params(gen, cfg.image_embed_dim, cfg, device)
+        if cfg.is_encdec:  # audio / whisper
+            self.audio_proj = _proj_params(gen, cfg.frame_dim, cfg, device)
+            self.enc_pos = param(gen, (cfg.encoder_len, d), ("seq", "embed_tp"), dt, scale=0.02,
+                                 device=device)
+            self.encoder = nn.ModuleList(
+                blocks.init_block(gen, cfg, kind="encoder", device=device)
+                for _ in range(cfg.n_encoder_layers)
+            )
+            self.enc_norm = blocks._norm_params(gen, cfg, device)
+        # logical sharding axes by parameter name; a stacked leaf gains the
+        # "layers" axis, as in the JAX tree
         self.param_axes = {
-            name: (("layers",) if name.startswith("layers.") else ()) + p.logical_axes
+            name: (("layers",) if name.split(".")[0] in STACKS else ()) + p.logical_axes
             for name, p in self.named_parameters()
         }
 
@@ -97,7 +113,6 @@ def tree_map(fn, *trees):
 
 
 def _layer_cache(cfg, batch: int, max_len: int, device=None):
-    _check_family(cfg)
     L, dt = cfg.n_layers, cfg.cache_dtype
     if cfg.family == "ssm":
         return ssm_mod.init_ssm_cache(cfg, batch, n_layers=L, dtype=dt, device=device)
@@ -105,6 +120,11 @@ def _layer_cache(cfg, batch: int, max_len: int, device=None):
         return {
             "attn": attn_mod.init_kv_cache(cfg, batch, max_len, L, dt, device),
             "ssm": ssm_mod.init_ssm_cache(cfg, batch, n_layers=L, dtype=dt, device=device),
+        }
+    if cfg.is_encdec:
+        return {
+            "self": attn_mod.init_kv_cache(cfg, batch, max_len, L, dt, device),
+            "cross": attn_mod.init_kv_cache(cfg, batch, cfg.encoder_len, L, dt, device),
         }
     return attn_mod.init_kv_cache(cfg, batch, max_len, L, dt, device)
 
@@ -133,42 +153,85 @@ def layer_metas(cfg):
 # --- forward -------------------------------------------------------------------
 
 
+def _remat(cfg, mode: str) -> bool:
+    """Whether train mode recomputes each block in the backward pass."""
+    return mode == "train" and cfg.remat_policy in ("nothing", "dots") and (
+        torch.is_grad_enabled())
+
+
+def _stack_apply(stack, x, cfg, *, mode: str, positions, cache_layers=None, cache_index=None,
+                 metas=None, enc_out=None, remat: bool = False):
+    """The blocks of ``stack`` in order; returns (x, the summed aux loss)."""
+    aux = 0.0
+    for i, layer in enumerate(stack):
+        cl = None if cache_layers is None else tree_map(lambda t: t[i], cache_layers)
+        meta = None if metas is None else {n: bool(v[i]) for n, v in metas.items()}
+        kw = dict(mode=mode, positions=positions, cache=cl, cache_index=cache_index, meta=meta,
+                  enc_out=enc_out)
+        if remat:
+            x, _, a = checkpoint(layer, x, use_reentrant=False, **kw)
+        else:
+            x, _, a = layer(x, **kw)
+        aux = aux + a
+    return x, aux
+
+
+def _encode_audio(model: LM, cfg, frames, remat: bool = False):
+    """Stub frontend: precomputed mel-frame features -> encoder stack."""
+    cdt = cfg.compute_dtype
+    w, b = model.audio_proj["w"], model.audio_proj["b"]
+    x = frames.to(cdt) @ w.to(cdt) + b
+    x = x + model.enc_pos.to(cdt)[None]
+    pos = torch.arange(cfg.encoder_len, device=x.device)
+    x, _ = _stack_apply(model.encoder, x, cfg, mode="full", positions=pos, remat=remat)
+    return apply_norm(model.enc_norm, x, cfg)
+
+
 def lm_forward(model: LM, cfg, batch, *, mode: str, cache=None):
     """Backbone forward: returns (hidden (B,S,d), new_cache, aux_loss);
     the auxiliary loss is the blocks' sum (the MoE routers' losses; 0.0
     for the other families).
 
-    batch: {"tokens": (B, S) int}.  mode: "prefill" or "decode" ("train"
-    runs the prefill path without a cache).
+    batch: {"tokens": (B, S) int} plus family extras ("image_embeds"
+    (B, n_image_tokens, image_embed_dim) for vlm, "frames" (B,
+    encoder_len, frame_dim) for audio; both unused in decode).
+    mode: "train" | "prefill" | "decode".
     """
     tokens = batch["tokens"]
     b, s_tok = tokens.shape
     index = None if cache is None else cache["index"]
     dev = model.embed.device
+    remat = _remat(cfg, mode)
+
+    enc_out = None
+    if cfg.is_encdec and mode != "decode":
+        enc_out = _encode_audio(model, cfg, batch["frames"], remat)
 
     x = model.embed[tokens].to(cfg.compute_dtype)
+    if cfg.family == "vlm" and mode != "decode":
+        cdt = cfg.compute_dtype
+        w, bias = model.img_proj["w"], model.img_proj["b"]
+        img = batch["image_embeds"].to(cdt) @ w.to(cdt) + bias
+        x = torch.cat([img, x], dim=1)
+
+    s_total = x.shape[1]
     if mode == "decode":
         # scalar index -> (s_tok,) positions; per-row (B,) index -> (B,
         # s_tok), so rows at different cache depths decode in one batch
         positions = index[..., None] + torch.arange(s_tok, device=dev)
     else:
-        positions = torch.arange(s_tok, device=dev)
+        positions = torch.arange(s_total, device=dev)
 
-    metas = layer_metas(cfg)
-    aux = 0.0
-    for i, layer in enumerate(model.layers):
-        cl = None if cache is None else tree_map(lambda t: t[i], cache["layers"])
-        meta = None if metas is None else {n: bool(v[i]) for n, v in metas.items()}
-        x, _, a = layer(
-            x, mode="decode" if mode == "decode" else "full", positions=positions,
-            cache=cl, cache_index=index, meta=meta,
-        )
-        aux = aux + a
+    x, aux = _stack_apply(
+        model.layers, x, cfg, mode="decode" if mode == "decode" else "full",
+        positions=positions, cache_layers=None if cache is None else cache["layers"],
+        cache_index=index, metas=layer_metas(cfg), enc_out=enc_out, remat=remat)
     x = apply_norm(model.final_norm, x, cfg)
 
     new_cache = None
     if cache is not None:
-        new_cache = {"index": index + s_tok, "layers": cache["layers"]}
+        new_index = index + (s_tok if mode == "decode" else s_total)
+        new_cache = {"index": new_index, "layers": cache["layers"]}
     return x, new_cache, aux
 
 
@@ -182,18 +245,81 @@ def head_logits(model: LM, cfg, hidden):
     return logits
 
 
+def _chunk_terms(model: LM, cfg, h, lab):
+    """One chunk's (nll sum, z sum, count): float32 logits, their
+    logsumexp, the label's logit; negative labels masked out."""
+    logits = head_logits(model, cfg, h)
+    logz = torch.logsumexp(logits, dim=-1)
+    ll = torch.take_along_dim(logits, lab.clamp_min(0)[..., None].long(), dim=-1)[..., 0]
+    mask = (lab >= 0).float()
+    nll = torch.sum((logz - ll) * mask)
+    zl = torch.sum(torch.square(logz) * mask) if cfg.z_loss > 0 else torch.zeros_like(nll)
+    return nll, zl, torch.sum(mask)
+
+
+def chunked_ce_loss(model: LM, cfg, hidden, labels):
+    """Cross-entropy over seq chunks; logits never fully materialised.
+
+    labels: (B, S) int with negative values masked out.  The chunk is the
+    largest divisor of S at most ``cfg.logits_chunk``; each chunk runs
+    under a non-reentrant checkpoint when gradients are recorded, so the
+    backward pass recomputes its logits and peak memory holds a single
+    (B, chunk, V) float32 block, as ``jax.checkpoint`` does.  Returns
+    (loss, count): the mean over unmasked labels plus ``z_loss`` times
+    the mean squared logsumexp, and the number of unmasked labels.
+    """
+    b, s, d = hidden.shape
+    c = min(cfg.logits_chunk, s)
+    while s % c:
+        c -= 1
+    zero = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    loss_sum, z_sum, count = zero, zero, zero
+    for i in range(s // c):
+        h, lab = hidden[:, i * c:(i + 1) * c], labels[:, i * c:(i + 1) * c]
+        if torch.is_grad_enabled():
+            nll, zl, n = checkpoint(_chunk_terms, model, cfg, h, lab, use_reentrant=False)
+        else:
+            nll, zl, n = _chunk_terms(model, cfg, h, lab)
+        loss_sum, z_sum, count = loss_sum + nll, z_sum + zl, count + n
+    denom = torch.clamp_min(count, 1.0)
+    return loss_sum / denom + cfg.z_loss * z_sum / denom, count
+
+
+def train_loss(model: LM, cfg, batch):
+    """Scalar training loss (+ metrics dict: ``ce_loss``, ``aux_loss``,
+    ``tokens``, float32 scalars).  VLM image positions carry no labels;
+    the MoE adds ``aux_loss_weight`` times the routers' loss."""
+    hidden, _, aux = lm_forward(model, cfg, batch, mode="train")
+    labels = batch["labels"]
+    if cfg.family == "vlm":
+        pad = torch.full((labels.shape[0], cfg.n_image_tokens), -1, dtype=labels.dtype,
+                         device=labels.device)
+        labels = torch.cat([pad, labels], dim=1)
+    loss, count = chunked_ce_loss(model, cfg, hidden, labels)
+    aux = torch.as_tensor(aux, dtype=torch.float32, device=loss.device)
+    total = loss
+    if cfg.family == "moe":
+        total = total + cfg.aux_loss_weight * aux
+    return total, {"ce_loss": loss, "aux_loss": aux, "tokens": count}
+
+
 # --- serving steps -------------------------------------------------------------
 
 
+@torch.no_grad()
 def prefill(model: LM, cfg, batch, cache):
-    """Run the prompt through the stack, fill the cache, return last logits."""
+    """Run the prompt through the stack, fill the cache, return last
+    logits.  Serving records no graph, whether or not the weights are
+    trainable (the cache writes are in place)."""
     hidden, new_cache, _ = lm_forward(model, cfg, batch, mode="prefill", cache=cache)
     logits = head_logits(model, cfg, hidden[:, -1:, :])[:, 0]
     return logits, new_cache
 
 
+@torch.no_grad()
 def decode_step(model: LM, cfg, tokens, cache):
-    """One decode step: tokens (B, 1) + cache -> (logits (B, V), cache')."""
+    """One decode step: tokens (B, 1) + cache -> (logits (B, V), cache');
+    no graph is recorded."""
     hidden, new_cache, _ = lm_forward(model, cfg, {"tokens": tokens}, mode="decode",
                                       cache=cache)
     logits = head_logits(model, cfg, hidden[:, -1:, :])[:, 0]

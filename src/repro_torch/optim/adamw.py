@@ -1,0 +1,134 @@
+"""AdamW with global-norm clipping — the port of ``repro.optim.adamw``.
+
+Moments are float32 whatever the parameter dtype; the update is applied
+in float32 and cast back to the parameter's dtype (or kept in a float32
+master copy with ``use_master``).  The state is a dict: ``step`` (an
+int32 scalar on the parameters' device), and ``m``, ``v`` (and
+``master``) keyed by parameter name, each a tensor of its parameter's
+shape.  ``convert.named_to_tree`` gives it the JAX tree's layout for a
+checkpoint.
+
+``adamw_update`` writes the new parameters and moments in place (the
+full-width model's weights and moments fill a large share of the card)
+and returns them.  Its arithmetic is JAX's as XLA compiles it on the
+CPU (measured bit for bit there): the moments' ``b * m + (1 - b) * g``
+is ``fma(b, m, (1 - b) * g)``; the bias-corrected step ``(m / b1c) /
+(sqrt(v / b2c) + eps)`` is rewritten ``m / (b1c * (sqrt(v / b2c) +
+eps))``; and ``p - lr * (u + wd * p)`` is two fused multiply-adds,
+``fma(-lr, fma(wd, p, u), p)``.  The fused multiply-adds are
+``torch.addcmul``, whose CPU and CUDA kernels round once (held against
+the emulation ``prng._fma32`` in the tests and on the card).  The square
+root is IEEE's, as XLA's: torch's float32 ``sqrt`` on the CPU is not
+always correctly rounded, so there it goes through float64 (exact for a
+float32 argument).
+
+``axes_tree`` is accepted and constrains nothing: on one device JAX's
+``shard`` is the identity.  The ZeRO axes (``zero_axes_tree``,
+``opt_state_axes``) come with the model sharding rules (ROADMAP.md queue
+1 item 10g).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamWConfig:
+    lr: float = 3e-4                 # peak; schedules multiply this
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    clip_norm: float = 1.0
+    use_master: bool = False         # keep f32 master copies of bf16 params
+
+
+def _named(params) -> dict:
+    """``{name: tensor}`` from a module or a dict."""
+    if isinstance(params, torch.nn.Module):
+        return dict(params.named_parameters())
+    return dict(params)
+
+
+def adamw_init(params, cfg: AdamWConfig = AdamWConfig()) -> dict:
+    """The state ``{step, m, v[, master]}`` of a module's (or a name ->
+    tensor dict's) parameters, on their device."""
+    named = _named(params)
+    device = next(iter(named.values())).device
+    state = {
+        "step": torch.zeros((), dtype=torch.int32, device=device),
+        "m": {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+              for n, p in named.items()},
+        "v": {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+              for n, p in named.items()},
+    }
+    if cfg.use_master:
+        state["master"] = {n: p.detach().float().clone() for n, p in named.items()}
+    return state
+
+
+def global_norm(tree: dict) -> torch.Tensor:
+    """sqrt of the sum of every leaf's float32 sum of squares."""
+    sums = [torch.sum(torch.square(g.float())) for g in tree.values()]
+    return torch.sqrt(torch.sum(torch.stack(sums)))
+
+
+def _sqrt32(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded float32 square root."""
+    if x.is_cuda:
+        return torch.sqrt(x)
+    return torch.sqrt(x.double()).float()
+
+
+def fma(a, b, c):
+    """float32 ``a * b + c`` with one rounding (``b`` may be a 0-d
+    tensor): ``torch.addcmul``, a fused multiply-add on both devices."""
+    return torch.addcmul(c, a, b)
+
+
+def _scalar(x, like: torch.Tensor) -> torch.Tensor:
+    """A Python number as XLA's float32 constant, a 0-d tensor on
+    ``like``'s device."""
+    return torch.tensor(np.float32(x), device=like.device)
+
+
+def _madd(a, x, b, y):
+    """``a * x + b * y`` (a, b scalars) with the one fused rounding of
+    ``fma(a, x, b * y)``."""
+    return fma(x, _scalar(a, x), y * b)
+
+
+@torch.no_grad()
+def adamw_update(grads: dict, opt_state: dict, params, cfg: AdamWConfig = AdamWConfig(),
+                 lr_scale=1.0, axes_tree=None):
+    """One AdamW step.  ``grads`` maps parameter names to gradients;
+    ``params`` is the module (or name -> tensor dict) they belong to.
+    Returns (params, new_opt_state, metrics ``grad_norm``, ``lr``); the
+    parameters and moments are updated in place."""
+    del axes_tree  # one device: no sharding constraint
+    named = _named(params)
+    step = opt_state["step"] + 1
+    gn = global_norm(grads)
+    clip = torch.clamp_max(cfg.clip_norm / torch.clamp_min(gn, 1e-9), 1.0)
+    lr = torch.as_tensor(lr_scale, dtype=torch.float32, device=gn.device) * cfg.lr
+    stepf = step.float()
+    b1c = 1.0 - torch.pow(torch.full_like(stepf, cfg.b1), stepf)
+    b2c = 1.0 - torch.pow(torch.full_like(stepf, cfg.b2), stepf)
+    masters = opt_state.get("master")
+    for name, p in named.items():
+        g = grads[name].float() * clip
+        m, v = opt_state["m"][name], opt_state["v"][name]
+        m.copy_(_madd(cfg.b1, m, 1.0 - cfg.b1, g))
+        v.copy_(_madd(cfg.b2, v, 1.0 - cfg.b2, torch.square(g)))
+        update = m / (b1c * (_sqrt32(v / b2c) + cfg.eps))
+        p32 = (masters[name] if masters is not None else p).float()
+        p32_n = fma(fma(p32, _scalar(cfg.weight_decay, p32), update), -lr, p32)
+        if masters is not None:
+            masters[name].copy_(p32_n)
+        p.copy_(p32_n.to(p.dtype))
+    new_state = dict(opt_state, step=step)
+    return params, new_state, {"grad_norm": gn, "lr": lr}

@@ -316,6 +316,11 @@ def test_port_imports_no_jax():
     files = (sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
              + sorted((ROOT / "tools").glob("*.py")))
     assert len(files) > 10
+    port = ROOT / "src" / "repro_torch"
+    for needed in ("optim/adamw.py", "optim/schedule.py", "data/pipeline.py",
+                   "training/step.py", "launch/train.py", "distributed/fault.py",
+                   "distributed/straggler.py"):
+        assert port / needed in files, needed
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))
         for node in ast.walk(tree):

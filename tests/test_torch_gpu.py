@@ -780,11 +780,13 @@ def test_smoke_server_card_equals_cpu(cuda, sampler):
 
 
 @pytest.mark.parametrize("sampler", ["greedy", "mcmc"])
-@pytest.mark.parametrize("arch", ["hymba_1p5b", "mamba2_1p3b", "qwen3_moe_30b"])
+@pytest.mark.parametrize("arch", ["hymba_1p5b", "mamba2_1p3b", "qwen3_moe_30b",
+                                  "phi3_vision_4p2b", "whisper_large_v3"])
 def test_family_server_card_equals_cpu(cuda, arch, sampler):
-    """The MoE, SSM and hybrid smoke servers (the prompts of
+    """The MoE, SSM, hybrid, VLM and audio smoke servers (the prompts of
     tests/test_torch_serve.py's family cases)."""
-    _server_card_equals_cpu(cuda, sampler, arch, prompt_seed=4)
+    seed = 5 if arch in ("phi3_vision_4p2b", "whisper_large_v3") else 4
+    _server_card_equals_cpu(cuda, sampler, arch, prompt_seed=seed)
 
 
 def test_clamped_cache_write_on_the_card(cuda):
@@ -813,3 +815,105 @@ def test_float32_products_on_the_card(cuda):
     assert out.dtype == torch.float32
     ref_ = h.float() @ w.float()
     assert float((out - ref_).abs().max()) <= 1e-4 * float(ref_.abs().max())
+
+
+def test_float32_product_has_a_derivative(cuda):
+    """``torch.mm(out_dtype=float32)`` has no derivative of its own;
+    ``matmul_f32``'s ``_MmFloat32`` gives it one: its gradients equal the
+    widened product's on the CPU (plain float32 products, cast to
+    bfloat16), up to the sums' order."""
+    from repro_torch.models.layers import matmul_f32
+
+    gen = torch.Generator().manual_seed(1)
+    a = torch.randn((64, 256), generator=gen).to(torch.bfloat16)
+    b = (torch.randn((256, 300), generator=gen) / 16).to(torch.bfloat16)
+    g = torch.randn((64, 300), generator=gen)
+    grads = []
+    for dev in (cuda, torch.device("cpu")):
+        x, w = a.to(dev).requires_grad_(True), b.to(dev).requires_grad_(True)
+        out = matmul_f32(x, w)
+        assert out.dtype == torch.float32
+        out.backward(g.to(dev))
+        grads.append((x.grad.cpu(), w.grad.cpu()))
+        assert x.grad.dtype == w.grad.dtype == torch.bfloat16
+    for card_grad, host_grad in zip(*grads):
+        # one bfloat16 rounding of float32 sums in two orders: 1 ulp at most
+        assert float((card_grad.float() - host_grad.float()).abs().max()) <= (
+            2 ** -7 * float(host_grad.float().abs().max()))
+
+
+def test_train_grads_card_equals_cpu(cuda):
+    """hymba-1.5b cut to 2 layers in float32 (its global layer 0 kept):
+    the training loss and every gradient on the card against the same
+    weights in float64 on the CPU, with each block recomputed in the
+    backward pass (``remat_policy`` "nothing", the full config's).  The
+    cut's near one-hot attention magnifies float32 rounding (card against
+    CPU 3.3e-3 of the largest gradient on the first run), so the card is
+    held as the serving cuts are: within 1e-3 of the largest gradient, or
+    within 4 times the CPU's own float32 error where that is larger."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models import lm
+
+    full = configs.get_config("hymba_1p5b")
+    cfg = dataclasses.replace(full, n_layers=2, dtype="float32", param_dtype_str="float32",
+                              cache_dtype_str="float32", global_layers=(0,))
+    cfg64 = dataclasses.replace(cfg, dtype="float64", param_dtype_str="float64",
+                                cache_dtype_str="float64")
+    host = lm.init_lm(cfg, seed=3, device="cpu")
+    rows = np.random.default_rng(2).integers(0, cfg.vocab_size, (2, 65)).astype(np.int32)
+    batch = {"tokens": torch.from_numpy(rows[:, :-1]), "labels": torch.from_numpy(rows[:, 1:])}
+    out = {}
+    for name, c, dev in (("cpu", cfg, torch.device("cpu")), ("card", cfg, cuda),
+                         ("float64", cfg64, torch.device("cpu"))):
+        model = lm.LM(c, device=dev)
+        model.load_state_dict({k: v.to(c.param_dtype) for k, v in host.state_dict().items()})
+        model.requires_grad_(True)
+        loss, _ = lm.train_loss(model, c, {k: v.to(dev) for k, v in batch.items()})
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+        out[name] = (float(loss.detach()), [g.cpu().double() for g in grads])
+    ref_loss, ref_grads = out["float64"]
+    scale = max(float(g.abs().max()) for g in ref_grads)
+
+    def errors(name):
+        loss, grads = out[name]
+        return abs(loss - ref_loss), max(float((a - b).abs().max())
+                                         for a, b in zip(grads, ref_grads))
+
+    (cpu_loss_err, cpu_err), (card_loss_err, card_err) = errors("cpu"), errors("card")
+    assert all(bool(torch.isfinite(g).all()) for g in out["card"][1])
+    assert card_loss_err <= max(1e-4, 4 * cpu_loss_err), (card_loss_err, cpu_loss_err)
+    assert card_err <= max(1e-3 * scale, 4 * cpu_err), (card_err, cpu_err, scale)
+
+
+def test_vlm_prefill_past_the_cache_raises_on_the_card(cuda):
+    """The reference's sizing, ``prompt + 2 + gen + 8``, leaves out the
+    VLM's image tokens: a prefill longer than the cache raises before it
+    writes (no device assert, no wrapped index)."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.launch import serve
+
+    cfg = dataclasses.replace(configs.get_smoke_config("phi3_vision_4p2b"), n_image_tokens=30)
+    server = serve.BatchedServer(cfg, serve.ServeConfig(n_slots=2, max_len=26, gen_tokens=12,
+                                                        sampler="greedy"), device=cuda)
+    with pytest.raises(ValueError, match="longer than the buffer"):
+        server.submit(0, serve.Request(rid=0, prompt=np.arange(4)))
+    torch.cuda.synchronize()
+    assert not server.cache["layers"]["k"].any()
+
+
+def test_fma_is_one_rounding_on_the_card(cuda):
+    """AdamW's fused multiply-adds (``torch.addcmul``) round once on the
+    card too: equal to the emulation ``prng._fma32``."""
+    from repro_torch.optim import adamw
+    from repro_torch.prng import _fma32
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    a, b, c = (torch.randn(1_000_003, generator=gen, device=cuda) for _ in range(3))
+    ref = _fma32(a, b, c)
+    assert torch.equal(adamw.fma(a, b, c), ref)
+    w = torch.tensor(np.float32(0.95), device=cuda)
+    assert torch.equal(adamw.fma(a, w, c), _fma32(a, w.expand_as(a), c))

@@ -305,6 +305,94 @@ def test_update_rows_clamps_like_dynamic_update_slice():
         np.testing.assert_array_equal(np.asarray(ref), out.numpy())
 
 
+@pytest.mark.parametrize("kind,rows", [("int", 14), ("scalar", 14), ("per_row", 12)])
+def test_update_rows_refuses_an_update_past_the_buffer(kind, rows):
+    """An update longer than the buffer's sequence axis: JAX's
+    dynamic_update_slice raises, so the port raises too (a start clamped
+    to Smax - s would be negative and wrap) and writes nothing."""
+    buf = np.zeros((2, 10, 3), np.float32)
+    upd = _normal(38, (2, rows, 3))
+    start = {"int": 0, "scalar": np.int32(0), "per_row": np.array([0, 3], np.int32)}[kind]
+    with pytest.raises(TypeError):
+        if kind == "per_row":
+            jax.vmap(lambda c, u, i: jax.lax.dynamic_update_slice(c, u, (i, 0)))(buf, upd, start)
+        else:
+            jax.lax.dynamic_update_slice(buf, upd, (0, start, 0))
+    out = torch.from_numpy(buf.copy())
+    arg = start if kind == "int" else torch.as_tensor(start)
+    with pytest.raises(ValueError, match=rf"\(2, {rows}, 3\).*\(2, 10, 3\)"):
+        attn.update_rows(out, torch.from_numpy(upd), arg)
+    assert not out.any()
+
+
+def test_encoder_attention():
+    """The audio encoder's self-attention: bidirectional, no RoPE, no
+    cache, 13 keys padded to two blocks of 8 and masked."""
+    jcfg, tcfg = _attn_cfg()
+    p = jattn.init_attention(jax.random.PRNGKey(3), jcfg)
+    x = _normal(40, (2, 13, 32))
+    pos = np.arange(13, dtype=np.int32)
+    kw = dict(mode="full", causal=False, use_rope=False)
+    ref, jc = jattn.attention(jlayers.split_annotated(p)[0], x, jcfg, positions=pos, **kw)
+    out, tc = attn.attention(_params(p), torch.from_numpy(x), tcfg,
+                             positions=torch.from_numpy(pos), **kw)
+    assert jc is None and tc is None
+    # measured: 1.1e-5 (outputs up to 31)
+    _assert_close(ref, out, 5e-5, "encoder attention")
+
+
+def test_cross_attention_full_and_decode():
+    """Whisper's cross-attention: in full mode K/V come from the encoder's
+    output (11 keys, padded to two blocks of 8 and masked), are written
+    into the cross cache in place and attended without a causal mask;
+    a decode step reads all of that cache and writes nothing."""
+    jcfg, tcfg = _attn_cfg()
+    p = jattn.init_attention(jax.random.PRNGKey(4), jcfg)
+    vals, tp = jlayers.split_annotated(p)[0], _params(p)
+    x, enc = _normal(41, (2, 5, 32)), _normal(42, (2, 11, 32))
+    kw = dict(causal=False, use_rope=False, cross=True)
+    jcache = {"k": jnp.zeros((2, 11, 2, 8)), "v": jnp.zeros((2, 11, 2, 8))}
+    tcache = {"k": torch.zeros((2, 11, 2, 8)), "v": torch.zeros((2, 11, 2, 8))}
+    ref, jnew = jattn.attention(vals, x, jcfg, positions=np.arange(5), mode="full",
+                                cache=jcache, kv_input=enc, **kw)
+    out, tnew = attn.attention(tp, torch.from_numpy(x), tcfg, positions=torch.arange(5),
+                               mode="full", cache=tcache, kv_input=torch.from_numpy(enc), **kw)
+    # measured: out 1.0e-5 (outputs up to 29), cache 2.9e-6 (entries up to 12)
+    _assert_close(ref, out, 5e-5, "cross full")
+    for name in ("k", "v"):
+        _assert_close(jnew[name], tnew[name], 1e-5, f"cross cache {name}")
+        assert tnew[name] is tcache[name]  # written in place
+    stored = {k: v.clone() for k, v in tnew.items()}
+    xd = _normal(43, (2, 1, 32))
+    idx = np.array([5, 2], np.int32)  # the decoder's positions play no part
+    ref, jd = jattn.attention(vals, xd, jcfg, positions=idx[:, None], mode="decode",
+                              cache=jnew, **kw)
+    out, td = attn.attention(tp, torch.from_numpy(xd), tcfg,
+                             positions=torch.from_numpy(idx)[:, None], mode="decode",
+                             cache=tnew, **kw)
+    # measured: 2.2e-5 (outputs up to 18)
+    _assert_close(ref, out, 5e-5, "cross decode")
+    assert all(torch.equal(td[k], stored[k]) for k in stored)
+
+
+@pytest.mark.parametrize("kind", blocks.KINDS)
+def test_every_block_kind_builds(kind):
+    """Every kind of the JAX package's blocks builds, with the JAX tree's
+    leaf names; an unknown kind raises."""
+    arch = {"moe": "qwen3_moe_30b", "ssm": "mamba2_1p3b", "hybrid": "hymba_1p5b"}.get(
+        kind, "whisper_large_v3")
+    cfg = configs.get_smoke_config(arch)
+    block = blocks.init_block(torch.Generator().manual_seed(0), cfg, kind=kind)
+    names = {n.split(".")[0] for n, _ in block.named_parameters()}
+    want = {"ln1"} | {"ssm": {"mamba"}, "hybrid": {"attn", "mamba", "branch_scale", "ln2", "mlp"},
+                      "moe": {"attn", "ln2", "moe"},
+                      "encoder_cross": {"attn", "ln_cross", "cross", "ln2", "mlp"}}.get(
+        kind, {"attn", "ln2", "mlp"})
+    assert names == want
+    with pytest.raises(ValueError, match="unknown block kind"):
+        blocks.init_block(None, cfg, kind="decoder")
+
+
 # --- the language model ----------------------------------------------------------
 
 
@@ -331,7 +419,32 @@ def test_init_cache(which):
 
 # every ported architecture's smoke config (ROADMAP.md queue 3 item 4)
 PORTED_ARCHS = ("granite3_8b", "granite_34b", "minitron_4b", "phi3_medium_14b", "qwen3_moe_30b",
-                "phi35_moe_42b", "mamba2_1p3b", "hymba_1p5b")
+                "phi35_moe_42b", "mamba2_1p3b", "hymba_1p5b", "phi3_vision_4p2b",
+                "whisper_large_v3")
+
+
+def _extras(cfg, row: int) -> dict:
+    """The frontend stubs' inputs of one batch row, from a seed: the VLM's
+    patch embeddings and the audio family's mel frames (numpy)."""
+    rng = np.random.default_rng(90 + row)
+    extras = {}
+    if cfg.family == "vlm":
+        extras["image_embeds"] = rng.standard_normal(
+            (1, cfg.n_image_tokens, cfg.image_embed_dim)).astype(np.float32)
+    if cfg.is_encdec:
+        extras["frames"] = rng.standard_normal((1, cfg.encoder_len, cfg.frame_dim)).astype(
+            np.float32)
+    return extras
+
+
+def _prefill_pair(values, model, jcfg, tcfg, tokens, row, jcache, tcache):
+    """One row's prefill on both sides, with the row's frontend inputs."""
+    extras = _extras(jcfg, row)
+    jout = jlm.prefill(values, jcfg, {"tokens": tokens, **extras}, jcache)
+    tout = lm.prefill(model, tcfg, {"tokens": torch.from_numpy(tokens),
+                                    **{k: torch.from_numpy(v) for k, v in extras.items()}},
+                      tcache)
+    return jout, tout
 
 
 def _flat(tree, prefix=""):
@@ -346,7 +459,9 @@ def test_prefill_and_decode_match_jax(which):
     """Prefill then 3 decode steps per row (scalar index), and the packed
     batch (per-row index), against the JAX functions on carried weights.
     The packed cache is spliced leaf by leaf, as ``launch/serve.py`` does
-    (a KV cache, an SSM state, or the hybrid's nested pair)."""
+    (a KV cache, an SSM state, or the hybrid's or whisper's nested pair).
+    The VLM's prompts follow its image tokens, so its cache holds them
+    too; whisper's rows cross-attend to their own encoded frames."""
     if which == "per_row_config":
         jcfg, tcfg = JModelConfig(**PER_ROW), ModelConfig(**PER_ROW)
         lens, max_len = (5, 9), 20
@@ -355,43 +470,45 @@ def test_prefill_and_decode_match_jax(which):
         jcfg, tcfg = jconfigs.get_smoke_config(arch), configs.get_smoke_config(arch)
         # row 1 prefills past two attention blocks, past hymba's window of
         # 8 and past the SSM chunk of 8 (11 = one chunk and a padded one)
-        lens, max_len = (5, 11), 16
+        lens, max_len = (5, 11), 16 + jcfg.n_image_tokens
     values, model = _carried(jcfg, tcfg, 3)
     toks = np.random.default_rng(7).integers(0, jcfg.vocab_size, (2, 20)).astype(np.int32)
     # measured |logit difference| (logits up to 4.2): granite-3 1.2e-5,
     # granite-34b 1.2e-4 (row 1's last step: its MQA attention, nearly
     # one-hot under the init rule, magnifies its scores' rounding),
     # minitron 6.5e-6, phi-3-medium 9.8e-6, qwen3-moe 1.7e-6, phi-3.5-moe
-    # 7.5e-6, mamba2 2.1e-6, hymba 1.0e-5, the per-row config 7.9e-6.
-    # Caches: KV and conv inputs 8.7e-5 at most (entries up to 27), SSM
-    # states 2.1e-4 (hymba; entries up to 255)
-    tol = 2e-4 if which == "granite_34b_smoke" else 5e-5
+    # 7.5e-6, mamba2 2.1e-6, hymba 1.0e-5, phi-3-vision 6.7e-6, whisper
+    # 1.9e-4 (a bidirectional encoder and layer norms before every
+    # decoder attention), the per-row config 7.9e-6.  Caches: KV and conv
+    # inputs 8.7e-5 at most (entries up to 27; whisper's self and cross
+    # K/V 1.2e-4), SSM states 2.1e-4 (hymba; entries up to 255)
+    tol = {"granite_34b_smoke": 2e-4, "whisper_large_v3_smoke": 5e-4}.get(which, 5e-5)
     cache_tol = {"state": 5e-4}
+    leaf_tol = 3e-4 if which == "whisper_large_v3_smoke" else 1e-4
     for r, plen in enumerate(lens):
         jc, tc = jlm.init_cache(jcfg, 1, max_len), lm.init_cache(tcfg, 1, max_len, "cpu")
-        jl, jc = jlm.prefill(values, jcfg, {"tokens": toks[r:r + 1, :plen]}, jc)
-        tl, tc = lm.prefill(model, tcfg, {"tokens": torch.from_numpy(toks[r:r + 1, :plen])}, tc)
+        (jl, jc), (tl, tc) = _prefill_pair(values, model, jcfg, tcfg, toks[r:r + 1, :plen], r,
+                                           jc, tc)
         _assert_close(jl, tl, tol, f"row {r} prefill")
         for t in range(3):
             step = toks[r:r + 1, plen + t:plen + t + 1]
             jl, jc = jlm.decode_step(values, jcfg, step, jc)
             tl, tc = lm.decode_step(model, tcfg, torch.from_numpy(step), tc)
             _assert_close(jl, tl, tol, f"row {r} step {t}")
-        assert int(tc["index"]) == int(jc["index"]) == plen + 3
+        assert int(tc["index"]) == int(jc["index"]) == jcfg.n_image_tokens + plen + 3
         jleaves, tleaves = _flat(jc["layers"]), _flat(tc["layers"])
         assert [p for p, _ in jleaves] == [p for p, _ in tleaves]
         for (path, a), (_, b) in zip(jleaves, tleaves):
-            _assert_close(a, b, cache_tol.get(path.rsplit("/", 1)[-1], 1e-4), f"cache {path}")
+            _assert_close(a, b, cache_tol.get(path.rsplit("/", 1)[-1], leaf_tol), f"cache {path}")
 
     # packed: per-row prefills spliced into one cache with a (B,) index
     jshared, tshared = jlm.init_cache(jcfg, 2, max_len), lm.init_cache(tcfg, 2, max_len, "cpu")
     jshared["index"] = jnp.zeros((2,), jnp.int32)
     tshared["index"] = torch.zeros((2,), dtype=torch.int32)
     for r, plen in enumerate(lens):
-        jrow = jlm.prefill(values, jcfg, {"tokens": toks[r:r + 1, :plen]},
-                           jlm.init_cache(jcfg, 1, max_len))[1]
-        trow = lm.prefill(model, tcfg, {"tokens": torch.from_numpy(toks[r:r + 1, :plen])},
-                          lm.init_cache(tcfg, 1, max_len, "cpu"))[1]
+        (_, jrow), (_, trow) = _prefill_pair(values, model, jcfg, tcfg, toks[r:r + 1, :plen], r,
+                                             jlm.init_cache(jcfg, 1, max_len),
+                                             lm.init_cache(tcfg, 1, max_len, "cpu"))
         jshared["layers"] = jax.tree.map(lambda s, x: s.at[:, r:r + 1].set(x),
                                          jshared["layers"], jrow["layers"])
         jshared["index"] = jshared["index"].at[r].set(jrow["index"])
@@ -478,11 +595,15 @@ def test_converter_round_trip():
         convert.lm_from_numpy(jax.tree.map(np.asarray, bad), tcfg, device="cpu")
 
 
-@pytest.mark.parametrize("arch", ["qwen3_moe_30b", "mamba2_1p3b", "hymba_1p5b"])
+@pytest.mark.parametrize("arch", ["qwen3_moe_30b", "mamba2_1p3b", "hymba_1p5b", "phi3_vision_4p2b",
+                                  "whisper_large_v3"])
 def test_converter_carries_family_leaves(arch):
     """The ``moe``, ``mamba`` and ``branch_scale`` leaves cross at their own
     dtypes: a bfloat16 JAX tree keeps the router, ``A_log``, ``D``,
-    ``dt_bias`` and ``branch_scale`` in float32, bit for bit, both ways."""
+    ``dt_bias`` and ``branch_scale`` in float32, bit for bit, both ways.
+    The VLM's ``img_proj`` and the audio family's ``audio_proj``,
+    ``enc_pos``, stacked ``encoder`` and ``enc_norm`` and each decoder
+    layer's ``ln_cross`` and ``cross`` cross in the JAX tree's order."""
     jcfg = dataclasses.replace(jconfigs.get_smoke_config(arch), param_dtype_str="bfloat16")
     tcfg = dataclasses.replace(configs.get_smoke_config(arch), param_dtype_str="bfloat16")
     # jitted: the eager init compiles op by op, several times slower here
@@ -499,30 +620,18 @@ def test_converter_carries_family_leaves(arch):
         seen.add(leaf)
     assert seen & float32 == float32 & {
         "qwen3_moe_30b": {"router"}, "mamba2_1p3b": {"A_log", "D", "dt_bias"},
-        "hymba_1p5b": {"A_log", "D", "dt_bias", "branch_scale"}}[arch]
+        "hymba_1p5b": {"A_log", "D", "dt_bias", "branch_scale"}}.get(arch, set())
+    top = {"phi3_vision_4p2b": {"img_proj"},
+           "whisper_large_v3": {"audio_proj", "enc_pos", "encoder", "enc_norm"}}.get(arch, set())
+    assert top <= set(values)
+    if arch == "whisper_large_v3":
+        assert {"ln_cross", "cross"} <= set(values["layers"])
+        assert np.shape(values["encoder"]["attn"]["wq"])[0] == jcfg.n_encoder_layers
     back = convert.lm_to_numpy(model)
     flat_back = dict(jax.tree_util.tree_flatten_with_path(back)[0])
     assert list(flat) == list(flat_back)
     for path, a in flat.items():
         np.testing.assert_array_equal(a.astype(np.float32), flat_back[path], err_msg=str(path))
-
-
-@pytest.mark.parametrize("arch,family", [("whisper_large_v3", "audio"),
-                                         ("phi3_vision_4p2b", "vlm")])
-def test_unported_families_refuse(arch, family):
-    cfg = configs.get_smoke_config(arch)
-    with pytest.raises(NotImplementedError, match=f"'{family}'.*ROADMAP.md queue 1 item 10"):
-        lm.init_lm(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        lm.init_cache(cfg, 1, 8, device="cpu")
-
-
-@pytest.mark.parametrize("kind", ["encoder", "encoder_cross"])
-def test_unported_block_kinds_refuse(kind):
-    cfg = configs.get_smoke_config("granite3_8b")
-    gen = torch.Generator().manual_seed(0)
-    with pytest.raises(NotImplementedError, match=f"'{kind}' block.*ROADMAP.md queue 1 item 10"):
-        blocks.init_block(gen, cfg, kind=kind)
 
 
 def test_init_lm_needs_a_card_unless_asked():

@@ -225,18 +225,27 @@ def test_server_streams_equal_jax(sampler):
 
 # measured over the 29 calls (logits up to 4.3), greedy and mcmc:
 # qwen3-moe 1.5e-6 and 1.9e-6, mamba2 6.6e-6 and 3.8e-6, hymba 3.7e-5 and
-# 6.1e-5 (its attention branch, as in tests/test_torch_ssm.py)
-FAMILY_LOGIT_TOL = {"qwen3_moe_30b": 5e-6, "mamba2_1p3b": 1e-5, "hymba_1p5b": 1e-4}
+# 6.1e-5 (its attention branch, as in tests/test_torch_ssm.py),
+# phi-3-vision 2.7e-5 and 2.5e-5, whisper 2.5e-4 and 1.2e-4 (as in
+# tests/test_torch_models.py)
+FAMILY_LOGIT_TOL = {"qwen3_moe_30b": 5e-6, "mamba2_1p3b": 1e-5, "hymba_1p5b": 1e-4,
+                    "phi3_vision_4p2b": 1e-4, "whisper_large_v3": 5e-4}
+# the prompts' seed: under seed 4 a phi-3-vision ``mcmc`` chain's accept
+# margin (7.4e-5) is under twice the logit difference (7.4e-5), a near tie
+FAMILY_PROMPT_SEED = {"phi3_vision_4p2b": 5, "whisper_large_v3": 5}
 
 
 @pytest.mark.parametrize("sampler", ["greedy", "mcmc"])
 @pytest.mark.parametrize("arch", sorted(FAMILY_LOGIT_TOL))
 def test_family_server_streams_equal_jax(arch, sampler):
-    """The MoE, SSM and hybrid smoke servers: the SSM state and the
-    hybrid's nested cache are spliced into their slots.  The prompts come
-    from seed 4: under seed 3 a hymba ``mcmc`` chain's accept margin (7.4e-5)
-    is under twice the logit difference (6.6e-5), a near tie."""
-    _streams_equal_jax(arch, sampler, FAMILY_LOGIT_TOL[arch], prompt_seed=4)
+    """The MoE, SSM, hybrid, VLM and audio smoke servers: the SSM state and
+    the hybrid's and whisper's nested caches are spliced into their slots;
+    the VLM prefills zero patch embeddings before each prompt, whisper
+    encodes zero frames.  The prompts come from seed 4 (5 for the VLM and
+    audio servers): under seed 3 a hymba ``mcmc`` chain's accept margin
+    (7.4e-5) is under twice the logit difference (6.6e-5), a near tie."""
+    _streams_equal_jax(arch, sampler, FAMILY_LOGIT_TOL[arch],
+                       prompt_seed=FAMILY_PROMPT_SEED.get(arch, 4))
 
 
 class TestBatchedServerSmoke:
@@ -293,6 +302,25 @@ def test_main_prints_the_jax_format(monkeypatch):
     assert row["tokens"] == 20 and row["samples"] == 5 + row["decode_steps"]
     assert row["device"] == "cpu" and 0 < row["acceptance"] < 1
     assert sorted(row["streams"]) == list(range(5))
+
+
+def test_vlm_prefill_past_the_cache_raises_as_jax():
+    """``launch/serve.py:main`` sizes the cache as prompt + 2 + gen + 8 and
+    leaves out the image tokens the VLM prepends (ROADMAP.md queue 3 item
+    6).  With 30 image tokens a 4-token prompt's prefill (34 rows) is
+    longer than that 26-row cache: JAX's ``dynamic_update_slice`` raises,
+    and so does the port (``attention.update_rows``), nothing written."""
+    kw = dict(n_slots=2, max_len=4 + 2 + 12 + 8, gen_tokens=12, sampler="greedy")
+    jcfg = dataclasses.replace(jconfigs.get_smoke_config("phi3_vision_4p2b"), n_image_tokens=30)
+    tcfg = dataclasses.replace(configs.get_smoke_config("phi3_vision_4p2b"), n_image_tokens=30)
+    js = jserve.BatchedServer(jcfg, jserve.ServeConfig(**kw))
+    ps = serve.BatchedServer(tcfg, serve.ServeConfig(**kw), device="cpu")
+    prompt = np.arange(4)
+    with pytest.raises(TypeError, match="dynamic_update_slice"):
+        js.submit(0, jserve.Request(rid=0, prompt=prompt))
+    with pytest.raises(ValueError, match=r"\(1, 34, 4, 16\).*\(1, 26, 4, 16\)"):
+        ps.submit(0, serve.Request(rid=0, prompt=prompt))
+    assert ps.free_slot() == 0 and not ps.cache["layers"]["k"].any()
 
 
 def test_server_needs_a_card_unless_asked():
