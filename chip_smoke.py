@@ -255,6 +255,23 @@ each at full width and depth in bfloat16 with random weights from a seed:
      and parameters within the tolerances stated beside
      ``TRAIN_LOSS_TOL``.
 
+ 36. ``mesh_lm``: the distributed layer on a one-rank ``nccl`` DeviceMesh
+     ("pod", "data", "model") of shape (1, 1, 1): (a) hymba-1.5b at full
+     width and depth trains ``MESH_STEPS`` compressed-pod steps
+     (``make_train_step(compress_pods=True, mesh=...)``, ZeRO axes, phase
+     35's batch), each leaf's reduced gradient and new error state held
+     against the plain one-pod ``compressed_mean_one_pod`` on the same
+     gradients (tolerance 0), the pod all-reduce's payload int32 words and
+     float32 scales, losses finite; the steps' seconds, the payload, the
+     error state's bytes and the peak; (b) granite-3 8B at full width cut
+     to 2 layers under ``rules_for_config``: ``train_loss``, a prefill and
+     a decode step with the cache sharded over its sequence, each equal
+     to the same call without a mesh (tolerance 0); (c) ``moe_ffn_ep`` at
+     one qwen3-moe-30b layer's full width against ``moe_ffn_local``,
+     forward and gradients (tolerance 0); (d) ``make_decode_sample_step``
+     on (a)'s model under the mesh: one ``mh_chain`` launch, held against
+     its plain version (tolerance 0).
+
 Each phase prints one JSON line; any failure raises and exits non-zero.
 The second-to-last line lists the kernels; the last line is the device
 record.  Without a CUDA device, or without the repository around it, it
@@ -390,8 +407,9 @@ FAMILY_PHASES = (  # (phase, arch, samplers of the full-width bursts)
 FAMILY_SSM_PROMPT = 130
 # earlier phases served at full width but cut in depth (layers of the
 # full config), so that the script stays near its time aim with phases
-# 33-35: qwen3-moe's 48 layers (61.09 GB, 36-56 s a phase at full depth)
-DEPTH_CUTS = {"qwen3_moe_30b": 12}
+# 33-36: qwen3-moe's 48 layers (61.09 GB, 36-56 s a phase at full depth;
+# 23-35 s at 12 layers, before phase 36 came)
+DEPTH_CUTS = {"qwen3_moe_30b": 8}
 # a full-width Mamba-2 layer's chunked output against its step recurrence on
 # the card (float32, one 130-token chunk), relative to the largest output:
 # the CPU gives 2.2e-6 (mamba2) and 1.3e-6 (hymba)
@@ -437,6 +455,12 @@ VLM_MAX_LEN = 576 + (LLM_PROMPT + 2) + LLM_GEN + 8
 TRAIN_ARCH, TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO = "hymba_1p5b", 6, 8, 1024, 2
 TRAIN_CHECK_STEPS, TRAIN_CHECK_BATCH, TRAIN_CHECK_SEQ = 2, 2, 64
 TRAIN_LOSS_TOL, TRAIN_GNORM_RTOL, TRAIN_PARAM_RMS_RTOL = 1e-4, 1e-4, 1e-3
+# phase 36: compressed-pod steps of hymba-1.5b at phase 35's batch; granite-3
+# 8B cut to MESH_RULES_LAYERS layers, a batch of MESH_RULES_BATCH x
+# MESH_RULES_SEQ tokens, a prefill of MESH_PROMPT and MESH_DECODE steps;
+# moe_ffn_ep on MESH_MOE_TOKENS rows of MESH_MOE_SEQ tokens
+MESH_STEPS, MESH_RULES_LAYERS, MESH_RULES_BATCH, MESH_RULES_SEQ = 2, 2, 2, 256
+MESH_PROMPT, MESH_DECODE, MESH_MOE_ROWS, MESH_MOE_SEQ = 64, 2, 2, 128
 
 
 def emit(**record):
@@ -3056,6 +3080,232 @@ def main() -> int:
         torch.cuda.empty_cache()
         emit(phase="train_lm_total", seconds=time.perf_counter() - t_phase)
 
+    def mesh_lm_phase():
+        """Phase 36; its names stay out of the phases after it."""
+        import gc
+
+        import torch.distributed as dist
+        from torch.distributed.device_mesh import DeviceMesh
+        from torch.distributed.tensor import DTensor
+
+        from repro_torch import configs as llm_configs
+        from repro_torch.distributed import compression
+        from repro_torch.distributed import sharding as llm_sharding
+        from repro_torch.models import lm as llm
+        from repro_torch.models import moe as llm_moe
+        from repro_torch.models.layers import activation
+        from repro_torch.optim import adamw as llm_adamw
+        from repro_torch.training import step as llm_step
+
+        t_phase = time.perf_counter()
+
+        def whole(t):
+            return (t.full_tensor() if isinstance(t, DTensor) else t).detach()
+
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with socket.socket() as s_:
+            s_.bind(("localhost", 0))
+            port = s_.getsockname()[1]
+        dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", world_size=1,
+                                rank=0, device_id=dev)
+        try:
+            mesh = DeviceMesh("cuda", [[[0]]], mesh_dim_names=("pod", "data", "model"))
+
+            # (a) the compressed-pod step at full width and depth
+            tcfg = llm_configs.get_config(TRAIN_ARCH)
+            model = llm.init_lm(tcfg, seed=SEED, device=dev)
+            step_fn = llm_step.make_train_step(
+                tcfg, axes_tree=model.param_axes,
+                step_cfg=llm_step.TrainStepConfig(n_micro=TRAIN_MICRO, compress_pods=True),
+                mesh=mesh)
+            with llm_sharding.use_mesh(mesh):
+                llm_sharding.distribute_params(model, mesh)
+                opt = llm_adamw.adamw_init(model)
+                err = compression.init_error_state(dict(model.named_parameters()))
+            n_params = sum(p.numel() for p in model.parameters())
+            n_leaves = len(dict(model.named_parameters()))
+            err_bytes = sum(e.to_local().numel() * 4 for e in err.values())
+            held, real = [], llm_step.compressed_pmean
+            compress_s, hold_s = [], []
+
+            def held_pmean(grads, err_, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                red, new_err = real(grads, err_, **kw)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                for n, g in grads.items():  # leaf by leaf: one leaf's copies at a time
+                    pr, pe = compression.compressed_mean_one_pod({n: g.to_local()},
+                                                                 {n: err_[n].to_local()})
+                    held.append(int((pr[n] != red[n].to_local()).sum())
+                                + int((pe[n] != new_err[n].to_local()).sum()))
+                    del pr, pe
+                torch.cuda.synchronize()
+                compress_s.append(t1 - t0)
+                hold_s.append(time.perf_counter() - t1)
+                return red, new_err
+
+            steps = []
+            llm_step.compressed_pmean = held_pmean
+            compression.PAYLOAD.clear()
+            try:
+                with path_run("mesh_lm_steps"):
+                    for t in range(MESH_STEPS):
+                        toks = torch.randint(0, tcfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1),
+                                             generator=gen, device=dev)
+                        batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        model, opt, metrics, err = step_fn(model, opt, batch, err)
+                        torch.cuda.synchronize()
+                        # the step's seconds without the check against the
+                        # plain version, which runs inside it
+                        steps.append(dict(seconds=time.perf_counter() - t0 - hold_s[-1],
+                                          compress_s=compress_s[-1], hold_s=hold_s[-1],
+                                          **{k: float(metrics[k]) for k in (
+                                              "loss", "grad_norm", "tokens")}))
+            finally:
+                llm_step.compressed_pmean = real
+            peak_bytes = torch.cuda.max_memory_allocated()
+            payload = dict(compression.PAYLOAD)
+            check(len(held) == MESH_STEPS * n_leaves and not any(held),
+                  f"mesh_lm: the compressed step differs from the plain one-pod version in "
+                  f"{sum(held)} values over {len(held)} leaf checks")
+            check(payload == {"int32": MESH_STEPS * 4 * n_params,
+                              "float32": MESH_STEPS * 4 * n_leaves},
+                  f"mesh_lm: the pod all-reduce sent {payload}")
+            check(all(np.isfinite(x["loss"]) and np.isfinite(x["grad_norm"]) for x in steps),
+                  f"mesh_lm: a loss or gradient norm is not finite: {steps}")
+            check(all(x["tokens"] == TRAIN_BATCH * TRAIN_SEQ for x in steps), f"mesh_lm: {steps}")
+            check(launches_by_path["mesh_lm_steps"] == {k: 0 for k in launches_by_path[
+                "mesh_lm_steps"]}, f"mesh_lm steps launched {launches_by_path['mesh_lm_steps']}")
+            emit(phase="mesh_lm_compressed_step", arch=TRAIN_ARCH, layers=tcfg.n_layers,
+                 mesh={"pod": 1, "data": 1, "model": 1}, backend="nccl", parameters=n_params,
+                 leaves=n_leaves, batch=TRAIN_BATCH, seq=TRAIN_SEQ, n_micro=TRAIN_MICRO,
+                 steps=steps, payload_bytes=payload, error_state_bytes=err_bytes,
+                 max_memory_allocated=peak_bytes, leaf_checks=len(held),
+                 values_differing_from_plain=sum(held), tolerance=0)
+
+            # (d) one sampled token through make_decode_sample_step on (a)'s model
+            b_, plen = 4, 16
+            prompt = torch.randint(0, tcfg.vocab_size, (b_, plen), generator=gen, device=dev,
+                                   dtype=torch.int32)
+            with llm_sharding.use_mesh(mesh), llm_sharding.use_rules(
+                    llm_sharding.rules_for_config(tcfg)):
+                cache = llm.init_cache(tcfg, b_, plen + 8, dev)
+                _, cache = llm.prefill(model, tcfg, {"tokens": prompt}, cache)
+                decode_sample = llm_step.make_decode_sample_step(tcfg)
+                with path_run("mesh_lm") as seen:
+                    tokens_, cache, acc = decode_sample(model, prompt[:, -1:], cache,
+                                                        prng.PRNGKey(SEED, device=dev))
+            launches = launches_by_path["mesh_lm"]
+            check(launches == {**{k: 0 for k in launches}, "mh_chain": 1},
+                  f"mesh_lm decode-sample: launches {launches}")
+            check(tuple(tokens_.shape) == (b_, 1) and bool(
+                ((tokens_ >= 0) & (tokens_ < tcfg.vocab_size)).all()),
+                f"mesh_lm decode-sample: tokens {tokens_.tolist()}")
+            args, kw = seen["mh_chain"]
+            diff, merr, _ = hold("mh_chain", "mesh_lm decode-sample first launch",
+                                 from_launch(args), kw)
+            emit(phase="mesh_lm_decode_sample", batch=b_, prompt_len=plen,
+                 tokens=tokens_[:, 0].tolist(), acceptance=float(acc), launches=launches,
+                 first_launch_mismatches=diff, max_abs_err=merr,
+                 cache_placements=[str(p) for p in cache["layers"]["attn"]["k"].placements])
+            del model, opt, err, cache, seen, args, kw, step_fn
+            gc.collect()
+            torch.cuda.empty_cache()
+
+            # (b) the model rules on one rank: granite-3 8B at full width, 2 layers
+            gcfg = dataclasses.replace(llm_configs.get_config(LLM_ARCH),
+                                       n_layers=MESH_RULES_LAYERS)
+            gmodel = llm.init_lm(gcfg, seed=SEED, device=dev)
+            toks = torch.randint(0, gcfg.vocab_size, (MESH_RULES_BATCH, MESH_RULES_SEQ),
+                                 generator=gen, device=dev)
+
+            def rules_run():
+                with torch.no_grad():
+                    loss, _ = llm.train_loss(gmodel, gcfg, {"tokens": toks, "labels": toks})
+                cache_ = llm.init_cache(gcfg, MESH_RULES_BATCH, MESH_PROMPT + MESH_DECODE, dev)
+                out = [loss]
+                logits, cache_ = llm.prefill(gmodel, gcfg, {"tokens": toks[:, :MESH_PROMPT]},
+                                             cache_)
+                out.append(logits)
+                for i in range(MESH_DECODE):
+                    logits, cache_ = llm.decode_step(
+                        gmodel, gcfg, toks[:, MESH_PROMPT + i:MESH_PROMPT + i + 1], cache_)
+                    out.append(logits)
+                out.append(cache_["layers"]["k"])
+                torch.cuda.synchronize()
+                return out
+
+            t0 = time.perf_counter()
+            plain = rules_run()
+            plain_s = time.perf_counter() - t0
+            with llm_sharding.use_mesh(mesh), llm_sharding.use_rules(
+                    llm_sharding.rules_for_config(gcfg)):
+                llm_sharding.distribute_params(gmodel, mesh)
+                t0 = time.perf_counter()
+                meshed = rules_run()
+                mesh_s = time.perf_counter() - t0
+                on_card = all(isinstance(t, DTensor) and t.is_cuda for t in meshed) and all(
+                    isinstance(p, DTensor) and p.is_cuda for p in gmodel.parameters())
+                cache_pl = [str(p) for p in meshed[-1].placements]
+                meshed = [whole(t) for t in meshed]
+            rules_diff = [int((a != b).sum()) for a, b in zip(plain, meshed)]
+            check(on_card, "mesh_lm rules: a result or parameter is not a DTensor on the card")
+            check(not any(rules_diff), f"mesh_lm rules: values differing from the run without "
+                  f"a mesh: {rules_diff} (loss, prefill, decode steps, cache)")
+            emit(phase="mesh_lm_rules", arch=LLM_ARCH, layers=MESH_RULES_LAYERS,
+                 d_model=gcfg.d_model, dtype=str(gcfg.param_dtype), batch=MESH_RULES_BATCH,
+                 seq=MESH_RULES_SEQ, prompt=MESH_PROMPT, decode_steps=MESH_DECODE,
+                 rules=dict(gcfg.sharding_overrides), cache_placements=cache_pl,
+                 values_differing=rules_diff, tolerance=0, loss=float(plain[0]),
+                 seconds=mesh_s, no_mesh_seconds=plain_s)
+            del gmodel, plain, meshed
+            gc.collect()
+            torch.cuda.empty_cache()
+
+            # (c) moe_ffn_ep at one qwen3-moe-30b layer's full width
+            qcfg = llm_configs.get_config("qwen3_moe_30b")
+            params = dict(llm_moe.init_moe(gen, qcfg, device=dev))
+            x = torch.randn((MESH_MOE_ROWS, MESH_MOE_SEQ, qcfg.d_model), generator=gen,
+                            device=dev).to(qcfg.param_dtype)
+            dout = torch.randn(x.shape, generator=gen, device=dev).to(qcfg.param_dtype)
+            leaves = [x.requires_grad_(True), *(p.requires_grad_(True) for p in params.values())]
+            y, _ = llm_moe.moe_ffn_local(params, x, qcfg, activation(qcfg.act))
+            want = [y.detach(), *torch.autograd.grad(y, leaves, dout)]
+            with llm_sharding.use_mesh(mesh):
+                holder = torch.nn.Module()
+                holder.moe = torch.nn.ParameterDict(params)
+                holder.param_axes = {f"moe.{n}": p.logical_axes for n, p in params.items()}
+                llm_sharding.distribute_params(holder, mesh)
+                placed = dict(holder.moe.items())
+                xd = llm_sharding.shard(x.detach(), ("batch", "seq", "embed")).requires_grad_(True)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                yd, _ = llm_moe.moe_ffn_ep(placed, xd, qcfg, activation(qcfg.act), mesh)
+                got = [yd, *torch.autograd.grad(
+                    yd, [xd, *placed.values()], llm_sharding.shard(dout, ("batch", "seq",
+                                                                          "embed")))]
+                got = [whole(t) for t in got]
+                torch.cuda.synchronize()
+                ep_s = time.perf_counter() - t0
+            ep_diff = [int((a != b).sum()) for a, b in zip(want, got)]
+            check(not any(ep_diff), f"mesh_lm moe_ffn_ep: values differing from moe_ffn_local: "
+                  f"{ep_diff} (out, dx, router, gate, up, down)")
+            emit(phase="mesh_lm_moe_ep", arch="qwen3_moe_30b", experts=qcfg.n_experts,
+                 top_k=qcfg.moe_top_k, d_model=qcfg.d_model, d_ff=qcfg.d_ff,
+                 rows=MESH_MOE_ROWS, seq=MESH_MOE_SEQ, dtype=str(qcfg.param_dtype),
+                 values_differing=ep_diff, tolerance=0, seconds=ep_s)
+            del params, placed, holder, want, got, x, dout, leaves
+        finally:
+            dist.destroy_process_group()
+        gc.collect()
+        torch.cuda.empty_cache()
+        emit(phase="mesh_lm_total", seconds=time.perf_counter() - t_phase)
+
     for phase_, arch_, samplers_ in FAMILY_PHASES:
         with depth_cut(arch_):
             serve_family_phase(phase_, arch_, samplers_)
@@ -3066,6 +3316,9 @@ def main() -> int:
 
     # 35. train_lm: launch/train.py at full width and depth ----------------------
     train_lm_phase()
+
+    # 36. mesh_lm: the distributed layer on a one-rank nccl mesh ----------------
+    mesh_lm_phase()
 
     # 12. timing --------------------------------------------------------------
     # The table (12.6 MB at V = 49,155) stays in the 50 MB L2 between

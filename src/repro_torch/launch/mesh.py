@@ -1,5 +1,15 @@
-"""The sampler engine's scale-out mesh — the port of
-``repro.launch.mesh.make_chains_mesh``.
+"""Production meshes and the sampler engine's scale-out mesh — the port
+of ``repro.launch.mesh``.
+
+Meshes (the JAX package's):
+  single-pod:  (16, 16)      dimensions ("data", "model")   = 256 devices
+  multi-pod:   (2, 16, 16)   dimensions ("pod", "data", "model") = 512 devices
+
+``alt_mesh`` builds the same-count variants (e.g. (32, 8) to restore
+attention TP for 40/24/20-head archs).  Each is a ``DeviceMesh`` over the
+ranks of the initialised default process group, which must hold exactly
+as many ranks (one device each); a smaller group raises ``ValueError``
+naming the world size the mesh needs.
 
 The port runs one process per device (``torch.distributed``: ``nccl``
 on cards, ``gloo`` on the CPU).  ``make_chains_mesh`` starts no process
@@ -14,6 +24,36 @@ from __future__ import annotations
 import contextlib
 import gc
 import os
+
+
+def _grid_mesh(shape: tuple, names: tuple, device_type: str):
+    """A ``DeviceMesh`` of ``shape`` over ranks 0..N-1 of the default
+    process group, row-major, its dimensions named ``names``."""
+    import numpy as np
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    need = int(np.prod(shape))
+    have = dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+    if have != need:
+        raise ValueError(f"a {shape} mesh {names} needs a process group of world size {need}; "
+                         f"this one has {have}")
+    return DeviceMesh(device_type, np.arange(need).reshape(shape).tolist(),
+                      mesh_dim_names=names)
+
+
+def make_production_mesh(*, multi_pod: bool = False, device_type: str = "cuda"):
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return _grid_mesh(shape, axes, device_type)
+
+
+def alt_mesh(data: int, model: int, *, pods: int = 1, device_type: str = "cuda"):
+    """Same-device-count variants, e.g. alt_mesh(32, 8); with ``pods`` > 1
+    a ("pod", "data", "model") mesh."""
+    if pods > 1:
+        return _grid_mesh((pods, data, model), ("pod", "data", "model"), device_type)
+    return _grid_mesh((data, model), ("data", "model"), device_type)
 
 
 def make_chains_mesh(num_chains: int | None = None, *, devices=None, device_type: str = "cuda"):

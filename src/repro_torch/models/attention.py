@@ -14,11 +14,12 @@ as the JAX package's einsums ask with ``preferred_element_type``
 (``layers.matmul_f32``).
 
 The JAX package's ``_gqa_layout`` and ``shard(...)`` annotations place
-heads and the cache on a device mesh; on one device without a mesh they
-are the identity, so the port leaves them out.  A decode step writes the
-KV cache in place (the stacked buffer is the server's one allocation),
-and so does a cross-attention prefill (the encoder's K/V, stored once
-for the decode steps).
+heads and the cache on a device mesh (``sharding.use_mesh``); without a
+mesh they are the identity.  A decode step writes the KV cache in place
+(the stacked buffer is the server's one allocation), and so does a
+cross-attention prefill (the encoder's K/V, stored once for the decode
+steps); a cache sharded over its sequence axis (the configs'
+``cache_seq`` override) is written by each rank into its own rows.
 """
 
 from __future__ import annotations
@@ -26,6 +27,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.distributed import sharding
+from repro_torch.distributed.sharding import active_mesh, shard
 from repro_torch.models.layers import apply_rope, matmul_f32, param, rms_norm, wide
 
 NEG_INF = -1e30
@@ -171,6 +174,56 @@ def decode_attention(q, k_cache, v_cache, *, index, window):
     return out[:, None].to(q.dtype)  # (B, 1, KV, R, dh)
 
 
+def _gqa_layout(kv: int, r: int):
+    """Pick (kv_eff, r_eff, repeat) so the sharded head axis divides "model".
+
+    Layout A: kv divides |model|  -> shard the kv axis, keep GQA grouping.
+    Layout B: only h = kv*r does  -> repeat K/V to h heads, shard flat heads.
+    Layout C: neither divides     -> keep GQA grouping, weights replicate
+                                     (divisibility filter in sharding rules).
+    """
+    mesh = active_mesh()
+    if mesh is None or "model" not in sharding.mesh_axis_names(mesh):
+        return kv, r, False
+    m = sharding.mesh_axis_size(mesh, "model")
+    if m <= 1 or kv % m == 0:
+        return kv, r, False
+    if (kv * r) % m == 0:
+        return kv * r, 1, True
+    return kv, r, False
+
+
+def _update_rows_sharded(buf, upd, start, s: int, last: int) -> None:
+    """``update_rows`` into a DTensor ``buf``: ``upd`` is brought to
+    ``buf``'s placements whole along the sequence axis, and each rank
+    writes the positions that fall in its own rows (an explicit region:
+    DTensor cannot index-write a sharded dimension)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    mesh = buf.device_mesh
+    pl = [Replicate() if isinstance(p, Shard) and p.dim == 1 else p for p in buf.placements]
+    if not isinstance(upd, DTensor):
+        upd = DTensor.from_local(upd, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    upd_l = upd.redistribute(mesh, pl).to_local().to(buf.dtype)
+    (n0, n1, *_), (o0, o1, *_) = compute_local_shape_and_global_offset(
+        buf.shape, mesh, buf.placements)
+    buf_l = buf.to_local()
+    if isinstance(start, int):
+        start = min(max(start, 0), last)
+        lo, hi = max(start, o1), min(start + s, o1 + n1)
+        if lo < hi:
+            buf_l[:, lo - o1:hi - o1] = upd_l[:, lo - start:hi - start]
+        return
+    if isinstance(start, DTensor):
+        start = start.full_tensor()
+    dev = buf_l.device
+    pos = start.to(dev).clamp(0, last).reshape(-1, 1) + torch.arange(s, device=dev)
+    pos = pos.broadcast_to((buf.shape[0], s))[o0:o0 + n0]  # this rank's rows
+    rows, cols = torch.nonzero((pos >= o1) & (pos < o1 + n1), as_tuple=True)
+    buf_l[rows, pos[rows, cols] - o1] = upd_l[rows, cols]
+
+
 def update_rows(buf, upd, start) -> None:
     """``jax.lax.dynamic_update_slice`` of ``upd`` (B, s, ...) into
     ``buf`` (B, Smax, ...) along the sequence axis at ``start`` (a
@@ -186,6 +239,9 @@ def update_rows(buf, upd, start) -> None:
         raise ValueError(
             f"an update of shape {tuple(upd.shape)} is longer than the buffer of shape "
             f"{tuple(buf.shape)} along the sequence axis")
+    if sharding.is_dtensor(buf):
+        _update_rows_sharded(buf, upd, start, s, last)
+        return
     if isinstance(start, int):  # a prefill's 0: a slice, no index tensor
         start = min(max(start, 0), last)
         buf[:, start:start + s] = upd.to(buf.dtype)
@@ -243,10 +299,24 @@ def attention(
         q = _rope_heads(q, positions, cfg.rope_theta)
         k = _rope_heads(k, positions, cfg.rope_theta)
 
-    q = q.reshape(b, s, kv, r, dh)
+    kv_eff, r_eff, repeat_kv = _gqa_layout(kv, r)
+    q = q.reshape(b, s, kv_eff, r_eff, dh)
+    q = shard(q, ("batch", "seq", "kv_heads", None, "head_dim"))
 
     new_cache = cache
     if mode == "decode":
+        # decode keeps the native GQA grouping: the cache's sequence axis
+        # supplies the model-axis parallelism (cache_seq sharding rules)
+        q = q.reshape(b, s, kv, r, dh)
+        if sharding.is_dtensor(q):
+            # the query's heads whole (its rows keep their split): the score
+            # product flattens (B, KV) into one batch dimension, and
+            # DTensor's view rules refuse to flatten two split dimensions
+            q = q.redistribute(q.device_mesh, sharding.split_placements(q))
+
+        def cache_shard(t):
+            return shard(t, ("batch", "cache_seq", "kv_heads", "head_dim"))
+
         if not cross:
             # append this step's k/v at the cache index; a (B,) per-row
             # index writes each row at its own position
@@ -256,7 +326,8 @@ def attention(
         else:
             index = cache["k"].shape[1]
         out = decode_attention(
-            q, cache["k"], cache["v"], index=index, window=None if cross else window,
+            q, cache_shard(cache["k"]), cache_shard(cache["v"]), index=index,
+            window=None if cross else window,
         )
         out = out.reshape(b, s, h, dh)
     else:
@@ -266,15 +337,26 @@ def attention(
         elif cache is not None:  # whisper prefill: stash the encoder's K/V for decode
             cache["k"].copy_(k)
             cache["v"].copy_(v)
-        out = flash_attention(
-            q, k, v,
-            causal=causal,
-            window=window,
-            q_offset=0,
-            block_q=cfg.attn_block_q,
-            block_kv=cfg.attn_block_kv,
-            unroll_causal_skip=getattr(cfg, "attn_causal_skip", False),
-        ).reshape(b, s, h, dh)
+        if repeat_kv:  # layout B: K/V repeated to the flat heads
+            k, v = torch.repeat_interleave(k, r, dim=2), torch.repeat_interleave(v, r, dim=2)
+
+        def flash(q_, k_, v_):
+            return flash_attention(
+                q_, k_, v_,
+                causal=causal,
+                window=window,
+                q_offset=0,
+                block_q=cfg.attn_block_q,
+                block_kv=cfg.attn_block_kv,
+                unroll_causal_skip=getattr(cfg, "attn_causal_skip", False),
+            )
+
+        # region: aten.bmm of the blockwise score and value products.  Each
+        # (row, KV head) attends on its own, so the blocks run on each rank's
+        # rows and heads (q's split of dims 0 and 2, which K/V share); under
+        # DTensor every block's batched product pays a strategy search
+        heads = sharding.split_placements(q, (0, 2))
+        out = sharding.local_region(flash, heads, q, k, v).reshape(b, s, h, dh)
 
     out = out.reshape(b, s, h * dh) @ params["wo"].to(x.dtype).reshape(h * dh, d)
     return out, new_cache

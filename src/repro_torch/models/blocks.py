@@ -9,7 +9,9 @@ converter maps leaf paths one to one.  ``init_block`` / ``apply_block``
 keep the JAX signatures.  The audio family's ``encoder`` block is
 bidirectional self-attention without RoPE or cache; its
 ``encoder_cross`` block (the whisper decoder) adds cross-attention over
-the encoder's output between self-attention and the MLP.
+the encoder's output between self-attention and the MLP.  The JAX
+package's ``shard`` constraints (the residual stream, the MLP's hidden
+layer) are kept: the identity without a mesh, a redistribution under one.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from repro_torch.distributed.sharding import shard
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
@@ -67,8 +70,10 @@ def apply_mlp(p, x, cfg):
     act = activation(cfg.act)
     if cfg.mlp_gated:
         h = act(x @ p["w_gate"].to(x.dtype)) * (x @ p["w_up"].to(x.dtype))
+        h = shard(h, ("batch", "seq", "ffn"))
         return h @ p["w_down"].to(x.dtype)
     h = act(x @ p["w_in"].to(x.dtype))
+    h = shard(h, ("batch", "seq", "ffn"))
     return h @ p["w_out"].to(x.dtype)
 
 
@@ -150,6 +155,8 @@ def apply_block(
     block attends to outside decode."""
     kind = kind or cfg.family
     check_kind(kind)
+    seq_axis = "seq_sp" if getattr(cfg, "seq_shard", False) else "seq"
+    x = shard(x, ("batch", seq_axis, "embed"))
     window = None
     if cfg.sliding_window > 0 and kind != "encoder":
         window = cfg.sliding_window
@@ -158,9 +165,8 @@ def apply_block(
     attn_mode = "decode" if mode == "decode" else "full"
 
     def mamba(h, ssm_cache):
-        if mode == "decode":
-            return ssm_mod.mamba2_decode(p["mamba"], h, cfg, ssm_cache)
-        return ssm_mod.mamba2_full(p["mamba"], h, cfg, ssm_cache)
+        fn = ssm_mod.mamba2_decode if mode == "decode" else ssm_mod.mamba2_full
+        return ssm_mod.apply_mamba(fn, p["mamba"], h, cfg, ssm_cache)
 
     h = apply_norm(p["ln1"], x, cfg)
     if kind == "ssm":

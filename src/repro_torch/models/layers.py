@@ -27,6 +27,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.distributed import sharding
+
 
 def param(gen, shape, axes, dtype=torch.float32, scale: float | None = None,
           mode: str = "normal", device=None) -> nn.Parameter:
@@ -127,9 +129,39 @@ def matmul_f32(a, b):
     reference for the float32 one)."""
     if a.dtype == b.dtype and a.dtype in (torch.float32, torch.float64):
         return a @ b
+    if a.ndim == 2 and b.ndim == 2 and sharding.is_dtensor(a):
+        return _matmul_f32_region(a, b)
     if a.is_cuda and a.ndim == 2 and b.ndim == 2 and a.dtype == b.dtype:
         return _MmFloat32.apply(a, b)
     return a.float() @ b.float()
+
+
+def _matmul_f32_region(a, b):
+    """``matmul_f32`` of a DTensor matrix product on local tensors, since
+    DTensor has no sharding strategy for ``aten.mm.dtype`` (``torch.mm``'s
+    ``out_dtype``): the rows of ``a`` keep their split, the columns of
+    ``b`` theirs, and each rank multiplies its blocks with no
+    communication.  A gradient taken from a block is a partial sum over
+    the mesh dimensions that split the other operand."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    mesh = a.device_mesh
+    if not isinstance(b, DTensor):
+        b = DTensor.from_local(b, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    a_pl, b_pl, out_pl, a_grad, b_grad = [], [], [], [], []
+    for pa, pb in zip(a.placements, b.placements):
+        if isinstance(pa, Shard) and pa.dim == 0:
+            a_pl.append(pa), b_pl.append(Replicate()), out_pl.append(Shard(0))
+            a_grad.append(pa), b_grad.append(Partial())
+        elif isinstance(pb, Shard) and pb.dim == 1:
+            a_pl.append(Replicate()), b_pl.append(pb), out_pl.append(Shard(1))
+            a_grad.append(Partial()), b_grad.append(pb)
+        else:
+            for acc in (a_pl, b_pl, out_pl, a_grad, b_grad):
+                acc.append(Replicate())
+    a_l = a.redistribute(mesh, a_pl).to_local(grad_placements=a_grad)
+    b_l = b.redistribute(mesh, b_pl).to_local(grad_placements=b_grad)
+    return DTensor.from_local(matmul_f32(a_l, b_l), mesh, out_pl, run_check=False)
 
 
 # --- rotary position embedding --------------------------------------------

@@ -37,6 +37,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed.sharding import active_mesh, shard
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import blocks
 from repro_torch.models import ssm as ssm_mod
@@ -130,11 +131,36 @@ def _layer_cache(cfg, batch: int, max_len: int, device=None):
 
 
 def init_cache(cfg, batch: int, max_len: int, device=None):
+    """The zeroed cache; under a mesh (``sharding.use_mesh``) each layer
+    leaf is a DTensor placed by ``cache_axes`` under the active rules
+    (the configs shard ``cache_seq``), the index a plain tensor."""
     dev = resolve_device(device)
-    return {
-        "index": torch.zeros((), dtype=torch.int32, device=dev),
-        "layers": _layer_cache(cfg, batch, max_len, dev),
-    }
+    layers = _layer_cache(cfg, batch, max_len, dev)
+    if active_mesh() is not None:
+        layers = tree_map(lambda t, axes: shard(t, axes), layers, cache_axes(cfg)["layers"])
+    return {"index": torch.zeros((), dtype=torch.int32, device=dev), "layers": layers}
+
+
+_KV_AXES = {"k": attn_mod.KV_CACHE_AXES, "v": attn_mod.KV_CACHE_AXES}
+_SSM_AXES = {
+    "state": ("layers", "batch", "ssm_heads", "head_dim", "ssm_state"),
+    "conv_x": ("layers", "batch", "conv", "ssm_heads", "head_dim"),
+    "conv_B": ("layers", "batch", "conv", None, "ssm_state"),
+    "conv_C": ("layers", "batch", "conv", None, "ssm_state"),
+}
+
+
+def cache_axes(cfg):
+    """The cache tree's logical axes, leaf for leaf."""
+    if cfg.family == "ssm":
+        layers = dict(_SSM_AXES)
+    elif cfg.family == "hybrid":
+        layers = {"attn": dict(_KV_AXES), "ssm": dict(_SSM_AXES)}
+    elif cfg.is_encdec:
+        layers = {"self": dict(_KV_AXES), "cross": dict(_KV_AXES)}
+    else:
+        layers = dict(_KV_AXES)
+    return {"index": (), "layers": layers}
 
 
 # --- layer metadata (per-layer heterogeneity) ----------------------------------
@@ -208,6 +234,7 @@ def lm_forward(model: LM, cfg, batch, *, mode: str, cache=None):
         enc_out = _encode_audio(model, cfg, batch["frames"], remat)
 
     x = model.embed[tokens].to(cfg.compute_dtype)
+    x = shard(x, ("batch", "seq_sp" if cfg.seq_shard else "seq", "embed"))
     if cfg.family == "vlm" and mode != "decode":
         cdt = cfg.compute_dtype
         w, bias = model.img_proj["w"], model.img_proj["b"]
@@ -240,8 +267,12 @@ def head_logits(model: LM, cfg, hidden):
     w = model.lm_head.to(cfg.compute_dtype)
     lead = hidden.shape[:-1]
     logits = matmul_f32(hidden.reshape(-1, hidden.shape[-1]), w).reshape(*lead, -1)
+    logits = shard(logits, ("batch", "seq", "vocab"))
     if cfg.padded_vocab != cfg.vocab_size:
-        logits[..., cfg.vocab_size:] = -1e30
+        # a masked fill over a column mask, not a slice assignment: DTensor
+        # has no sharding strategy for the slice's aten.fill_.Tensor
+        col = torch.arange(cfg.padded_vocab, device=logits.device)
+        logits.masked_fill_(col >= cfg.vocab_size, -1e30)
     return logits
 
 
@@ -250,7 +281,10 @@ def _chunk_terms(model: LM, cfg, h, lab):
     logsumexp, the label's logit; negative labels masked out."""
     logits = head_logits(model, cfg, h)
     logz = torch.logsumexp(logits, dim=-1)
-    ll = torch.take_along_dim(logits, lab.clamp_min(0)[..., None].long(), dim=-1)[..., 0]
+    ll = torch.take_along_dim(logits, lab.clamp_min(0)[..., None].long(), dim=-1)
+    # under a mesh the gather from vocab-sharded logits is a masked partial
+    # sum: reduce it while it keeps the gather's shape
+    ll = shard(ll, ("batch", "seq", None))[..., 0]
     mask = (lab >= 0).float()
     nll = torch.sum((logz - ll) * mask)
     zl = torch.sum(torch.square(logz) * mask) if cfg.z_loss > 0 else torch.zeros_like(nll)

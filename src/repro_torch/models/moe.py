@@ -26,17 +26,35 @@ What the port must keep so that routing and drops are JAX's exactly:
 * the router's product is float32 with TF32 off on the card, since its
   decisions are discrete.
 
-``moe_ffn_ep`` (shard_map expert parallelism) is not ported: ``moe_ffn``
-with a mesh raises (ROADMAP.md queue 1 item 10g).
+Under a mesh (``sharding.use_mesh``) the same discipline runs on
+DTensors.  ``moe_ffn`` reads the active mesh as the JAX function does:
+
+* by default, ``moe_ffn_local(constrain=True)``: routing and the expert
+  products stay in DTensor's hands (the expert-stacked weights sharded
+  over "model"), with JAX's constraints on the dispatch buffers; the
+  dispatch and the combine, per batch row, run in row-local regions
+  (``sharding.local_region``) on each rank's rows, since DTensor has no
+  sharding strategy for ``searchsorted`` and the index writes;
+* with ``REPRO_MOE_SHARD_MAP_EP=1`` (read once, at import),
+  ``moe_ffn_ep``: JAX's ``shard_map`` over "model" as a manual region on
+  local tensors.  Each rank routes its rows, dispatches to its own
+  experts (``offset``), runs them, and one all-reduce over "model" sums
+  the combine.  Its backward pass (``_ExpertParallel``, JAX's
+  ``custom_vjp``) recomputes the local dispatch and all-reduces ``dx``
+  and the router's gradient over "model"; the experts' gradients stay on
+  their rank.
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
 
 import torch
 from torch import nn
 
+from repro_torch.distributed import sharding
+from repro_torch.distributed.sharding import active_mesh, shard
 from repro_torch.models.layers import param
 
 
@@ -94,21 +112,24 @@ def route(router_w, x, top_k: int, renormalize: bool = True):
     return probs, experts, aux
 
 
-def _dispatch(x, probs, experts, n_experts: int, top_k: int, cap: int):
-    """Every batch row's ``_dispatch_row`` at once, over all the experts
-    (the JAX function's local range is [0, E) on one device): (B,S,d),
-    (B,S,k), (B,S,k) -> the (B,E,cap,d) buffer and, per row in sorted
-    order, each assignment's slot (E*cap when dropped), token and combine
-    weight."""
+def _dispatch(x, probs, experts, n_experts: int, top_k: int, cap: int, offset=0):
+    """Every batch row's ``_dispatch_row`` at once, for the contiguous
+    expert range [offset, offset + n_experts) (0 and E on one device, a
+    rank's slice under expert parallelism): (B,S,d), (B,S,k), (B,S,k) ->
+    the (B,n_experts,cap,d) buffer and, per row in sorted order, each
+    assignment's slot (n_experts*cap when dropped or not local), token and
+    combine weight."""
     b, s, d = x.shape
     dev = x.device
-    flat_e = experts.reshape(b, s * top_k)                              # (B, S*k)
+    flat_e = experts.reshape(b, s * top_k) - offset                     # (B, S*k)
     flat_p = probs.reshape(b, s * top_k)
     flat_tok = torch.arange(s, device=dev).repeat_interleave(top_k)     # (S*k,)
-    order = torch.argsort(flat_e, dim=-1, stable=True)
-    se = torch.gather(flat_e, 1, order)
+    is_local = (flat_e >= 0) & (flat_e < n_experts)
+    sort_key = torch.where(is_local, flat_e, n_experts)                 # non-local last
+    order = torch.argsort(sort_key, dim=-1, stable=True)
+    se = torch.gather(sort_key, 1, order)
     pos = torch.arange(s * top_k, device=dev) - torch.searchsorted(se, se, side="left")
-    keep = pos < cap
+    keep = (se < n_experts) & (pos < cap)
     slot = torch.where(keep, se * cap + pos, n_experts * cap)           # overflow slot
     tok = flat_tok[order]
     rows = torch.arange(b, device=dev)[:, None]
@@ -151,31 +172,144 @@ def _expert_ffn(buf, wg, wu, wd, act):
     return out.reshape(e, b, cap, d).transpose(0, 1)
 
 
-def _moe_body(x, probs, experts, wg, wu, wd, cfg, act):
-    """Dispatch, the experts, and the combine."""
+def _moe_body(x, probs, experts, wg, wu, wd, cfg, act, offset=0, constrain=False):
+    """Dispatch, the experts, and the combine for the local expert slice
+    [offset, offset + wg.shape[0]).
+
+    With ``constrain`` (the EP-capable path under a mesh), JAX's
+    constraints pin the dispatch buffer replicated over "model" and the
+    experts' outputs to ("batch" x "experts"), so the expert products run
+    on each rank's own experts.  On DTensors the dispatch and the combine
+    run per batch row in row-local regions: DTensor has no sharding
+    strategy for ``searchsorted`` (nor for the index writes of the
+    buffer), and the combine gathers the experts' outputs of its rows."""
     s = x.shape[1]
     cap = capacity(s, cfg.n_experts, cfg.moe_top_k, cfg.moe_capacity_factor)
-    buf, info = _dispatch(x, probs, experts, wg.shape[0], cfg.moe_top_k, cap)
-    return _combine(_expert_ffn(buf, wg, wu, wd, act), info, s, cfg.moe_top_k)
+
+    def dispatch(x_, probs_, experts_):
+        return _dispatch(x_, probs_, experts_, wg.shape[0], cfg.moe_top_k, cap, offset)
+
+    def combine(out_buf, slot, tok, weights):
+        return _combine(out_buf, (slot, tok, weights), s, cfg.moe_top_k)
+
+    rows = sharding.split_placements(x)
+    # region: aten.searchsorted and aten.index_put_ (the dispatch)
+    buf, info = sharding.local_region(dispatch, rows, x, probs, experts)
+    if constrain:
+        # the dispatch buffer stays replicated over "model": each rank's
+        # expert products read their slice of it locally
+        buf = shard(buf, ("batch", None, "expert_cap", "embed"))
+    out_buf = _expert_ffn(buf, wg, wu, wd, act)
+    if constrain:
+        out_buf = shard(out_buf, ("batch", "experts", "expert_cap", "embed"))
+    # region: aten.index.Tensor over the gathered expert outputs (the combine)
+    return sharding.local_region(combine, rows, out_buf, *info)
 
 
-def moe_ffn_local(params, x, cfg, act):
-    """The single-program path. x: (B,S,d) -> (out, aux)."""
+def moe_ffn_local(params, x, cfg, act, constrain=False):
+    """The single-program path (constrained under a mesh). x: (B,S,d) ->
+    (out, aux)."""
     probs, experts, aux = route(params["router"], x, cfg.moe_top_k,
                                 renormalize=cfg.moe_renormalize)
     out = _moe_body(x, probs, experts, params["w_gate"], params["w_up"], params["w_down"],
-                    cfg, act)
+                    cfg, act, offset=0, constrain=constrain)
     return out, aux
 
 
-def moe_ffn(params, x, cfg, act, mesh=None):
-    """The dispatching entry: the local path; expert parallelism over a
-    mesh is not ported yet."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "the MoE FFN over a mesh (moe_ffn_ep) is not ported yet: ROADMAP.md queue 1 "
-            "item 10g")
-    return moe_ffn_local(params, x, cfg, act)
+def _ep_local(x, rw, wg, wu, wd, cfg, act, offset):
+    """One rank's share of the expert-parallel FFN on local tensors: its
+    rows routed, dispatched to its experts [offset, offset + E_local)."""
+    probs, experts, _ = route(rw, x, cfg.moe_top_k, renormalize=cfg.moe_renormalize)
+    return _moe_body(x, probs, experts, wg, wu, wd, cfg, act, offset)
+
+
+class _ExpertParallel(torch.autograd.Function):
+    """JAX's ``custom_vjp`` around the EP ``shard_map``: the forward pass
+    sums every rank's share over the group; the backward pass replays the
+    local dispatch under autograd (recompute-style) and all-reduces ``dx``
+    and the router's gradient, while the experts' gradients stay on their
+    rank."""
+
+    @staticmethod
+    def forward(ctx, x, rw, wg, wu, wd, cfg, act, offset, group):
+        import torch.distributed as dist
+
+        ctx.save_for_backward(x, rw, wg, wu, wd)
+        ctx.extra = (cfg, act, offset, group)
+        out = _ep_local(x, rw, wg, wu, wd, cfg, act, offset)
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        import torch.distributed as dist
+
+        cfg, act, offset, group = ctx.extra
+        leaves = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            out = _ep_local(*leaves, cfg, act, offset)
+        grads = list(torch.autograd.grad(out, leaves, dout, allow_unused=True))
+        grads = [torch.zeros_like(t) if g is None else g for g, t in zip(grads, leaves)]
+        dist.all_reduce(grads[0], group=group)
+        dist.all_reduce(grads[1], group=group)
+        return (*grads, None, None, None, None)
+
+
+def moe_ffn_ep(params, x, cfg, act, mesh, axis: str = "model"):
+    """Expert-parallel path: experts manual over ``axis``, the rest in
+    DTensor's hands.  The region's inputs are each rank's rows of ``x``
+    (whole over ``axis``), the router whole, and the rank's slice of the
+    expert-stacked weights; the output keeps ``x``'s rows.  A gradient
+    taken from a rank's rows is a partial sum over the dimensions that
+    split them, and is handed back as one.  The aux load-balancing loss
+    is computed outside the region on DTensors."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    names = sharding.mesh_axis_names(mesh)
+    m = names.index(axis)
+    if not isinstance(x, DTensor):
+        x = DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    x_pl = sharding.split_placements(x)
+    x_pl[m] = Replicate()
+    w_pl = [Replicate()] * mesh.ndim
+    w_pl[m] = Shard(0)
+    r_pl = [Replicate()] * mesh.ndim
+    split = [isinstance(p, Shard) for p in x_pl]
+
+    def grad_pl(pl):  # a weight's gradient from this rank's rows
+        return [Partial() if sp else p for sp, p in zip(split, pl)]
+
+    def local(t, pl):
+        if not isinstance(t, DTensor):
+            t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
+        return t.redistribute(mesh, pl).to_local(grad_placements=grad_pl(pl))
+
+    x_l = x.redistribute(mesh, x_pl).to_local()
+    wg, wu, wd = (local(params[k], w_pl) for k in ("w_gate", "w_up", "w_down"))
+    offset = mesh.get_local_rank(m) * wg.shape[0]
+    out = _ExpertParallel.apply(x_l, local(params["router"], r_pl), wg, wu, wd, cfg, act,
+                                offset, mesh.get_group(m))
+    out = DTensor.from_local(out, mesh, x_pl, run_check=False)
+    _, _, aux = route(params["router"], x, cfg.moe_top_k, renormalize=cfg.moe_renormalize)
+    return out, aux
+
+
+# The JAX package takes the shard_map EP path only under this environment
+# variable (an XLA SPMD crash in its toolchain); read once, as there, so
+# that both packages take the same path under the same environment.
+USE_SHARD_MAP_EP = os.environ.get("REPRO_MOE_SHARD_MAP_EP", "0") == "1"
+
+
+def moe_ffn(params, x, cfg, act):
+    """Dispatching entry: EP-constrained when a mesh is active, else local."""
+    mesh = active_mesh()
+    names = sharding.mesh_axis_names(mesh) if mesh is not None else ()
+    m = sharding.mesh_axis_size(mesh, "model") if "model" in names else 1
+    ep_capable = m > 1 and cfg.n_experts % m == 0
+    if ep_capable and USE_SHARD_MAP_EP:
+        return moe_ffn_ep(params, x, cfg, act, mesh)
+    out, aux = moe_ffn_local(params, x, cfg, act, constrain=ep_capable)
+    return shard(out, ("batch", "seq", "embed")), aux
 
 
 def moe_dense_reference(params, x, cfg, act):

@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.distributed import sharding
 from repro_torch.models.layers import param, rms_norm
 
 
@@ -210,6 +211,30 @@ def mamba2_decode(params, x, cfg, cache):
     y = y[:, None] * F.silu(z.float())
     out = _out(params, y, x)
     return out, _write(cache, {"state": state, **conv})
+
+
+def apply_mamba(fn, params, x, cfg, cache=None):
+    """``fn`` (``mamba2_full`` or ``mamba2_decode``) on ``x``; under a mesh
+    in a row-local region: each rank runs the layer on its own rows with
+    the layer's weights whole, and its cache rows are written back after.
+    Region: the chunked SSD's batched einsums (aten.bmm), whose DTensor
+    strategy search on split heads took seconds a shape."""
+    if not sharding.is_dtensor(x):
+        return fn(params, x, cfg, cache)
+    names, keys = list(params.keys()), list(cache or ())
+
+    def body(x_, *rest):
+        c = dict(zip(keys, rest[:len(keys)])) if cache is not None else None
+        out, c = fn(dict(zip(names, rest[len(keys):])), x_, cfg, c)
+        return (out, *(c[k] for k in keys))
+
+    out, *new = sharding.local_region(body, sharding.split_placements(x), x,
+                                      *(cache[k] for k in keys), *params.values(),
+                                      shared=len(names))
+    if cache is not None:
+        for k, v in zip(keys, new):
+            cache[k].copy_(v)
+    return out, cache
 
 
 def mamba2_reference(params, x, cfg):

@@ -22,10 +22,16 @@ root is IEEE's, as XLA's: torch's float32 ``sqrt`` on the CPU is not
 always correctly rounded, so there it goes through float64 (exact for a
 float32 argument).
 
-``axes_tree`` is accepted and constrains nothing: on one device JAX's
-``shard`` is the identity.  The ZeRO axes (``zero_axes_tree``,
-``opt_state_axes``) come with the model sharding rules (ROADMAP.md queue
-1 item 10g).
+ZeRO-1: the moments (and master copies) inherit each parameter's
+logical axes plus a ZeRO extension (``zero_axes_tree``: the first
+replicated dim divisible by the whole data-parallel extent is bound to
+("pod", "data") by ``sharding.add_zero_axes``).  Given ``axes_tree``
+under a mesh, ``adamw_update`` constrains ``m``, ``v`` and ``master`` to
+those axes, so each data-parallel rank keeps its slice of them, and the
+new parameters are brought back to their own placements (the
+all-gather of ZeRO-1).  Without a mesh the constraints are the
+identity.  The port's parameters are one tensor a layer where the JAX
+tree stacks them, so a stacked leaf's ZeRO dim may differ from JAX's.
 """
 
 from __future__ import annotations
@@ -34,6 +40,8 @@ import dataclasses
 
 import numpy as np
 import torch
+
+from repro_torch.distributed.sharding import add_zero_axes, get_rules, leaf_axes, shard
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,21 +62,39 @@ def _named(params) -> dict:
     return dict(params)
 
 
+def zero_axes_tree(params, axes_tree: dict) -> dict:
+    """Extend each parameter's logical axes with the ZeRO DP axis (under
+    the active mesh; unchanged without one)."""
+    named = _named(params)
+    return {n: add_zero_axes(leaf_axes(axes_tree[n], p.ndim), tuple(p.shape))
+            for n, p in named.items()}
+
+
 def adamw_init(params, cfg: AdamWConfig = AdamWConfig()) -> dict:
     """The state ``{step, m, v[, master]}`` of a module's (or a name ->
-    tensor dict's) parameters, on their device."""
+    tensor dict's) parameters, on their device (DTensors keep their
+    parameters' placements)."""
     named = _named(params)
     device = next(iter(named.values())).device
     state = {
         "step": torch.zeros((), dtype=torch.int32, device=device),
-        "m": {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        "m": {n: torch.zeros_like(p, dtype=torch.float32, requires_grad=False)
               for n, p in named.items()},
-        "v": {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        "v": {n: torch.zeros_like(p, dtype=torch.float32, requires_grad=False)
               for n, p in named.items()},
     }
     if cfg.use_master:
         state["master"] = {n: p.detach().float().clone() for n, p in named.items()}
     return state
+
+
+def opt_state_axes(params, axes_tree: dict, cfg: AdamWConfig = AdamWConfig()) -> dict:
+    """Logical axes for the opt state (ZeRO-extended) for sharding specs."""
+    zaxes = zero_axes_tree(params, axes_tree)
+    state_axes = {"step": (), "m": zaxes, "v": zaxes}
+    if cfg.use_master:
+        state_axes["master"] = zaxes
+    return state_axes
 
 
 def global_norm(tree: dict) -> torch.Tensor:
@@ -108,9 +134,14 @@ def adamw_update(grads: dict, opt_state: dict, params, cfg: AdamWConfig = AdamWC
     """One AdamW step.  ``grads`` maps parameter names to gradients;
     ``params`` is the module (or name -> tensor dict) they belong to.
     Returns (params, new_opt_state, metrics ``grad_norm``, ``lr``); the
-    parameters and moments are updated in place."""
-    del axes_tree  # one device: no sharding constraint
+    parameters are updated in place, the moments replaced in the state's
+    dicts.  With ``axes_tree`` the moments and master copies are
+    constrained to their ZeRO axes (a no-op without a mesh)."""
     named = _named(params)
+    zaxes, rules = None, None
+    if axes_tree is not None:
+        zaxes = zero_axes_tree(named, axes_tree)
+        rules = get_rules().replace(_zero=("pod", "data"))
     step = opt_state["step"] + 1
     gn = global_norm(grads)
     clip = torch.clamp_max(cfg.clip_norm / torch.clamp_min(gn, 1e-9), 1.0)
@@ -121,14 +152,17 @@ def adamw_update(grads: dict, opt_state: dict, params, cfg: AdamWConfig = AdamWC
     masters = opt_state.get("master")
     for name, p in named.items():
         g = grads[name].float() * clip
-        m, v = opt_state["m"][name], opt_state["v"][name]
-        m.copy_(_madd(cfg.b1, m, 1.0 - cfg.b1, g))
-        v.copy_(_madd(cfg.b2, v, 1.0 - cfg.b2, torch.square(g)))
+        m = _madd(cfg.b1, opt_state["m"][name], 1.0 - cfg.b1, g)
+        v = _madd(cfg.b2, opt_state["v"][name], 1.0 - cfg.b2, torch.square(g))
+        del g
+        if zaxes is not None:
+            m, v = shard(m, zaxes[name], rules), shard(v, zaxes[name], rules)
+        opt_state["m"][name], opt_state["v"][name] = m, v
         update = m / (b1c * (_sqrt32(v / b2c) + cfg.eps))
         p32 = (masters[name] if masters is not None else p).float()
         p32_n = fma(fma(p32, _scalar(cfg.weight_decay, p32), update), -lr, p32)
         if masters is not None:
-            masters[name].copy_(p32_n)
+            masters[name] = p32_n if zaxes is None else shard(p32_n, zaxes[name], rules)
         p.copy_(p32_n.to(p.dtype))
     new_state = dict(opt_state, step=step)
     return params, new_state, {"grad_norm": gn, "lr": lr}

@@ -7,6 +7,7 @@ that has the card and no JAX:
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
 
+import contextlib
 import re
 
 import numpy as np
@@ -917,3 +918,171 @@ def test_fma_is_one_rounding_on_the_card(cuda):
     assert torch.equal(adamw.fma(a, b, c), ref)
     w = torch.tensor(np.float32(0.95), device=cuda)
     assert torch.equal(adamw.fma(a, w, c), _fma32(a, w.expand_as(a), c))
+
+
+# --- the mesh paths on a one-rank nccl mesh (chip_smoke.py phase 36) ------------
+
+
+@contextlib.contextmanager
+def _pod_mesh(cuda):
+    """A one-rank ``nccl`` DeviceMesh ("pod", "data", "model") of shape
+    (1, 1, 1) on the card, its group destroyed on exit."""
+    import socket
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", world_size=1,
+                            rank=0, device_id=cuda)
+    try:
+        yield DeviceMesh("cuda", [[[0]]], mesh_dim_names=("pod", "data", "model"))
+    finally:
+        dist.destroy_process_group()
+
+
+def _llm_cfg(arch, dtype, **kw):
+    import dataclasses
+
+    from repro_torch import configs
+
+    return dataclasses.replace(configs.get_smoke_config(arch), dtype=dtype,
+                               param_dtype_str=dtype, cache_dtype_str=dtype, **kw)
+
+
+def _whole(t):
+    from torch.distributed.tensor import DTensor
+
+    return (t.full_tensor() if isinstance(t, DTensor) else t).detach()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_model_rules_on_one_rank_equal_no_mesh(cuda, dtype):
+    """Under ``rules_for_config`` on a one-rank mesh every redistribution
+    is the identity: the loss, a prefill and a decode step with the cache
+    sharded over its sequence equal the same calls without a mesh,
+    tolerance 0, and stay DTensors on the card."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.distributed import sharding
+    from repro_torch.models import lm
+
+    # two KV heads: a decode step's score product flattens (B, KV), which
+    # DTensor cannot do with both split
+    cfg = _llm_cfg("granite3_8b", dtype, n_kv_heads=2,
+                   sharding_overrides=(("cache_seq", ("pod", "data", "model")),))
+    model = lm.init_lm(cfg, seed=0, device=cuda)
+    toks = torch.randint(0, cfg.vocab_size, (2, 24), generator=torch.Generator(
+        device=cuda).manual_seed(1), device=cuda)
+
+    def run():
+        with torch.no_grad():
+            loss, _ = lm.train_loss(model, cfg, {"tokens": toks, "labels": toks})
+        cache = lm.init_cache(cfg, 2, 32, cuda)
+        l1, cache = lm.prefill(model, cfg, {"tokens": toks[:, :16]}, cache)
+        l2, cache = lm.decode_step(model, cfg, toks[:, 16:17], cache)
+        return loss, l1, l2, cache["layers"]["k"]
+
+    want = run()
+    with _pod_mesh(cuda) as mesh, sharding.use_mesh(mesh), sharding.use_rules(
+            sharding.rules_for_config(cfg)):
+        sharding.distribute_params(model, mesh)
+        got = run()
+        assert all(isinstance(t, DTensor) and t.is_cuda for t in got)
+        # the batch takes "pod" and "data", the sequence "model"
+        assert [p.is_shard(d) for p, d in zip(got[3].placements, (1, 1, 2))] == [True] * 3
+        got = [_whole(t) for t in got]
+    for w, g in zip(want, got):
+        assert torch.equal(w, g)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_ffn_ep_on_one_rank_equals_local(cuda, dtype):
+    """moe_ffn_ep on a one-rank mesh against moe_ffn_local without one:
+    the output and the gradients of <out, dout>, tolerance 0."""
+    from repro_torch.distributed import sharding
+    from repro_torch.models import moe
+    from repro_torch.models.layers import activation
+
+    cfg = _llm_cfg("qwen3_moe_30b", dtype)
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    params = dict(moe.init_moe(gen, cfg, device=cuda))
+    x = torch.randn((2, 16, cfg.d_model), generator=gen, device=cuda).to(cfg.param_dtype)
+    dout = torch.randn((2, 16, cfg.d_model), generator=gen, device=cuda).to(cfg.param_dtype)
+    leaves = [x.requires_grad_(True), *(p.requires_grad_(True) for p in params.values())]
+    y, _ = moe.moe_ffn_local(params, x, cfg, activation(cfg.act))
+    want = [y, *torch.autograd.grad(y, leaves, dout)]
+    with _pod_mesh(cuda) as mesh, sharding.use_mesh(mesh):
+        holder = torch.nn.Module()
+        holder.moe = torch.nn.ParameterDict(params)
+        holder.param_axes = {f"moe.{n}": p.logical_axes for n, p in params.items()}
+        sharding.distribute_params(holder, mesh)
+        placed = dict(holder.moe.items())
+        xd = sharding.shard(x.detach(), ("batch", "seq", "embed")).requires_grad_(True)
+        yd, _ = moe.moe_ffn_ep(placed, xd, cfg, activation(cfg.act), mesh)
+        got = [yd, *torch.autograd.grad(yd, [xd, *placed.values()],
+                                        sharding.shard(dout, ("batch", "seq", "embed")))]
+        got = [_whole(t) for t in got]
+    for w, g in zip(want, got):
+        assert torch.equal(w.detach(), g)
+
+
+def test_compressed_step_on_one_rank(cuda):
+    """The compressed-pod step on a one-rank mesh: each leaf's reduced
+    gradient and new error state equal the plain one-pod version on the
+    same gradients (tolerance 0); the pod all-reduce sends int32 words
+    and one float32 scale a leaf; then one sampled token through
+    make_decode_sample_step on the trained model is one mh_chain launch."""
+    from repro_torch.distributed import compression, sharding
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+    from repro_torch.training import step as step_mod
+
+    cfg = _llm_cfg("hymba_1p5b", "bfloat16")
+    model = lm.init_lm(cfg, seed=0, device=cuda)
+    held = []
+    real = step_mod.compressed_pmean
+
+    def capture(grads, err, **kw):
+        red, new_err = real(grads, err, **kw)
+        for n, g in grads.items():
+            pr, pe = compression.compressed_mean_one_pod({n: g.to_local()},
+                                                         {n: err[n].to_local()})
+            held.append(torch.equal(pr[n], red[n].to_local())
+                        and torch.equal(pe[n], new_err[n].to_local()))
+        return red, new_err
+
+    with _pod_mesh(cuda) as mesh:
+        fn = step_mod.make_train_step(
+            cfg, axes_tree=model.param_axes,
+            step_cfg=step_mod.TrainStepConfig(n_micro=2, compress_pods=True), mesh=mesh)
+        with sharding.use_mesh(mesh):
+            sharding.distribute_params(model, mesh)
+            opt = adamw.adamw_init(model)
+            err = compression.init_error_state(dict(model.named_parameters()))
+        toks = torch.randint(0, cfg.vocab_size, (4, 32), generator=torch.Generator(
+            device=cuda).manual_seed(3), device=cuda)
+        compression.PAYLOAD.clear()
+        step_mod.compressed_pmean = capture
+        try:
+            for _ in range(2):
+                model, opt, metrics, err = fn(model, opt, {"tokens": toks, "labels": toks}, err)
+                assert bool(torch.isfinite(metrics["loss"]))
+        finally:
+            step_mod.compressed_pmean = real
+        n_leaves = len(dict(model.named_parameters()))
+        n_params = sum(p.numel() for p in model.parameters())
+        assert len(held) == 2 * n_leaves and all(held)
+        assert dict(compression.PAYLOAD) == {"int32": 2 * 4 * n_params,
+                                             "float32": 2 * 4 * n_leaves}
+        with sharding.use_mesh(mesh), sharding.use_rules(sharding.rules_for_config(cfg)):
+            cache = lm.init_cache(cfg, 4, 40, cuda)
+            _, cache = lm.prefill(model, cfg, {"tokens": toks}, cache)
+            mh.reset_launches()
+            tokens, cache, _ = step_mod.make_decode_sample_step(cfg)(
+                model, toks[:, -1:], cache, prng.PRNGKey(5, device=cuda))
+            torch.cuda.synchronize()
+    assert mh.LAUNCHES["mh_chain"] == 1
+    assert tuple(tokens.shape) == (4, 1) and bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all())

@@ -163,10 +163,22 @@ def test_capacity_path_equals_dense_reference():
 
 
 def test_moe_ffn_with_a_mesh_refuses():
+    """``moe_ffn`` takes no mesh argument (it reads the active mesh, as
+    JAX's does); under a mesh whose "model" extent divides the experts it
+    takes the constrained path, which on a mesh without devices equals
+    the local path exactly.  The ranks' paths are held in
+    tests/test_torch_mesh_lm.py."""
+    from repro_torch.distributed import sharding
+
     _, tcfg = _cfgs()
     _, tp = _moe_params(JModelConfig(**SMALL), 0)
-    with pytest.raises(NotImplementedError, match="queue 1 item 10g"):
-        moe.moe_ffn(tp, torch.zeros((1, 2, 32)), tcfg, activation("silu"), mesh=object())
+    x = torch.from_numpy(_normal(5, (2, 6, 32)))
+    with pytest.raises(TypeError):
+        moe.moe_ffn(tp, x, tcfg, activation("silu"), mesh=object())
+    want, want_aux = moe.moe_ffn_local(tp, x, tcfg, activation("silu"))
+    with sharding.use_mesh(sharding.AbstractMesh((1, 2), ("data", "model"))):
+        got, aux = moe.moe_ffn(tp, x, tcfg, activation("silu"))
+    assert torch.equal(got, want) and torch.equal(aux, want_aux)
 
 
 def test_init_moe_dtypes_and_scales():

@@ -295,8 +295,18 @@ def test_train_step_matches_jax():
 
 
 def test_compress_pods_and_mesh_refuse():
+    """compress_pods without a mesh, or over a mesh with no "pod" axis,
+    raises ValueError as the reference does (training/step.py:118); a
+    mesh without compress_pods builds a step (held on ranks in
+    tests/test_torch_mesh_lm.py)."""
+    from repro_torch.distributed.sharding import AbstractMesh
+
     cfg = configs.get_smoke_config("granite3_8b")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 10g"):
-        step.make_train_step(cfg, step_cfg=step.TrainStepConfig(compress_pods=True))
-    with pytest.raises(NotImplementedError, match="10g"):
-        step.make_train_step(cfg, mesh=object())
+    jcfg = jconfigs.get_smoke_config("granite3_8b")
+    compress = step.TrainStepConfig(compress_pods=True)
+    for mesh in (None, AbstractMesh((2, 2), ("data", "model"))):
+        with pytest.raises(ValueError, match="compress_pods requires a mesh with a 'pod' axis"):
+            step.make_train_step(cfg, step_cfg=compress, mesh=mesh)
+    with pytest.raises(ValueError, match="compress_pods requires a mesh with a 'pod' axis"):
+        jstep.make_train_step(jcfg, None, step_cfg=compress)
+    assert callable(step.make_train_step(cfg, mesh=AbstractMesh((2,), ("data",))))
