@@ -271,6 +271,22 @@ each at full width and depth in bfloat16 with random weights from a seed:
      forward and gradients (tolerance 0); (d) ``make_decode_sample_step``
      on (a)'s model under the mesh: one ``mh_chain`` launch, held against
      its plain version (tolerance 0).
+ 37. ``dryrun``: the multi-pod dry run (``repro_torch.launch.dryrun``) in
+     child processes started after the build, so that its fake process
+     groups and fake tensors never meet this process's real ones: (a) the
+     CLI on the production meshes, ``--arch granite3_8b --shape
+     decode_32k --decode-sample`` on 256 fake ranks (16 x 16), which must
+     reach the MH operator ``repro_torch::mh_chain``'s fake
+     implementation, and ``--multi-pod --compress-pods --arch hymba_1p5b
+     --shape train_4k`` on 512 (2 x 16 x 16), each report ``ok`` with its
+     FLOPs, bytes, collective bytes by kind, argument and peak GB per
+     device, trace seconds, max RSS and roofline terms; (b) the train step
+     of phase 35 (8 x 1,024 tokens, 2 microbatches) and the decode step of
+     phase 29 (B = 4) on a 1 x 1 fake mesh against what those phases
+     measured: the parameters' and AdamW state's bytes equal the real
+     tensors' (tolerance 0); the FLOPs against the FLOP formula of phases
+     35 and 29, the peak against phase 35's measured peak and the roofline
+     terms against the measured step times are printed.
 
 Each phase prints one JSON line; any failure raises and exits non-zero.
 The second-to-last line lists the kernels; the last line is the device
@@ -278,10 +294,12 @@ record.  Without a CUDA device, or without the repository around it, it
 exits non-zero and prints no result.
 """
 
+import atexit
 import contextlib
 import dataclasses
 import itertools
 import json
+import os
 import shutil
 import socket
 import subprocess
@@ -461,6 +479,22 @@ TRAIN_LOSS_TOL, TRAIN_GNORM_RTOL, TRAIN_PARAM_RMS_RTOL = 1e-4, 1e-4, 1e-3
 # moe_ffn_ep on MESH_MOE_TOKENS rows of MESH_MOE_SEQ tokens
 MESH_STEPS, MESH_RULES_LAYERS, MESH_RULES_BATCH, MESH_RULES_SEQ = 2, 2, 2, 256
 MESH_PROMPT, MESH_DECODE, MESH_MOE_ROWS, MESH_MOE_SEQ = 64, 2, 2, 128
+# phase 37, the dry run: (a) its CLI on the production meshes (256 and 512
+# fake ranks in one process each, fake tensors on the card): (name, mesh
+# directory, report name, arguments); (b) the same steps on a 1 x 1 fake
+# mesh at the shapes phases 35 and 29 ran, against what they measured.
+# The three children start after the build, at low priority with one
+# thread each, and phase 37 collects them last; each must end within
+# DRYRUN_TIMEOUT_S of the script's start (the 512-rank train_4k cell traced
+# for 451 s alone and 623 s beside phases 2-36 on the card's hosts)
+DRYRUN_CLI = (
+    ("granite_decode_sample", "16x16", "granite-3-8b__decode_32k",
+     ["--arch", "granite3_8b", "--shape", "decode_32k", "--decode-sample"]),
+    ("hymba_pods", "pod2_16x16", "hymba-1.5b__train_4k",
+     ["--multi-pod", "--compress-pods", "--arch", "hymba_1p5b", "--shape", "train_4k"]),
+)
+DRYRUN_TIMEOUT_S = 1100
+LLM_MAX_LEN = LLM_PROMPT + 2 + LLM_GEN + 8  # launch/serve.py:main's sizing (phase 29)
 
 
 def emit(**record):
@@ -478,6 +512,53 @@ def smi() -> str:
         capture_output=True, text=True, timeout=60, check=True,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def start_dryrun_children(out: Path) -> dict:
+    """Phase 37's children, started at low priority with one thread each:
+    ``{name: (process, log path)}``; each is killed if still running when
+    the script exits."""
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1")
+    commands = {name: [sys.executable, "-m", "repro_torch.launch.dryrun", *args,
+                       "--out-dir", str(out)] for name, _, _, args in DRYRUN_CLI}
+    commands["phase_shapes"] = [sys.executable, str(ROOT / "chip_smoke.py"),
+                                "--dryrun-phase-shapes", str(out)]
+    children = {}
+    for name, cmd in commands.items():
+        log = out / f"{name}.log"
+        with open(log, "w") as fh:
+            children[name] = (subprocess.Popen(cmd, env=env, cwd=ROOT, stdout=fh,
+                                               stderr=subprocess.STDOUT,
+                                               preexec_fn=lambda: os.nice(10)), log)
+    atexit.register(lambda: [p.kill() for p, _ in children.values() if p.poll() is None])
+    return children
+
+
+def dryrun_phase_shapes(out: str) -> int:
+    """Phase 37 (b)'s child: the dry run's train and decode steps on a 1 x 1
+    fake mesh at the shapes phases 35 and 29 run for real (hymba-1.5b, 8 x
+    1,024 tokens in 2 microbatches; granite-3 8B, B = 4 against a cache of
+    ``LLM_MAX_LEN`` rows), fake tensors on the card; writes both reports."""
+    sys.path.insert(0, str(SRC))
+    from repro_torch import configs
+    from repro_torch.launch import dryrun
+
+    configs.SHAPES["train_lm"] = configs.ShapeSpec("train_lm", TRAIN_SEQ, TRAIN_BATCH, "train")
+    configs.SHAPES["serve_lm"] = configs.ShapeSpec("serve_lm", LLM_MAX_LEN, LLM_SLOTS, "decode")
+    make, _, world = dryrun.mesh_for("1x1", False, "cuda")
+    with dryrun.fake_group(world):
+        mesh = make()
+        reports = {
+            "train_lm": dryrun.run_cell(TRAIN_ARCH, "train_lm", mesh, cfg=dataclasses.replace(
+                configs.get_config(TRAIN_ARCH), train_microbatches=TRAIN_MICRO), device="cuda"),
+            "serve_lm": dryrun.run_cell(LLM_ARCH, "serve_lm", mesh, device="cuda"),
+        }
+        del mesh
+    with open(Path(out) / "phase_shapes.json", "w") as fh:
+        json.dump(reports, fh)
+    return 0 if all(r["status"] == "ok" for r in reports.values()) else 1
 
 
 def time_ms(torch, fn, reps):
@@ -805,6 +886,11 @@ def main() -> int:
         int_ops_per_s=int_ops_per_s, alu_ops_per_s=alu_ops_per_s,
         band_limits_1024=gk.band_limits(dev.index, LAT),
     )
+    # phase 37's dry runs, in child processes (fake tensors and fake process
+    # groups never meet this process's real ones); collected at the end
+    dry_dir = ROOT / "build" / "chip_smoke_dryrun"
+    dry_children = start_dryrun_children(dry_dir)
+    dry_refs = {}  # what phases 29 and 35 measured, for phase 37 (b)
 
     # 2. cipher ----------------------------------------------------------
     kat = [
@@ -2376,6 +2462,9 @@ def main() -> int:
              head_max_abs_err=head_err, head_max_logit=head_scale,
              tokens_per_s={k: r["tokens_per_s"] for k, r in llm_rows.items()},
              acceptance=llm_rows["mcmc"]["acceptance"])
+        dry_refs["serve_lm"] = dict(param_bytes=param_bytes, kv_bytes=kv_bytes,
+                                    step_ops=step_ops, step_bytes=step_bytes,
+                                    model_ms_median=float(np.median(model_ms)))
         del server, model, logits, tokens
         torch.cuda.empty_cache()
 
@@ -2974,6 +3063,11 @@ def main() -> int:
              flop_bound_s=bound_s, model_flops=model_flops, attention_flops=attn_flops,
              bound_by="operations", tokens_per_s_median=tokens / float(np.median(warm)),
              launches=launches_by_path["train_lm_steps"])
+        dry_refs["train_lm"] = dict(
+            param_bytes=param_bytes, moment_bytes=moment_bytes,
+            opt_step_bytes=opt["step"].numel() * opt["step"].element_size(),
+            max_memory_allocated=peak_bytes, model_flops=model_flops, attention_flops=attn_flops,
+            step_s_median=float(np.median(warm)))
 
         # make_decode_sample_step on the trained weights: one mh_chain launch
         b_, plen = 4, 16
@@ -3306,6 +3400,83 @@ def main() -> int:
         torch.cuda.empty_cache()
         emit(phase="mesh_lm_total", seconds=time.perf_counter() - t_phase)
 
+    def dryrun_phase():
+        """Phase 37: collect the dry-run children started after the build."""
+        from repro_torch.launch import roofline
+
+        t_phase = time.perf_counter()
+        for name, (proc, log) in dry_children.items():
+            try:
+                rc = proc.wait(timeout=max(1.0, DRYRUN_TIMEOUT_S - (time.perf_counter()
+                                                                     - t_start)))
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                rc = "timeout"
+            tail = log.read_text()[-3000:]
+            check(rc == 0, f"dryrun child {name} ended with {rc}: {tail}")
+        waited_s = time.perf_counter() - t_phase
+
+        def gb(x):
+            return x / 1e9
+
+        def summary(r):
+            """A report's numbers per device, and its roofline terms."""
+            mem, hc = r["memory_analysis"], r["hlo_cost"]
+            rl = roofline.analyse(r)["roofline"]
+            return dict(
+                arch=r["arch"], shape=r["shape"], mesh=r["mesh"], chips=r["chips"],
+                kind=r["kind"], flops=hc["flops"], bytes=hc["bytes"],
+                bytes_upper=hc["bytes_upper"], collectives=hc["collectives"],
+                argument_gb=gb(mem["argument_size_bytes"]),
+                peak_gb=gb(mem["argument_size_bytes"] + mem["temp_size_bytes"]),
+                temp_gb=gb(mem["temp_size_bytes"]), argument_bytes=r["argument_bytes"],
+                trace_s=r["trace_s"], rss_gb_before=gb(r["rss_bytes_before"]),
+                max_rss_gb=gb(r["max_rss_bytes"]),
+                device_allocated_bytes=r.get("device_allocated_bytes"),
+                custom_ops=r["custom_ops"], roofline_compute_s=rl["compute_s"],
+                roofline_memory_s=rl["memory_s"], roofline_collective_s=rl["collective_s"],
+                roofline_dominant=rl["dominant"], useful_flops_ratio=rl["useful_flops_ratio"])
+
+        # (a) the CLI on the production meshes
+        for name, mesh_dir, report_name, args in DRYRUN_CLI:
+            r = json.loads((dry_dir / mesh_dir / f"{report_name}.json").read_text())
+            check(r["status"] == "ok" and r["device"] == "cuda",
+                  f"dryrun {name}: {r.get('status')} {r.get('error')}")
+            check(r["chips"] == (512 if "--multi-pod" in args else 256), f"dryrun {name}: {r}")
+            if "--decode-sample" in args:  # the MH kernel's fake implementation, once
+                check(r["custom_ops"] == {"repro_torch::mh_chain": 1},
+                      f"dryrun {name}: custom operators reached {r['custom_ops']}")
+            emit(phase="dryrun_cli", cell=name, argv=args, **summary(r))
+
+        # (b) phases 35 and 29's steps on a 1 x 1 fake mesh against what they measured
+        shapes = json.loads((dry_dir / "phase_shapes.json").read_text())
+        tr, ref_t = shapes["train_lm"], dry_refs["train_lm"]
+        args_b = tr["argument_bytes"]
+        real_opt = ref_t["moment_bytes"] + ref_t["opt_step_bytes"]
+        check(args_b["params"] == ref_t["param_bytes"] and args_b["opt"] == real_opt,
+              f"dryrun train_lm: argument bytes {args_b} against the real parameters "
+              f"{ref_t['param_bytes']} and AdamW state {real_opt} (tolerance 0)")
+        s_t = summary(tr)
+        formula = ref_t["model_flops"] + ref_t["attention_flops"]
+        emit(phase="dryrun_train_lm", **s_t, real_param_bytes=ref_t["param_bytes"],
+             real_opt_bytes=real_opt, argument_bytes_differing=0,
+             flops_over_formula=s_t["flops"] / formula, formula_flops=formula,
+             peak_over_measured=(s_t["peak_gb"] * 1e9) / ref_t["max_memory_allocated"],
+             measured_peak_gb=gb(ref_t["max_memory_allocated"]),
+             measured_step_s_median=ref_t["step_s_median"],
+             roofline_bound_s=max(s_t["roofline_compute_s"], s_t["roofline_memory_s"],
+                                  s_t["roofline_collective_s"]))
+        sv, ref_s = shapes["serve_lm"], dry_refs["serve_lm"]
+        s_s = summary(sv)
+        emit(phase="dryrun_serve_lm", **s_s,
+             real_param_and_cache_bytes=ref_s["param_bytes"] + ref_s["kv_bytes"],
+             flops_over_formula=s_s["flops"] / ref_s["step_ops"], formula_flops=ref_s["step_ops"],
+             measured_model_ms_median=ref_s["model_ms_median"],
+             roofline_bound_ms=1e3 * max(s_s["roofline_compute_s"], s_s["roofline_memory_s"],
+                                         s_s["roofline_collective_s"]))
+        shutil.rmtree(dry_dir, ignore_errors=True)
+        emit(phase="dryrun_total", seconds=time.perf_counter() - t_phase, waited_s=waited_s)
+
     for phase_, arch_, samplers_ in FAMILY_PHASES:
         with depth_cut(arch_):
             serve_family_phase(phase_, arch_, samplers_)
@@ -3608,6 +3779,9 @@ def main() -> int:
         del wl
 
     emit(phase="profiler_sessions", **PROFILER)
+
+    # 37. dryrun: the multi-pod dry run and the roofline ------------------------
+    dryrun_phase()
     emit(phase="total", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({
@@ -3622,4 +3796,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dryrun-phase-shapes"]:
+        sys.exit(dryrun_phase_shapes(sys.argv[2]))
     sys.exit(main())

@@ -4,10 +4,8 @@
 Each ``<arch>.py`` exports ``config()`` (the exact assigned
 configuration) and ``smoke_config()`` (a reduced same-family variant for
 CPU tests); they are data only, copied from the JAX package.
-``batch_specs`` and ``cache_specs`` are not here: they build the
-``jax.ShapeDtypeStruct`` stand-ins the JAX package's multi-pod dry-run
-lowers against, and the dry-run reads XLA's HLO, which has no PyTorch
-counterpart (ROADMAP.md queue 1 item 10).
+``batch_specs`` and ``cache_specs`` give the dry run
+(``repro_torch.launch.dryrun``) its inputs without allocating them.
 """
 
 from __future__ import annotations
@@ -98,3 +96,44 @@ def assigned_cells():
             ok, reason = shape_applicable(cfg, shape)
             cells.append((arch, shape.name, ok, reason))
     return cells
+
+
+# --- dry-run input specs ---------------------------------------------------------
+
+
+def _spec(shape, dtype, device):
+    """A tensor that allocates nothing: fake under the dry run's
+    ``FakeTensorMode``, else on ``device`` (``"meta"`` by default)."""
+    import torch
+
+    return torch.empty(shape, dtype=getattr(torch, dtype), device=device)
+
+
+def batch_specs(cfg, shape: ShapeSpec, device="meta"):
+    """The data batch of one step as shape-and-dtype stand-ins (the JAX
+    package's ``jax.ShapeDtypeStruct`` tree; its int32 tokens and labels
+    are int64 here, as the port's batches are)."""
+    b, s = shape.global_batch, shape.seq_len
+    if shape.kind == "decode":  # one new token against a seq_len-deep cache
+        return {"tokens": _spec((b, 1), "int64", device)}
+    if cfg.family == "vlm":
+        s -= cfg.n_image_tokens
+    batch = {"tokens": _spec((b, s), "int64", device)}
+    if shape.kind == "train":
+        batch["labels"] = _spec((b, s), "int64", device)
+    if cfg.family == "vlm":
+        batch["image_embeds"] = _spec((b, cfg.n_image_tokens, cfg.image_embed_dim), "bfloat16",
+                                      device)
+    elif cfg.is_encdec:
+        batch["frames"] = _spec((b, cfg.encoder_len, cfg.frame_dim), "bfloat16", device)
+    return batch
+
+
+def cache_specs(cfg, shape: ShapeSpec, device="meta"):
+    """The cache of a prefill or decode cell, allocating nothing
+    (``lm.abstract_cache``); None for a train cell."""
+    from repro_torch.models import lm
+
+    if shape.kind == "train":
+        return None
+    return lm.abstract_cache(cfg, shape.global_batch, shape.seq_len, device)

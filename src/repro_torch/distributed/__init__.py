@@ -1,9 +1,10 @@
 # The distributed layer of the PyTorch port: the logical-axis sharding
 # rules on a torch DeviceMesh (sharding), the int8 error-feedback cross-pod
-# gradient reduction (compression), and the training loop's host-only fault
-# handling (fault.PreemptionHandler, straggler.StragglerWatchdog).  The JAX
-# package's HLO tools (hlo_analysis, hlo_cost) read XLA HLO and have no
-# counterpart here.
+# gradient reduction (compression), the training loop's host-only fault
+# handling (fault.PreemptionHandler, straggler.StragglerWatchdog), and the
+# dry run's per-device counters (hlo_analysis: collective bytes; hlo_cost:
+# FLOPs and bytes), which read the op stream a step issues where the JAX
+# package reads XLA's HLO.
 
 from repro_torch.distributed import compression, sharding  # noqa: F401
 from repro_torch.distributed.fault import PreemptionHandler  # noqa: F401

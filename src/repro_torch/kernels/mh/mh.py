@@ -12,7 +12,9 @@ fallback.
 Words are uint32 values held in int64 tensors, and the kernel reads and
 writes them so (the low 32 bits), so a wrapper call on the card is one
 kernel launch and nothing else.  ``LAUNCHES`` counts the kernel launches
-of each wrapper.
+of each wrapper.  ``mh_chain``'s launch is the operator
+``repro_torch::mh_chain`` (``torch.library``), so a dry run under fake
+tensors on the card reaches it through its fake implementation.
 """
 
 from __future__ import annotations
@@ -100,8 +102,13 @@ def mh_chain(
     )
 
 
-def _launch_mh_chain(table, init, flips, u, nbits: int):
-    """One launch of ``mh_chain_kernel`` with ``OperandDraw``."""
+@torch.library.custom_op("repro_torch::mh_chain", mutates_args=(), device_types="cuda")
+def _launch_mh_chain(table: torch.Tensor, init: torch.Tensor, flips: torch.Tensor,
+                     u: torch.Tensor, nbits: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """One launch of ``mh_chain_kernel`` with ``OperandDraw``: the CUDA
+    implementation of the operator ``repro_torch::mh_chain``, whose fake
+    implementation gives a dry run (fake tensors, no storage) the
+    outputs' shapes and dtypes."""
     lib = _build.library()
     k, b, c = flips.shape
     samples = torch.empty((k, b, c), dtype=torch.int64, device=table.device)
@@ -115,6 +122,13 @@ def _launch_mh_chain(table, init, flips, u, nbits: int):
     _build.check(lib, err, "mh_chain_kernel<OperandDraw>")
     LAUNCHES["mh_chain"] += 1
     return samples, accept
+
+
+@_launch_mh_chain.register_fake
+def _(table, init, flips, u, nbits):
+    k, b, c = flips.shape
+    return (table.new_empty((k, b, c), dtype=torch.int64),
+            table.new_empty((b, c), dtype=torch.int32))
 
 
 def mh_chain_fused(

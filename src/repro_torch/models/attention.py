@@ -193,21 +193,38 @@ def _gqa_layout(kv: int, r: int):
     return kv, r, False
 
 
+def _local_extent(shape, mesh, placements):
+    """(local sizes, global offsets) of this rank's block of a tensor of
+    ``shape`` split by ``placements`` on ``mesh``, as DTensor's ``Shard``
+    cuts it (``torch.chunk``: chunks of ceil(n / ranks), in mesh order);
+    in Python, so it runs under a fake tensor mode too."""
+    from torch.distributed.tensor import Shard
+
+    size, off = list(shape), [0] * len(shape)
+    coord = mesh.get_coordinate()
+    for i, p in enumerate(placements):
+        if isinstance(p, Shard) and p.dim < len(shape):
+            d, n = p.dim, mesh.size(i)
+            chunk = -(-size[d] // n)
+            lo = min(coord[i] * chunk, size[d])
+            off[d] += lo
+            size[d] = min(lo + chunk, size[d]) - lo
+    return size, off
+
+
 def _update_rows_sharded(buf, upd, start, s: int, last: int) -> None:
     """``update_rows`` into a DTensor ``buf``: ``upd`` is brought to
     ``buf``'s placements whole along the sequence axis, and each rank
     writes the positions that fall in its own rows (an explicit region:
     DTensor cannot index-write a sharded dimension)."""
     from torch.distributed.tensor import DTensor, Replicate, Shard
-    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
 
     mesh = buf.device_mesh
     pl = [Replicate() if isinstance(p, Shard) and p.dim == 1 else p for p in buf.placements]
     if not isinstance(upd, DTensor):
         upd = DTensor.from_local(upd, mesh, [Replicate()] * mesh.ndim, run_check=False)
     upd_l = upd.redistribute(mesh, pl).to_local().to(buf.dtype)
-    (n0, n1, *_), (o0, o1, *_) = compute_local_shape_and_global_offset(
-        buf.shape, mesh, buf.placements)
+    (n0, n1), (o0, o1) = _local_extent(buf.shape[:2], mesh, buf.placements)
     buf_l = buf.to_local()
     if isinstance(start, int):
         start = min(max(start, 0), last)
@@ -219,9 +236,21 @@ def _update_rows_sharded(buf, upd, start, s: int, last: int) -> None:
         start = start.full_tensor()
     dev = buf_l.device
     pos = start.to(dev).clamp(0, last).reshape(-1, 1) + torch.arange(s, device=dev)
-    pos = pos.broadcast_to((buf.shape[0], s))[o0:o0 + n0]  # this rank's rows
-    rows, cols = torch.nonzero((pos >= o1) & (pos < o1 + n1), as_tuple=True)
-    buf_l[rows, pos[rows, cols] - o1] = upd_l[rows, cols]
+    if n0 == 0 or n1 == 0:
+        return
+    # a write of static shape (n0, s): each of the s positions lands on its
+    # local column clamped into this rank's rows, and carries what that
+    # column must end with (the update of the position really there, or
+    # the column's own value), so the duplicates a clamp makes agree
+    pos = pos.broadcast_to((buf.shape[0], s))[o0:o0 + n0] - o1  # local columns
+    col = pos.clamp(0, n1 - 1)
+    src = torch.arange(s, device=dev) + (col - pos)  # the position written at col
+    inside = (src >= 0) & (src < s)
+    rows = torch.arange(n0, device=dev)[:, None]
+    new = upd_l[rows, src.clamp(0, s - 1)]
+    keep = buf_l[rows, col]
+    mask = inside.reshape(inside.shape + (1,) * (new.ndim - 2))
+    buf_l[rows, col] = torch.where(mask, new, keep)
 
 
 def update_rows(buf, upd, start) -> None:
@@ -307,12 +336,15 @@ def attention(
     if mode == "decode":
         # decode keeps the native GQA grouping: the cache's sequence axis
         # supplies the model-axis parallelism (cache_seq sharding rules)
-        q = q.reshape(b, s, kv, r, dh)
         if sharding.is_dtensor(q):
-            # the query's heads whole (its rows keep their split): the score
-            # product flattens (B, KV) into one batch dimension, and
-            # DTensor's view rules refuse to flatten two split dimensions
+            # the query's heads whole (its rows keep their split) before the
+            # regrouping: DTensor's view rules refuse to unflatten a split
+            # head axis into groups the split does not divide (granite's 32
+            # heads over 16 ranks into 8 x 4), and the score product
+            # flattens (B, KV) into one batch dimension, where they refuse
+            # to flatten two split dimensions
             q = q.redistribute(q.device_mesh, sharding.split_placements(q))
+        q = q.reshape(b, s, kv, r, dh)
 
         def cache_shard(t):
             return shard(t, ("batch", "cache_seq", "kv_heads", "head_dim"))

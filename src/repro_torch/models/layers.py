@@ -167,14 +167,28 @@ def _matmul_f32_region(a, b):
 # --- rotary position embedding --------------------------------------------
 
 
+def _inverse_frequencies(d_head: int, theta: float, device):
+    inv = 1.0 / (theta ** (np.arange(0, d_head, 2, dtype=np.float64) / d_head))
+    return torch.tensor(inv, dtype=torch.float32, device=device)
+
+
 @functools.lru_cache(maxsize=16)
+def _cached_frequencies(d_head: int, theta: float, device):
+    return _inverse_frequencies(d_head, theta, device)
+
+
 def rope_frequencies(d_head: int, theta: float = 10000.0, device=None):
     """The inverse frequencies in float64 numpy, then float32, as JAX makes
     them; kept per (d_head, theta, device), so a decode step copies
     nothing from the host (a copy from pageable memory waits for the
-    card).  Callers must not write to the tensor."""
-    inv = 1.0 / (theta ** (np.arange(0, d_head, 2, dtype=np.float64) / d_head))
-    return torch.tensor(inv, dtype=torch.float32, device=device)
+    card).  Under a fake tensor mode (a dry run) the table is made anew
+    and never kept: a kept fake tensor would reach the real steps after
+    it.  Callers must not write to the tensor."""
+    from torch._guards import detect_fake_mode
+
+    if detect_fake_mode() is not None:
+        return _inverse_frequencies(d_head, theta, device)
+    return _cached_frequencies(d_head, theta, device)
 
 
 def apply_rope(x, positions, theta: float = 10000.0):

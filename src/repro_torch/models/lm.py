@@ -102,6 +102,15 @@ def init_lm(cfg, seed: int = 0, device=None) -> LM:
     return LM(cfg, torch.Generator(device=dev).manual_seed(int(seed)))
 
 
+def abstract_params(cfg, device="meta"):
+    """(model, axes tree) with nothing allocated: the model's parameters
+    are uninitialised on ``device``, so fake under the dry run's
+    ``FakeTensorMode`` and ``meta`` tensors otherwise (the JAX package's
+    ``jax.eval_shape`` of the init)."""
+    model = LM(cfg, device=device)
+    return model, model.param_axes
+
+
 # --- caches ------------------------------------------------------------------
 
 
@@ -139,6 +148,11 @@ def init_cache(cfg, batch: int, max_len: int, device=None):
     if active_mesh() is not None:
         layers = tree_map(lambda t, axes: shard(t, axes), layers, cache_axes(cfg)["layers"])
     return {"index": torch.zeros((), dtype=torch.int32, device=dev), "layers": layers}
+
+
+def abstract_cache(cfg, batch: int, max_len: int, device="meta"):
+    """``init_cache`` with nothing allocated (see ``abstract_params``)."""
+    return init_cache(cfg, batch, max_len, device)
 
 
 _KV_AXES = {"k": attn_mod.KV_CACHE_AXES, "v": attn_mod.KV_CACHE_AXES}

@@ -132,6 +132,33 @@ def test_mh_kernels_hold_at_tile_shapes(cuda, case):
     assert torch.equal(s, rs_) and torch.equal(a, ra)
 
 
+def test_mh_chain_custom_op(cuda):
+    """The operand launch is the operator ``repro_torch::mh_chain``: called
+    through ``torch.ops`` on the card it equals ``mh_chain_ref`` and counts
+    one launch; its fake implementation (a dry run's fake tensors on the
+    card) gives samples (K, B, C) int64 and accept (B, C) int32 on the
+    card and launches nothing."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    rs = np.random.default_rng(11)
+    b, v, c, k, nbits = 4, 32_001, 1, 32, 16
+    table = torch.from_numpy((rs.normal(size=(b, v)) * 3).astype(np.float32)).to(cuda)
+    init = _words(rs, (b, c), v).to(cuda)
+    flips = _words(rs, (k, b, c), 2**nbits).to(cuda)
+    u = torch.from_numpy((rs.integers(0, 2**16, size=(k, b, c)) / 2**16).astype(np.float32))
+    u = u.to(cuda)
+    mh.reset_launches()
+    s, a = torch.ops.repro_torch.mh_chain(table, init, flips, u, nbits)
+    rs_, ra = ref.mh_chain_ref(table, init, flips, u, nbits)
+    assert torch.equal(s, rs_) and torch.equal(a, ra)
+    assert mh.LAUNCHES == {"mh_chain": 1, "mh_chain_fused": 0}
+    with FakeTensorMode() as fake:
+        fs, fa = mh.mh_chain(*(fake.from_tensor(t) for t in (table, init, flips, u)), nbits)
+    assert (tuple(fs.shape), fs.dtype, fs.device) == ((k, b, c), torch.int64, cuda)
+    assert (tuple(fa.shape), fa.dtype, fa.device) == ((b, c), torch.int32, cuda)
+    assert mh.LAUNCHES == {"mh_chain": 1, "mh_chain_fused": 0}
+
+
 def test_launch_errors_raise(cuda):
     table = torch.zeros(70_000, 2, device=cuda).t()  # not contiguous
     init = torch.zeros(2, 4, dtype=torch.int64, device=cuda)
