@@ -275,12 +275,21 @@ each at full width and depth in bfloat16 with random weights from a seed:
      child processes started after the build, so that its fake process
      groups and fake tensors never meet this process's real ones: (a) the
      CLI on the production meshes, ``--arch granite3_8b --shape
-     decode_32k --decode-sample`` on 256 fake ranks (16 x 16), which must
-     reach the MH operator ``repro_torch::mh_chain``'s fake
-     implementation, and ``--multi-pod --compress-pods --arch hymba_1p5b
-     --shape train_4k`` on 512 (2 x 16 x 16), each report ``ok`` with its
-     FLOPs, bytes, collective bytes by kind, argument and peak GB per
-     device, trace seconds, max RSS and roofline terms; (b) the train step
+     decode_32k --decode-sample`` on 256 fake ranks as 16 x 16 and as 32
+     x 8 (``--mesh 32x8``: granite's 8 KV heads divide 8 model ranks
+     there, not 16), which must reach the MH operator
+     ``repro_torch::mh_chain``'s fake implementation, and ``--multi-pod
+     --compress-pods --arch hymba_1p5b --shape train_4k`` on 512 (2 x 16
+     x 16), each report ``ok`` with its FLOPs, bytes, collective bytes by
+     kind, argument and peak GB per device, trace seconds, max RSS and
+     roofline terms; the decode-sample cells are printed beside the JAX
+     package's counts of the same cells (``DRYRUN_JAX``: counts, not
+     times) and must hold its plan: FLOPs equal within 1e-9 relative,
+     all-gather bytes under ``DRYRUN_MAX_ALL_GATHER`` (the embedding
+     table's shard alone is 2.5e7 and 5.1e7 bytes), no all-gather whose
+     operand is made from a parameter (``collective_ops``' fourth
+     field) and collective bytes at most ``DRYRUN_MAX_COLLECTIVE_RATIO``
+     times JAX's; (b) the train step
      of phase 35 (8 x 1,024 tokens, 2 microbatches) and the decode step of
      phase 29 (B = 4) on a 1 x 1 fake mesh against what those phases
      measured: the parameters' and AdamW state's bytes equal the real
@@ -295,6 +304,7 @@ exits non-zero and prints no result.
 """
 
 import atexit
+import collections
 import contextlib
 import dataclasses
 import itertools
@@ -490,10 +500,25 @@ MESH_PROMPT, MESH_DECODE, MESH_MOE_ROWS, MESH_MOE_SEQ = 64, 2, 2, 128
 DRYRUN_CLI = (
     ("granite_decode_sample", "16x16", "granite-3-8b__decode_32k",
      ["--arch", "granite3_8b", "--shape", "decode_32k", "--decode-sample"]),
+    ("granite_decode_sample_32x8", "32x8", "granite-3-8b__decode_32k",
+     ["--mesh", "32x8", "--arch", "granite3_8b", "--shape", "decode_32k", "--decode-sample"]),
     ("hymba_pods", "pod2_16x16", "hymba-1.5b__train_4k",
      ["--multi-pod", "--compress-pods", "--arch", "hymba_1p5b", "--shape", "train_4k"]),
 )
 DRYRUN_TIMEOUT_S = 1100
+# The JAX package's own dry run of the decode-sample cells, per device, by
+# mesh directory: ``python -m repro.launch.dryrun --arch granite3_8b
+# --shape decode_32k --decode-sample [--mesh 32x8]`` on the CPU (jax
+# 0.9.0).  These are XLA's counts of the reference's plan, not times; the
+# port's cells must hold its FLOPs, gather no weight, and move at most
+# DRYRUN_MAX_COLLECTIVE_RATIO times its collective bytes.
+DRYRUN_JAX = {
+    "16x16": {"flops": 23942135808, "all-reduce": 21185572, "all-gather": 983040,
+              "collective-permute": 7200, "total": 22175812},
+    "32x8": {"flops": 18908971008, "all-reduce": 7971348, "all-gather": 491520,
+             "collective-permute": 3472, "total": 8466340},
+}
+DRYRUN_MAX_ALL_GATHER, DRYRUN_MAX_COLLECTIVE_RATIO = 3e6, 1.25
 LLM_MAX_LEN = LLM_PROMPT + 2 + LLM_GEN + 8  # launch/serve.py:main's sizing (phase 29)
 
 
@@ -3437,16 +3462,42 @@ def main() -> int:
                 roofline_memory_s=rl["memory_s"], roofline_collective_s=rl["collective_s"],
                 roofline_dominant=rl["dominant"], useful_flops_ratio=rl["useful_flops_ratio"])
 
+        def hold_jax_plan(name, r, jax_counts):
+            """The decode-sample cell against the JAX package's counts: its
+            FLOPs, its gathers and its collective total; returns what is
+            printed beside the cell."""
+            flops, coll = r["hlo_cost"]["flops"], r["hlo_cost"]["collectives"]
+            gathered = coll.get("all-gather", 0)
+            ratio = coll.get("total", 0) / jax_counts["total"]
+            check(abs(flops - jax_counts["flops"]) <= 1e-9 * jax_counts["flops"],
+                  f"dryrun {name}: FLOPs {flops} against JAX's {jax_counts['flops']}")
+            check(gathered < DRYRUN_MAX_ALL_GATHER,
+                  f"dryrun {name}: all-gather bytes {gathered} (a weight gathered?)")
+            check(ratio <= DRYRUN_MAX_COLLECTIVE_RATIO,
+                  f"dryrun {name}: collective bytes {coll} are {ratio:.3f}x JAX's {jax_counts}")
+            weights = sorted({w for kind, _, _, w in r["collective_ops"]
+                              if kind == "all-gather" and w is not None})
+            check(not weights, f"dryrun {name}: weights all-gathered: {weights}")
+            by_op = collections.Counter()
+            for kind, nbytes, shape, _ in r["collective_ops"]:
+                by_op[kind, str(shape)] += nbytes
+            return dict(jax_counts=jax_counts, jax_counts_are="the JAX package's dry run on "
+                        "the CPU (jax 0.9.0): XLA's counts, not times",
+                        flops_over_jax=flops / jax_counts["flops"], collectives_over_jax=ratio,
+                        largest_collectives=[[k, sh, b] for (k, sh), b in by_op.most_common(6)])
+
         # (a) the CLI on the production meshes
         for name, mesh_dir, report_name, args in DRYRUN_CLI:
             r = json.loads((dry_dir / mesh_dir / f"{report_name}.json").read_text())
             check(r["status"] == "ok" and r["device"] == "cuda",
                   f"dryrun {name}: {r.get('status')} {r.get('error')}")
             check(r["chips"] == (512 if "--multi-pod" in args else 256), f"dryrun {name}: {r}")
+            beside = {}
             if "--decode-sample" in args:  # the MH kernel's fake implementation, once
                 check(r["custom_ops"] == {"repro_torch::mh_chain": 1},
                       f"dryrun {name}: custom operators reached {r['custom_ops']}")
-            emit(phase="dryrun_cli", cell=name, argv=args, **summary(r))
+                beside = hold_jax_plan(name, r, DRYRUN_JAX[mesh_dir])
+            emit(phase="dryrun_cli", cell=name, argv=args, **summary(r), **beside)
 
         # (b) phases 35 and 29's steps on a 1 x 1 fake mesh against what they measured
         shapes = json.loads((dry_dir / "phase_shapes.json").read_text())

@@ -14,6 +14,10 @@ records every collective that runs under it:
     like) of ``sharding.local_region``, ``moe_ffn_ep`` and
     ``compression.compressed_pmean``.
 
+Each record is ``(kind, operand bytes, operand shape, weight)``:
+``weight`` names the parameter the operand was made from alone (a shard,
+a view, a cast or a padded copy of it; ``WeightOrigin``), else None, so
+a gathered weight is told from gathered activations of the same shape.
 ``collective_bytes(records)`` sums them into JAX's dictionary.  Bytes
 convention (per participating device, as JAX's): the operand bytes of
 this rank, whatever the kind (all-gather: the shard sent; reduce-scatter
@@ -33,6 +37,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import weakref
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -105,9 +110,22 @@ def _group_size(args) -> int | None:
     return None
 
 
-def classify(func, args) -> tuple[str, int] | None:
-    """``(kind, operand bytes)`` of a collective op, or None for any other
-    op (and for a collective over one rank)."""
+def tensor_shapes(x) -> tuple:
+    """The shape of a tensor, or the shapes of the tensors in nested
+    lists/tuples, as tuples of ints."""
+    if isinstance(x, torch.Tensor):
+        return tuple(int(d) for d in x.shape)
+    if isinstance(x, (list, tuple)):
+        shapes = [tensor_shapes(a) for a in x]
+        return shapes[0] if len(shapes) == 1 else tuple(shapes)
+    return ()
+
+
+def classify(func, args, origin: WeightOrigin | None = None) -> tuple | None:
+    """``(kind, operand bytes, operand shape, weight)`` of a collective op
+    (``weight``: the parameter ``origin`` names the operand after, or
+    None), or None for any other op (and for a collective over one
+    rank)."""
     name = func.overloadpacket._qualified_op_name.replace("::", ".")
     entry = _KIND.get(name)
     if entry is None:
@@ -115,18 +133,19 @@ def classify(func, args) -> tuple[str, int] | None:
     if _group_size(args) == 1:
         return None
     kind, at = entry
-    return kind, tensor_bytes(args[at])
+    weight = origin.name_of(args[at]) if origin is not None else None
+    return kind, tensor_bytes(args[at]), tensor_shapes(args[at]), weight
 
 
 def collective_bytes(records) -> dict:
     """Sum operand bytes per collective kind over ``records`` ((kind,
-    bytes) pairs, as ``CollectiveCounter`` keeps them).
+    bytes, shape, weight) records, as ``CollectiveCounter`` keeps them).
 
     Returns {kind: bytes, ..., "total": bytes, "count": n_ops}.
     """
     out: dict = collections.defaultdict(int)
     count = 0
-    for kind, nbytes in records:
+    for kind, nbytes, *_ in records:
         out[kind] += nbytes
         count += 1
     out["total"] = sum(out[k] for k in COLLECTIVES if k in out)
@@ -247,18 +266,71 @@ class LocalOpMode(TorchDispatchMode):
         raise NotImplementedError
 
 
-class CollectiveCounter(LocalOpMode):
-    """Records ``(kind, operand bytes)`` for every collective this rank
-    issues under it; ``report()`` is ``collective_bytes`` of them."""
+def _flat_tensors(x):
+    if isinstance(x, torch.Tensor):
+        yield x
+    elif isinstance(x, (list, tuple)):
+        for a in x:
+            yield from _flat_tensors(a)
+    elif isinstance(x, dict):
+        for a in x.values():
+            yield from _flat_tensors(a)
 
-    def __init__(self, also=()):
-        super().__init__(also)
-        self.records: list = []
+
+class WeightOrigin:
+    """Which of this rank's local tensors are made from one weight alone:
+    the local tensors of ``named`` ({name: tensor or DTensor}) and every
+    output of an op whose tensor inputs all come from that weight (a
+    view, a cast, a pad, a copy, a slice), keyed by storage until it is
+    freed.  An op that also reads another tensor (a product, the
+    optimizer's update) makes no weight."""
+
+    def __init__(self, named: dict):
+        from torch.distributed.tensor import DTensor
+
+        self.names: dict = {}
+        for name, t in named.items():
+            self._tag(t.to_local() if isinstance(t, DTensor) else t, name)
+
+    def _tag(self, t, name: str) -> None:
+        if t.layout != torch.strided:
+            return
+        st = t.untyped_storage()
+        key = st._cdata
+        if key not in self.names:
+            self.names[key] = name
+            weakref.finalize(st, self.names.pop, key, None)
+
+    def name_of(self, x) -> str | None:
+        """The weight the tensors of ``x`` are made from, or None."""
+        names = {self.names.get(t.untyped_storage()._cdata) if t.layout == torch.strided
+                 else None for t in _flat_tensors(x)}
+        return names.pop() if len(names) == 1 else None
 
     def on_op(self, func, args, kwargs, out) -> None:
-        hit = classify(func, args)
+        name = self.name_of((args, kwargs))
+        if name is not None:
+            for t in _flat_tensors(out):
+                self._tag(t, name)
+
+
+class CollectiveCounter(LocalOpMode):
+    """Records ``(kind, operand bytes, operand shape, weight)`` for every
+    collective this rank issues under it, naming the operand's weight
+    after ``weights`` ({name: parameter}) where given; ``report()`` is
+    ``collective_bytes`` of them."""
+
+    def __init__(self, also=(), weights: dict | None = None):
+        super().__init__(also)
+        self.records: list = []
+        self.origin = WeightOrigin(weights) if weights is not None else None
+
+    def on_op(self, func, args, kwargs, out) -> None:
+        hit = classify(func, args, self.origin)
         if hit is not None:
             self.records.append(hit)
+        if self.origin is not None:
+            self.origin.on_op(func, args, kwargs, out)
 
     def report(self) -> dict:
         return collective_bytes(self.records)

@@ -38,6 +38,7 @@ import torch
 
 from repro_torch.distributed.hlo_analysis import (
     LocalOpMode,
+    WeightOrigin,
     classify,
     collective_bytes,
     tensor_bytes,
@@ -124,16 +125,19 @@ class CostCounter(LocalOpMode):
     """FLOPs, mandatory bytes, all bytes and collectives of the local ops
     run under it; ``report()`` is ``analyze_hlo``'s dictionary."""
 
-    def __init__(self, also=()):
+    def __init__(self, also=(), weights: dict | None = None):
         super().__init__(also)
         self.flops = 0.0
         self.bytes = 0.0
         self.bytes_upper = 0.0
-        self.coll: list = []
+        self.coll: list = []  # collective records, weights named after ``weights``
         self.custom: dict = {}  # custom operator -> calls
+        self.origin = WeightOrigin(weights) if weights is not None else None
 
     def on_op(self, func, args, kwargs, out) -> None:
-        hit = classify(func, args)
+        if self.origin is not None:
+            self.origin.on_op(func, args, kwargs, out)
+        hit = classify(func, args, self.origin)
         if hit is not None:
             self.coll.append(hit)
             return

@@ -326,37 +326,65 @@ def split_placements(x, dims: tuple = (0,)) -> list | None:
     return [p if isinstance(p, Shard) and p.dim in dims else Replicate() for p in x.placements]
 
 
-def local_region(fn, placements, *args, shared: int = 0):
+def local_extent(shape, mesh, placements):
+    """(local sizes, global offsets) of this rank's block of a tensor of
+    ``shape`` split by ``placements`` on ``mesh``, as DTensor's ``Shard``
+    cuts it (``torch.chunk``: chunks of ceil(n / ranks), in mesh order);
+    in Python, so it runs under a fake tensor mode too."""
+    from torch.distributed.tensor import Shard
+
+    size, off = list(shape), [0] * len(shape)
+    coord = mesh.get_coordinate()
+    for i, p in enumerate(placements):
+        if isinstance(p, Shard) and p.dim < len(shape):
+            d, n = p.dim, mesh.size(i)
+            chunk = -(-size[d] // n)
+            lo = min(coord[i] * chunk, size[d])
+            off[d] += lo
+            size[d] = min(lo + chunk, size[d]) - lo
+    return size, off
+
+
+def local_region(fn, placements, *args, shared: int = 0, out_placements=None):
     """``fn`` on local tensors, the port's ``local_map``: every DTensor
     argument is redistributed to ``placements`` on its mesh and replaced
     by its local tensor (plain arguments pass as they are), and every
     tensor ``fn`` returns (in nested tuples) becomes a DTensor with those
-    placements.  The last ``shared`` arguments (weights every rank's
-    share reads whole) are brought whole instead, and their gradients
-    come back as partial sums over the mesh dimensions that ``placements``
-    split.  Gradients flow through both crossings.  Without a DTensor
-    argument ``fn`` runs as it is."""
+    placements, or with ``out_placements`` where given (a ``Partial``
+    there makes the output a sum over ranks).  ``placements=None`` keeps
+    each DTensor argument as it is placed; its gradient is then a partial
+    sum over the mesh dimensions that split the output and not the
+    argument.  The last ``shared`` arguments (weights every rank's share
+    reads whole) are brought whole instead, and their gradients come back
+    as partial sums over the mesh dimensions that ``placements`` split.
+    Gradients flow through both crossings.  Without a DTensor argument
+    ``fn`` runs as it is."""
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
     mesh = next((a.device_mesh for a in args if isinstance(a, DTensor)), None)
     if mesh is None:
         return fn(*args)
     whole = [Replicate()] * mesh.ndim
-    partial = [Partial() if isinstance(p, Shard) else Replicate() for p in placements]
+    out_placements = out_placements or placements
     first_shared = len(args) - shared
     local = []
     for i, a in enumerate(args):
         if not isinstance(a, DTensor):
             local.append(a)
+        elif placements is None:
+            grad = [Partial() if isinstance(o, Shard) and not isinstance(p, Shard) else p
+                    for p, o in zip(a.placements, out_placements)]
+            local.append(a.to_local(grad_placements=grad))
         elif i < first_shared:
             local.append(a.redistribute(mesh, placements).to_local())
         else:
+            partial = [Partial() if isinstance(p, Shard) else Replicate() for p in placements]
             local.append(a.redistribute(mesh, whole).to_local(grad_placements=partial))
 
     def wrap(out):
         if isinstance(out, tuple):
             return tuple(wrap(o) for o in out)
-        return DTensor.from_local(out, mesh, placements, run_check=False)
+        return DTensor.from_local(out, mesh, out_placements, run_check=False)
 
     return wrap(fn(*local))
 

@@ -36,7 +36,10 @@ and ``collectives``, and ``trace_s`` in place of ``lower_s`` and
 ``compile_s``.  ``hlo_gz`` and ``hlo_bytes`` have no counterpart: there
 is no HLO.  The port hands every rank the global batch (the model cuts
 its rows), so a batch counts whole in the arguments; its int32 tokens
-are int64 here.  ``argument_bytes`` breaks the arguments down by input.
+are int64 here.  ``argument_bytes`` breaks the arguments down by input;
+``collective_ops`` lists each collective's kind, operand bytes, operand
+shape and the parameter the operand is made from (None for activations
+and other state).
 
 Entry points run on the card unless ``--device cpu`` is asked for; the
 fake tensors live on that device and nothing is allocated on it.  Each
@@ -284,7 +287,7 @@ def trace_cell(
         del arg_storages
 
         t0 = time.time()
-        with CostCounter(also=(peak,)) as cost:
+        with CostCounter(also=(peak,), weights=dict(model.named_parameters())) as cost:
             out = step(*args)
         trace_s = time.time() - t0
         out_storages = _storages(out)
@@ -303,6 +306,7 @@ def trace_cell(
     }
     report["cost_analysis"] = {"flops": hc["flops"], "bytes_accessed": hc["bytes"]}
     report["collectives"] = {**hc["collectives"], "count": len(cost.coll)}
+    report["collective_ops"] = [list(r) for r in cost.coll]
     report["hlo_cost"] = hc
     report["custom_ops"] = dict(cost.custom)  # custom operators reached (JAX's custom-calls)
     report["trace_s"] = round(trace_s, 2)

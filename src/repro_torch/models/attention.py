@@ -174,6 +174,90 @@ def decode_attention(q, k_cache, v_cache, *, index, window):
     return out[:, None].to(q.dtype)  # (B, 1, KV, R, dh)
 
 
+def _decode_plan(q, k_cache, group: int):
+    """The JAX package's plan for a decode step on a mesh: the cache's
+    placements in the region (a split of ``head_dim`` brought whole), q's
+    placements there and the mesh dimensions that split the cache's
+    sequence.  On each mesh dimension q takes the cache's split of the
+    batch rows, is whole where the cache's sequence is split, and keeps
+    its heads split where the cache's KV heads are split alike or the
+    cache is whole over it (if each rank's heads then fall in whole GQA
+    groups or in one)."""
+    from torch.distributed.tensor import Replicate
+
+    mesh = k_cache.device_mesh
+    kp = [Replicate() if p.is_shard() and p.dim > 2 else p for p in k_cache.placements]
+    target, seq_dims = [], []
+    for i, (k_p, q_p) in enumerate(zip(kp, q.placements)):
+        if k_p.is_shard(0) or k_p.is_shard(2):
+            target.append(k_p)
+        elif k_p.is_shard(1):
+            target.append(Replicate())
+            seq_dims.append(i)
+        else:
+            target.append(q_p if q_p.is_shard(2) else Replicate())
+    heads = q.shape[2] * q.shape[3]
+    for i, p in enumerate(target):
+        if p.is_shard(2):
+            heads //= mesh.size(i)
+    if heads % group and group % heads:  # a rank's heads would straddle groups
+        target = [Replicate() if p.is_shard(2) and kp[i] == Replicate() else p
+                  for i, p in enumerate(target)]
+    return kp, target, seq_dims
+
+
+def decode_attention_sharded(q, k_cache, v_cache, *, index, window, group: int):
+    """``decode_attention`` on a mesh, in a local region, by
+    ``_decode_plan``: q (B, 1, E, R', dh) in its ``_gqa_layout`` (E x R'
+    heads, ``group`` of them to a KV head), the cache (B, Smax, KV, dh)
+    as placed.  Each rank scores its heads against its rows of the cache,
+    masked at their absolute positions; where the cache's sequence is
+    split, the softmax is combined across the shards (an all-reduce of
+    the row maxima, one of the sums, JAX's true division, then one of the
+    value products), and a shard with no valid position weighs zero.
+    Returns (B, 1, E, R', dh) with q's placements in the region; on one
+    rank, ``decode_attention``'s arithmetic bit for bit."""
+    import torch.distributed as dist
+
+    mesh = k_cache.device_mesh
+    kp, target, seq_dims = _decode_plan(q, k_cache, group)
+    if kp != list(k_cache.placements):
+        k_cache, v_cache = k_cache.redistribute(mesh, kp), v_cache.redistribute(mesh, kp)
+    q = q.redistribute(mesh, target)
+    b, _, _, re, dh = q.shape
+    (nb, _, ne, _, _), (_, _, e0, _, _) = sharding.local_extent(q.shape, mesh, target)
+    (_, n1, _, _), (o0, o1, k0, _) = sharding.local_extent(k_cache.shape, mesh, kp)
+    n_heads, h0 = ne * re, e0 * re  # this rank's heads and the first one
+    ng, rl = (n_heads // group, group) if n_heads % group == 0 else (1, n_heads)
+    g0 = h0 // group - k0  # the local KV head of the first
+    groups = [mesh.get_group(i) for i in seq_dims]
+
+    def region(q_, k_, v_):
+        dev = q_.device
+        pos = o1 + torch.arange(n1, device=dev)
+        idx = torch.as_tensor(index, device=dev).broadcast_to((b,))[o0:o0 + nb]
+        valid = pos[None, :] < idx[:, None]  # (b, n1): this rank's rows
+        if window is not None:
+            valid &= (idx[:, None] - 1 - pos[None, :]) < window
+        qt = q_[:, 0].reshape(nb, ng, rl, dh)
+        kt, vt = k_[:, :, g0:g0 + ng], v_[:, :, g0:g0 + ng]
+        s = matmul_f32(qt, kt.permute(0, 2, 3, 1)) * _scale(dh)  # (b, G, R, n1)
+        s = torch.where(valid[:, None, None, :], s, NEG_INF)
+        m = s.amax(dim=-1, keepdim=True)
+        for g in groups:
+            dist.all_reduce(m, op=dist.ReduceOp.MAX, group=g)
+        e = torch.exp(s - m)
+        denom = e.sum(dim=-1, keepdim=True)
+        for g in groups:
+            dist.all_reduce(denom, group=g)
+        out = matmul_f32((e / denom).to(vt.dtype), vt.transpose(1, 2))  # (b, G, R, dh)
+        for g in groups:
+            dist.all_reduce(out, group=g)
+        return out.reshape(q_.shape).to(q_.dtype)
+
+    return sharding.local_region(region, None, q, k_cache, v_cache, out_placements=target)
+
+
 def _gqa_layout(kv: int, r: int):
     """Pick (kv_eff, r_eff, repeat) so the sharded head axis divides "model".
 
@@ -193,25 +277,6 @@ def _gqa_layout(kv: int, r: int):
     return kv, r, False
 
 
-def _local_extent(shape, mesh, placements):
-    """(local sizes, global offsets) of this rank's block of a tensor of
-    ``shape`` split by ``placements`` on ``mesh``, as DTensor's ``Shard``
-    cuts it (``torch.chunk``: chunks of ceil(n / ranks), in mesh order);
-    in Python, so it runs under a fake tensor mode too."""
-    from torch.distributed.tensor import Shard
-
-    size, off = list(shape), [0] * len(shape)
-    coord = mesh.get_coordinate()
-    for i, p in enumerate(placements):
-        if isinstance(p, Shard) and p.dim < len(shape):
-            d, n = p.dim, mesh.size(i)
-            chunk = -(-size[d] // n)
-            lo = min(coord[i] * chunk, size[d])
-            off[d] += lo
-            size[d] = min(lo + chunk, size[d]) - lo
-    return size, off
-
-
 def _update_rows_sharded(buf, upd, start, s: int, last: int) -> None:
     """``update_rows`` into a DTensor ``buf``: ``upd`` is brought to
     ``buf``'s placements whole along the sequence axis, and each rank
@@ -224,7 +289,7 @@ def _update_rows_sharded(buf, upd, start, s: int, last: int) -> None:
     if not isinstance(upd, DTensor):
         upd = DTensor.from_local(upd, mesh, [Replicate()] * mesh.ndim, run_check=False)
     upd_l = upd.redistribute(mesh, pl).to_local().to(buf.dtype)
-    (n0, n1), (o0, o1) = _local_extent(buf.shape[:2], mesh, buf.placements)
+    (n0, n1), (o0, o1) = sharding.local_extent(buf.shape[:2], mesh, buf.placements)
     buf_l = buf.to_local()
     if isinstance(start, int):
         start = min(max(start, 0), last)
@@ -336,16 +401,6 @@ def attention(
     if mode == "decode":
         # decode keeps the native GQA grouping: the cache's sequence axis
         # supplies the model-axis parallelism (cache_seq sharding rules)
-        if sharding.is_dtensor(q):
-            # the query's heads whole (its rows keep their split) before the
-            # regrouping: DTensor's view rules refuse to unflatten a split
-            # head axis into groups the split does not divide (granite's 32
-            # heads over 16 ranks into 8 x 4), and the score product
-            # flattens (B, KV) into one batch dimension, where they refuse
-            # to flatten two split dimensions
-            q = q.redistribute(q.device_mesh, sharding.split_placements(q))
-        q = q.reshape(b, s, kv, r, dh)
-
         def cache_shard(t):
             return shard(t, ("batch", "cache_seq", "kv_heads", "head_dim"))
 
@@ -357,10 +412,14 @@ def attention(
             index = cache_index + s
         else:
             index = cache["k"].shape[1]
-        out = decode_attention(
-            q, cache_shard(cache["k"]), cache_shard(cache["v"]), index=index,
-            window=None if cross else window,
-        )
+        k_cache, v_cache = cache_shard(cache["k"]), cache_shard(cache["v"])
+        window = None if cross else window
+        if sharding.is_dtensor(k_cache):
+            out = decode_attention_sharded(q, k_cache, v_cache, index=index, window=window,
+                                           group=r)
+        else:
+            out = decode_attention(q.reshape(b, s, kv, r, dh), k_cache, v_cache, index=index,
+                                   window=window)
         out = out.reshape(b, s, h, dh)
     else:
         if cache is not None and not cross:  # prefill: the whole sequence into the cache

@@ -67,7 +67,12 @@ def init_mlp(gen, cfg, device=None) -> nn.ParameterDict:
 
 
 def apply_mlp(p, x, cfg):
+    """The MLP on its ``d_ff`` shard: the input whole over "model" (as
+    the JAX package's plan keeps it), so ``x @ w_gate`` and ``x @ w_up``
+    give the hidden layer on each rank's ``ffn`` columns and ``h @
+    w_down`` a partial sum; no weight is gathered."""
     act = activation(cfg.act)
+    x = shard(x, ("batch", "seq", "embed"))
     if cfg.mlp_gated:
         h = act(x @ p["w_gate"].to(x.dtype)) * (x @ p["w_up"].to(x.dtype))
         h = shard(h, ("batch", "seq", "ffn"))
@@ -156,7 +161,8 @@ def apply_block(
     kind = kind or cfg.family
     check_kind(kind)
     seq_axis = "seq_sp" if getattr(cfg, "seq_shard", False) else "seq"
-    x = shard(x, ("batch", seq_axis, "embed"))
+    residual = ("batch", seq_axis, "embed")
+    x = shard(x, residual)
     window = None
     if cfg.sliding_window > 0 and kind != "encoder":
         window = cfg.sliding_window
@@ -181,7 +187,7 @@ def apply_block(
         )
         s_out, s_cache = mamba(h, None if cache is None else cache["ssm"])
         scale = p["branch_scale"].to(x.dtype)
-        x = x + scale[0] * a_out + scale[1] * s_out
+        x = shard(x + scale[0] * a_out + scale[1] * s_out, residual)
         x = x + apply_mlp(p["mlp"], apply_norm(p["ln2"], x, cfg), cfg)
         return x, None if cache is None else {"attn": a_cache, "ssm": s_cache}, 0.0
 
@@ -199,14 +205,16 @@ def apply_block(
         causal=kind != "encoder",
         use_rope=kind != "encoder",
     )
-    x = x + a_out
+    # the attention's partial sum over "model" reduced once, before the
+    # norms and the products that follow
+    x = x + shard(a_out, residual)
     if kind == "encoder_cross":
         c_out, cross_cache = attn_mod.attention(
             p["cross"], apply_norm(p["ln_cross"], x, cfg), cfg, positions=positions,
             mode=attn_mode, cache=None if cache is None else cache["cross"], causal=False,
             kv_input=enc_out, use_rope=False, cross=True,
         )
-        x = x + c_out
+        x = x + shard(c_out, residual)
         if cache is not None:
             new_cache = {"self": new_cache, "cross": cross_cache}
     h2 = apply_norm(p["ln2"], x, cfg)

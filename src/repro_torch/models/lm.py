@@ -37,7 +37,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.distributed.sharding import active_mesh, shard
+from repro_torch.distributed.sharding import active_mesh, local_extent, local_region, shard
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import blocks
 from repro_torch.models import ssm as ssm_mod
@@ -227,6 +227,37 @@ def _encode_audio(model: LM, cfg, frames, remat: bool = False):
     return apply_norm(model.enc_norm, x, cfg)
 
 
+def _embed_tokens(table, cfg, tokens):
+    """The tokens' rows of the embedding table in the compute dtype, laid
+    out ("batch", seq, "embed").  Where a mesh splits the table's rows
+    (the "vocab" rule), the lookup is vocab-parallel, in a local region:
+    each rank takes the rows of its own vocabulary range for the tokens
+    that fall in it and zeros for the rest, and one sum over the
+    dimensions that split the table (an all-reduce, or a reduce-scatter
+    onto ``seq_sp``) gives the rows.  The table never crosses a link and
+    its gradient lands on each rank's shard; each output element has one
+    non-zero term, so the sum equals the lookup bit for bit."""
+    from torch.distributed.tensor import Partial, Replicate
+
+    axes = ("batch", "seq_sp" if cfg.seq_shard else "seq", "embed")
+    split = {i for i, p in enumerate(getattr(table, "placements", ())) if p.is_shard(0)}
+    if not split:
+        return shard(table[tokens].to(cfg.compute_dtype), axes)
+    mesh, dtype = table.device_mesh, cfg.compute_dtype
+    (n, _), (lo, _) = local_extent(table.shape, mesh, table.placements)
+    tok = shard(tokens, ("batch", None))  # each rank's rows of the batch
+    tok = tok.redistribute(mesh, [Replicate() if i in split else p
+                                  for i, p in enumerate(tok.placements)])
+    out_pl = [Partial() if i in split else p for i, p in enumerate(tok.placements)]
+
+    def lookup(t, ids):
+        ids = ids - lo
+        inside = (ids >= 0) & (ids < n)
+        return torch.where(inside[..., None], t[ids.clamp(0, n - 1)].to(dtype), 0)
+
+    return shard(local_region(lookup, None, table, tok, out_placements=out_pl), axes)
+
+
 def lm_forward(model: LM, cfg, batch, *, mode: str, cache=None):
     """Backbone forward: returns (hidden (B,S,d), new_cache, aux_loss);
     the auxiliary loss is the blocks' sum (the MoE routers' losses; 0.0
@@ -247,8 +278,7 @@ def lm_forward(model: LM, cfg, batch, *, mode: str, cache=None):
     if cfg.is_encdec and mode != "decode":
         enc_out = _encode_audio(model, cfg, batch["frames"], remat)
 
-    x = model.embed[tokens].to(cfg.compute_dtype)
-    x = shard(x, ("batch", "seq_sp" if cfg.seq_shard else "seq", "embed"))
+    x = _embed_tokens(model.embed, cfg, tokens)
     if cfg.family == "vlm" and mode != "decode":
         cdt = cfg.compute_dtype
         w, bias = model.img_proj["w"], model.img_proj["b"]

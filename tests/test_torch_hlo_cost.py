@@ -187,6 +187,31 @@ def test_collectives_match_jax():
             got["all-reduce"], 4 * got["all-gather"], got["count"])
 
 
+def test_gathered_weight_is_named():
+    """A collective's operand is named after the parameter it is made
+    from alone: its shard, a view of it in another shape, a cast of it;
+    activations of a weight shard's shape, and a product of a weight with
+    them, are not."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    with _fake_mesh((4,), ("i",)) as (mesh, dist):
+        def param():
+            return DTensor.from_local(torch.empty(4, 8), mesh, [Shard(0)], run_check=False)
+
+        weights = {"shard": param(), "view": param(), "cast": param()}
+        with hlo_analysis.CollectiveCounter(weights=weights) as c:
+            weights["shard"].full_tensor()
+            weights["view"].reshape(128).full_tensor()
+            weights["cast"].to(torch.bfloat16).full_tensor()
+            act = DTensor.from_local(torch.empty(4, 8), mesh, [Shard(0)], run_check=False)
+            act.full_tensor()
+            dist.all_reduce(act.to_local() @ weights["shard"].to_local().t())
+    named = [(kind, shape, weight) for kind, _, shape, weight in c.records]
+    assert named == [("all-gather", (4, 8), "shard"), ("all-gather", (32,), "view"),
+                     ("all-gather", (4, 8), "cast"), ("all-gather", (4, 8), None),
+                     ("all-reduce", (4, 4), None)]
+
+
 def test_collective_over_one_rank_is_not_counted():
     with _fake_mesh((1, 4), ("data", "model")) as (mesh, dist):
         with hlo_analysis.CollectiveCounter() as c:

@@ -42,6 +42,22 @@ ROOT = Path(__file__).resolve().parents[1]
 WORLD = 4
 LOSS_MESHES = {"layout_A": (2, 2), "layout_B": (1, 4)}  # (data, model); phi-3.5-MoE's kv = 2
 COMPRESSED_MESHES = {"pod2_data2": (2, 2, 1), "pod2_model2": (2, 1, 2)}  # (pod, data, model)
+# (data, model), and whether the residual stream is sharded over "model"
+EMBED_MESHES = {"embed_A": ((2, 2), False), "embed_B": ((1, 4), False),
+                "embed_SP": ((2, 2), True)}
+EMBED_ARCH = "granite3_8b"
+# smoke decodes on (data 2, model 2): name -> (arch, the cache_seq rule, prompt length)
+DECODE_CASES = {
+    # tests/test_distributed.py:146: the cache's sequence over "model"
+    "decode": ("granite_34b", ("data", "model"), 8),
+    # a prompt shorter than one shard (8 rows of the 16): in the decode step
+    # the second "model" rank holds no valid position
+    "decode_empty_shard": ("granite_34b", ("data", "model"), 3),
+    # the cache whole over "model" (kv 1): each rank scores its 2 of 4 heads
+    "decode_heads": ("granite3_8b", None, 8),
+    # the cache's 2 KV heads split over "model" with the query's groups
+    "decode_kv_heads": ("qwen3_moe_30b", None, 8),
+}
 STEP_ARCH, STEP_BATCH, STEP_SEQ, STEP_MICRO = "granite3_8b", 8, 16, 2
 NO_CLIP = adamw.AdamWConfig(clip_norm=1e9)  # the clip inactive: AdamW exact
 
@@ -102,21 +118,75 @@ def _decode_roll(model, cfg, toks):
     return _whole(logits), _whole(logits2), cache
 
 
-def _decode_case():
-    """granite-34b's smoke decode with its KV cache sharded over the
-    sequence (tests/test_distributed.py:146, on a (2, 2) mesh)."""
-    cfg = dataclasses.replace(configs.get_smoke_config("granite_34b"),
-                              sharding_overrides=(("cache_seq", ("data", "model")),))
+def _decode_cfg(name):
+    arch, cache_seq, _ = DECODE_CASES[name]
+    cfg = configs.get_smoke_config(arch)
+    if cache_seq is not None:
+        cfg = dataclasses.replace(cfg, sharding_overrides=(("cache_seq", cache_seq),))
+    return cfg
+
+
+def _decode_toks(name):
+    arch, _, prompt = DECODE_CASES[name]
+    return torch.from_numpy(_tokens(configs.get_smoke_config(arch), 2, prompt, 1)["tokens"]).long()
+
+
+def _decode_case(name):
+    """A smoke decode on a (2, 2) mesh (``DECODE_CASES``), with the
+    decode steps' calls of the sharded decode attention counted."""
+    from repro_torch.models import attention
+
+    cfg = _decode_cfg(name)
     model = lm.init_lm(cfg, seed=0, device="cpu")
-    toks = torch.from_numpy(_tokens(cfg, 2, 8, 1)["tokens"]).long()
     mesh = _mesh((2, 2), ("data", "model"))
-    with sh.use_mesh(mesh), sh.use_rules(sh.rules_for_config(cfg)):
+    real, calls = attention.decode_attention_sharded, []
+
+    def counted(*args, **kw):
+        calls.append(1)
+        return real(*args, **kw)
+
+    attention.decode_attention_sharded = counted
+    try:
+        with sh.use_mesh(mesh), sh.use_rules(sh.rules_for_config(cfg)):
+            sh.distribute_params(model, mesh)
+            l1, l2, cache = _decode_roll(model, cfg, _decode_toks(name))
+            k = cache["layers"]["k"]
+            return {"prefill": l1, "decode": l2, "cache_k": _whole(k),
+                    "sharded_calls": np.array(len(calls)),
+                    "cache_split_dims": np.array([p.dim if p.is_shard() else -1
+                                                  for p in k.placements])}
+    finally:
+        attention.decode_attention_sharded = real
+
+
+def _embed_inputs(seq_shard=False):
+    cfg = dataclasses.replace(configs.get_smoke_config(EMBED_ARCH), seq_shard=seq_shard)
+    model = lm.init_lm(cfg, seed=4, device="cpu")
+    rs = np.random.default_rng(6)
+    tokens = torch.from_numpy(rs.integers(0, cfg.vocab_size, (4, 16)))
+    dout = torch.from_numpy(rs.normal(size=(4, 16, cfg.d_model)).astype(np.float32))
+    return cfg, model, tokens, dout
+
+
+def _embed_case(shape, seq_shard):
+    """The vocab-parallel embedding lookup on a (data, model) mesh: the
+    rows, and the gradient of <rows, dout> on each rank's shard of the
+    table (reduced over "data", the dimension that splits the batch)."""
+    from torch.distributed.tensor import DTensor
+
+    cfg, model, tokens, dout = _embed_inputs(seq_shard)
+    mesh = _mesh(shape, ("data", "model"))
+    with sh.use_mesh(mesh):
         sh.distribute_params(model, mesh)
-        l1, l2, cache = _decode_roll(model, cfg, toks)
-        k = cache["layers"]["k"]
-        return {"prefill": l1, "decode": l2, "cache_k": _whole(k),
-                "cache_split_dims": np.array([p.dim if p.is_shard() else -1
-                                              for p in k.placements])}
+        table = model.embed.requires_grad_(True)
+        rows = lm._embed_tokens(table, cfg, tokens)
+        d = DTensor.from_local(dout, mesh, [_replicate()] * 2, run_check=False).redistribute(
+            mesh, rows.placements)
+        (grad,) = torch.autograd.grad(rows, [table], d)
+        (n, _), (lo, _) = sh.local_extent(table.shape, mesh, table.placements)
+        return {"rows": _whole(rows), "rows_placements": np.array([str(p) for p in rows.placements]),
+                "grad_shard": grad.redistribute(mesh, table.placements).to_local().detach(),
+                "shard_rows": np.array([lo, n])}
 
 
 def _moe_case():
@@ -297,7 +367,10 @@ def _rank(rank, port, out):
         _save(out, "builders", rank, _mesh_builders())
         for name, shape in LOSS_MESHES.items():
             _save(out, name, rank, _loss_case(shape))
-        _save(out, "decode", rank, _decode_case())
+        for name, (shape, seq_shard) in EMBED_MESHES.items():
+            _save(out, name, rank, _embed_case(shape, seq_shard))
+        for name in DECODE_CASES:
+            _save(out, name, rank, _decode_case(name))
         _save(out, "moe", rank, _moe_case())
         _save(out, "zero", rank, _zero_case())
         _save(out, "train_step", rank, _train_step_case())
@@ -332,7 +405,8 @@ def ranks():
     proc = subprocess.run([sys.executable, __file__, out, str(_free_port())], env=env,
                           capture_output=True, text=True, timeout=240)
     assert proc.returncode == 0, proc.stderr[-4000:]
-    names = ("builders", *LOSS_MESHES, "decode", "moe", "zero", "train_step", *COMPRESSED_MESHES)
+    names = ("builders", *LOSS_MESHES, *EMBED_MESHES, *DECODE_CASES, "moe", "zero", "train_step",
+             *COMPRESSED_MESHES)
     return {n: [dict(np.load(os.path.join(out, f"{n}_rank{r}.npz"))) for r in range(WORLD)]
             for n in names}
 
@@ -380,21 +454,64 @@ def test_mesh_gradients_match_single_process(ranks, layout):
         assert diff <= 2e-4 * scale, (diff, scale)
 
 
-def test_decode_with_seq_sharded_cache_matches_single_process(ranks):
-    """tests/test_distributed.py:146 on the port: prefill and decode
-    logits within atol=3e-4 with the KV cache sharded over its sequence
-    ("model": "data" is taken by the batch), the cache itself likewise."""
-    cfg = dataclasses.replace(configs.get_smoke_config("granite_34b"),
-                              sharding_overrides=(("cache_seq", ("data", "model")),))
+def _hold_decode(ranks, name, split_dims):
+    cfg = _decode_cfg(name)
     model = lm.init_lm(cfg, seed=0, device="cpu")
-    toks = torch.from_numpy(_tokens(cfg, 2, 8, 1)["tokens"]).long()
-    l1, l2, cache = _decode_roll(model, cfg, toks)
-    for got in ranks["decode"]:
-        # (L, B, Smax, KV, dh): the batch over "data", the sequence over "model"
-        assert got["cache_split_dims"].tolist() == [1, 2]
+    l1, l2, cache = _decode_roll(model, cfg, _decode_toks(name))
+    for got in ranks[name]:
+        # (L, B, Smax, KV, dh): the batch over "data"; "model" as the case says
+        assert got["cache_split_dims"].tolist() == split_dims
+        assert int(got["sharded_calls"]) == cfg.n_layers  # the decode step's layers
         np.testing.assert_allclose(got["prefill"], l1.numpy(), atol=3e-4)
         np.testing.assert_allclose(got["decode"], l2.numpy(), atol=3e-4)
         np.testing.assert_allclose(got["cache_k"], cache["layers"]["k"].numpy(), atol=3e-4)
+
+
+def test_decode_with_seq_sharded_cache_matches_single_process(ranks):
+    """tests/test_distributed.py:146 on the port: prefill and decode
+    logits within atol=3e-4 with the KV cache sharded over its sequence
+    ("model": "data" is taken by the batch), the cache itself likewise;
+    the decode step scores each rank's rows of the cache."""
+    _hold_decode(ranks, "decode", [1, 2])
+
+
+@pytest.mark.parametrize("name,split_dims", [("decode_empty_shard", [1, 2]),
+                                             ("decode_heads", [1, -1]),
+                                             ("decode_kv_heads", [1, 3])])
+def test_decode_plans_match_single_process(ranks, name, split_dims):
+    """The decode attention's other plans, within the same atol=3e-4: a
+    shard of the sequence with no valid position (it weighs zero, not
+    NaN); the cache whole over "model" with the query's heads split; the
+    cache's KV heads split with their groups."""
+    _hold_decode(ranks, name, split_dims)
+
+
+@pytest.mark.parametrize("mesh", list(EMBED_MESHES))
+def test_vocab_parallel_embedding_matches_lookup(ranks, mesh):
+    """The vocab-parallel lookup on (2, 2) and (1, 4) equals the lookup
+    without a mesh bit for bit (one non-zero term an element), laid out
+    ("batch", "seq", "embed"), or ("batch", "seq_sp", "embed") when the
+    residual stream is sharded (the sum a reduce-scatter); each rank's
+    shard of the table's gradient is the unmeshed gradient's rows of that
+    shard, within 1e-6 of its largest value (repeated tokens' terms
+    summed over "data" in another order)."""
+    (data, _), seq_shard = EMBED_MESHES[mesh]
+    cfg, model, tokens, dout = _embed_inputs(seq_shard)
+    table = model.embed.requires_grad_(True)
+    rows = lm._embed_tokens(table, cfg, tokens)
+    (grad,) = torch.autograd.grad(rows, [table], dout)
+    seen = set()
+    for got in ranks[mesh]:
+        np.testing.assert_array_equal(got["rows"], rows.detach().numpy())
+        # the batch over "data"; the sequence over "model" under seq_shard
+        assert got["rows_placements"].tolist() == ["S(0)", "S(1)" if seq_shard else "R"]
+        lo, n = got["shard_rows"].tolist()
+        assert n == cfg.padded_vocab * data // WORLD
+        want = grad[lo:lo + n].numpy()
+        assert float(np.abs(got["grad_shard"] - want).max()) <= 1e-6 * float(
+            np.abs(grad.numpy()).max())
+        seen.add(lo)
+    assert len(seen) == WORLD // data  # every shard of the table is some rank's
 
 
 def test_moe_ffn_ep_matches_local(ranks):
