@@ -289,7 +289,10 @@ each at full width and depth in bfloat16 with random weights from a seed:
      table's shard alone is 2.5e7 and 5.1e7 bytes), no all-gather whose
      operand is made from a parameter (``collective_ops``' fourth
      field) and collective bytes at most ``DRYRUN_MAX_COLLECTIVE_RATIO``
-     times JAX's; (b) the train step
+     times JAX's; the 16 x 16 cell traced again with ``--device cpu``
+     (``DRYRUN_CPU_TWIN``) must give the card's FLOPs and collective
+     bytes, kind by kind (the plan does not depend on the device); (b)
+     the train step
      of phase 35 (8 x 1,024 tokens, 2 microbatches) and the decode step of
      phase 29 (B = 4) on a 1 x 1 fake mesh against what those phases
      measured: the parameters' and AdamW state's bytes equal the real
@@ -505,6 +508,13 @@ DRYRUN_CLI = (
     ("hymba_pods", "pod2_16x16", "hymba-1.5b__train_4k",
      ["--multi-pod", "--compress-pods", "--arch", "hymba_1p5b", "--shape", "train_4k"]),
 )
+# the 16 x 16 decode-sample cell again with ``--device cpu``: the plan must
+# not depend on the device, so its collective bytes equal the card's, kind
+# by kind: (name, the card's cell, mesh directory, report name, arguments)
+DRYRUN_CPU_TWIN = ("granite_decode_sample_cpu", "granite_decode_sample", "16x16",
+                   "granite-3-8b__decode_32k__cpu",
+                   ["--arch", "granite3_8b", "--shape", "decode_32k", "--decode-sample",
+                    "--device", "cpu", "--tag", "cpu"])
 DRYRUN_TIMEOUT_S = 1100
 # The JAX package's own dry run of the decode-sample cells, per device, by
 # mesh directory: ``python -m repro.launch.dryrun --arch granite3_8b
@@ -547,7 +557,8 @@ def start_dryrun_children(out: Path) -> dict:
     out.mkdir(parents=True)
     env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1")
     commands = {name: [sys.executable, "-m", "repro_torch.launch.dryrun", *args,
-                       "--out-dir", str(out)] for name, _, _, args in DRYRUN_CLI}
+                       "--out-dir", str(out)]
+                for name, *_, args in (*DRYRUN_CLI, DRYRUN_CPU_TWIN)}
     commands["phase_shapes"] = [sys.executable, str(ROOT / "chip_smoke.py"),
                                 "--dryrun-phase-shapes", str(out)]
     children = {}
@@ -3487,8 +3498,10 @@ def main() -> int:
                         largest_collectives=[[k, sh, b] for (k, sh), b in by_op.most_common(6)])
 
         # (a) the CLI on the production meshes
+        card_reports = {}
         for name, mesh_dir, report_name, args in DRYRUN_CLI:
-            r = json.loads((dry_dir / mesh_dir / f"{report_name}.json").read_text())
+            r = card_reports[name] = json.loads(
+                (dry_dir / mesh_dir / f"{report_name}.json").read_text())
             check(r["status"] == "ok" and r["device"] == "cuda",
                   f"dryrun {name}: {r.get('status')} {r.get('error')}")
             check(r["chips"] == (512 if "--multi-pod" in args else 256), f"dryrun {name}: {r}")
@@ -3498,6 +3511,18 @@ def main() -> int:
                       f"dryrun {name}: custom operators reached {r['custom_ops']}")
                 beside = hold_jax_plan(name, r, DRYRUN_JAX[mesh_dir])
             emit(phase="dryrun_cli", cell=name, argv=args, **summary(r), **beside)
+        name, twin, mesh_dir, report_name, args = DRYRUN_CPU_TWIN
+        r = json.loads((dry_dir / mesh_dir / f"{report_name}.json").read_text())
+        check(r["status"] == "ok" and r["device"] == "cpu",
+              f"dryrun {name}: {r.get('status')} {r.get('error')}")
+        card_coll = card_reports[twin]["hlo_cost"]["collectives"]
+        cpu_coll = r["hlo_cost"]["collectives"]
+        check(cpu_coll == card_coll and r["hlo_cost"]["flops"] == card_reports[twin][
+            "hlo_cost"]["flops"], f"dryrun {name}: collective bytes {cpu_coll} on the CPU "
+              f"against the card's {card_coll}")
+        emit(phase="dryrun_cpu_twin", cell=name, twin=twin, argv=args,
+             flops=r["hlo_cost"]["flops"], collectives=cpu_coll, card_collectives=card_coll,
+             collectives_differing_bytes=0, trace_s=r["trace_s"])
 
         # (b) phases 35 and 29's steps on a 1 x 1 fake mesh against what they measured
         shapes = json.loads((dry_dir / "phase_shapes.json").read_text())

@@ -38,6 +38,8 @@ import contextlib
 import dataclasses
 from typing import Any
 
+import torch
+
 Axes = tuple  # tuple[str | None | tuple[str, ...], ...]
 
 
@@ -315,6 +317,36 @@ def shard(x, logical_axes: Axes, rules: ShardingRules | None = None):
     return x.redistribute(mesh, placements)
 
 
+class _SumInto(torch.autograd.Function):
+    """The identity on the global value, laid out as ``placements`` both
+    ways: the forward pass redistributes ``x`` (a ``Partial`` sum reduced
+    by an all-reduce) and the backward pass brings the gradient to the
+    same placements, so neither direction is left to DTensor's choice."""
+
+    @staticmethod
+    def forward(ctx, x, placements):
+        ctx.placements = placements
+        return x.redistribute(x.device_mesh, placements)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.redistribute(grad.device_mesh, ctx.placements), None
+
+
+def reduce_into(x, logical_axes: Axes, rules: ShardingRules | None = None):
+    """``shard`` for a partial sum, with the gradient pinned too: JAX's
+    ``psum`` into a layout, whose transpose hands the gradient back as the
+    layout places it.  A plain ``x`` goes to ``shard``; a DTensor placed
+    so already is returned as it is."""
+    if not is_dtensor(x):
+        return shard(x, logical_axes, rules)
+    spec = spec_for(logical_axes, rules or get_rules(), shape=tuple(x.shape))
+    placements = tuple(named_sharding(x.device_mesh, spec, tuple(x.shape)))
+    if tuple(x.placements) == placements:
+        return x
+    return _SumInto.apply(x, placements)
+
+
 def split_placements(x, dims: tuple = (0,)) -> list | None:
     """``x``'s placements with only the splits of its dimensions ``dims``
     kept (default: the leading, batch, dimension: the layout of a
@@ -353,12 +385,12 @@ def local_region(fn, placements, *args, shared: int = 0, out_placements=None):
     placements, or with ``out_placements`` where given (a ``Partial``
     there makes the output a sum over ranks).  ``placements=None`` keeps
     each DTensor argument as it is placed; its gradient is then a partial
-    sum over the mesh dimensions that split the output and not the
-    argument.  The last ``shared`` arguments (weights every rank's share
-    reads whole) are brought whole instead, and their gradients come back
-    as partial sums over the mesh dimensions that ``placements`` split.
-    Gradients flow through both crossings.  Without a DTensor argument
-    ``fn`` runs as it is."""
+    sum over the mesh dimensions that split the output, or make it a
+    partial sum, and not the argument.  The last ``shared`` arguments
+    (weights every rank's share reads whole) are brought whole instead,
+    and their gradients come back as partial sums over the mesh
+    dimensions that ``placements`` split.  Gradients flow through both
+    crossings.  Without a DTensor argument ``fn`` runs as it is."""
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
     mesh = next((a.device_mesh for a in args if isinstance(a, DTensor)), None)
@@ -372,7 +404,8 @@ def local_region(fn, placements, *args, shared: int = 0, out_placements=None):
         if not isinstance(a, DTensor):
             local.append(a)
         elif placements is None:
-            grad = [Partial() if isinstance(o, Shard) and not isinstance(p, Shard) else p
+            grad = [Partial() if (isinstance(o, Shard) or o.is_partial())
+                    and not isinstance(p, Shard) else p
                     for p, o in zip(a.placements, out_placements)]
             local.append(a.to_local(grad_placements=grad))
         elif i < first_shared:

@@ -19,7 +19,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from repro_torch.distributed.sharding import shard
+from repro_torch.distributed.sharding import reduce_into, shard
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
@@ -162,7 +162,7 @@ def apply_block(
     check_kind(kind)
     seq_axis = "seq_sp" if getattr(cfg, "seq_shard", False) else "seq"
     residual = ("batch", seq_axis, "embed")
-    x = shard(x, residual)
+    x = reduce_into(x, residual)
     window = None
     if cfg.sliding_window > 0 and kind != "encoder":
         window = cfg.sliding_window

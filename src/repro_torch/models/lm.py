@@ -37,7 +37,13 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.distributed.sharding import active_mesh, local_extent, local_region, shard
+from repro_torch.distributed.sharding import (
+    active_mesh,
+    local_extent,
+    local_region,
+    reduce_into,
+    shard,
+)
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import blocks
 from repro_torch.models import ssm as ssm_mod
@@ -216,6 +222,16 @@ def _stack_apply(stack, x, cfg, *, mode: str, positions, cache_layers=None, cach
     return x, aux
 
 
+def _stack_output(x, cfg):
+    """The last block's output (under a mesh, a partial sum over the
+    dimensions that split its last product) reduced into the residual
+    layout, as every other block's output is reduced at the next block's
+    entry and as JAX's scan reduces each into its carry: one all-reduce,
+    whose gradient comes back in the same layout."""
+    seq_axis = "seq_sp" if cfg.seq_shard else "seq"
+    return reduce_into(x, ("batch", seq_axis, "embed"))
+
+
 def _encode_audio(model: LM, cfg, frames, remat: bool = False):
     """Stub frontend: precomputed mel-frame features -> encoder stack."""
     cdt = cfg.compute_dtype
@@ -224,7 +240,7 @@ def _encode_audio(model: LM, cfg, frames, remat: bool = False):
     x = x + model.enc_pos.to(cdt)[None]
     pos = torch.arange(cfg.encoder_len, device=x.device)
     x, _ = _stack_apply(model.encoder, x, cfg, mode="full", positions=pos, remat=remat)
-    return apply_norm(model.enc_norm, x, cfg)
+    return apply_norm(model.enc_norm, _stack_output(x, cfg), cfg)
 
 
 def _embed_tokens(table, cfg, tokens):
@@ -297,7 +313,7 @@ def lm_forward(model: LM, cfg, batch, *, mode: str, cache=None):
         model.layers, x, cfg, mode="decode" if mode == "decode" else "full",
         positions=positions, cache_layers=None if cache is None else cache["layers"],
         cache_index=index, metas=layer_metas(cfg), enc_out=enc_out, remat=remat)
-    x = apply_norm(model.final_norm, x, cfg)
+    x = apply_norm(model.final_norm, _stack_output(x, cfg), cfg)
 
     new_cache = None
     if cache is not None:
@@ -320,15 +336,50 @@ def head_logits(model: LM, cfg, hidden):
     return logits
 
 
+def _vocab_parallel_terms(logits, lab):
+    """(logsumexp, the label's logit) of logits split over the vocabulary,
+    each from the rank's own columns: the row maximum (no gradient: the
+    logsumexp does not depend on it) a max over ranks, the sum of
+    ``exp(x - max)`` a partial sum reduced once, and the label's logit a
+    masked partial sum with one non-zero term, so it equals the gather
+    bit for bit.  The (B, chunk, V) logits are never gathered, and their
+    gradient (softmax less the one-hot) stays on each rank's columns."""
+    from torch.distributed.tensor import Partial, Replicate
+
+    mesh, last = logits.device_mesh, logits.ndim - 1
+    split = {i for i, p in enumerate(logits.placements) if p.is_shard(last)}
+    (*_, n), (*_, lo) = local_extent(logits.shape, mesh, logits.placements)
+    rows = [Replicate() if i in split else p for i, p in enumerate(logits.placements)]
+
+    def partial(op):
+        return [Partial(op) if i in split else p for i, p in enumerate(logits.placements)]
+
+    def row_max(x):
+        return x.detach().amax(dim=-1)
+
+    def terms(x, m, ids):
+        ids = ids.clamp_min(0) - lo
+        inside = (ids >= 0) & (ids < n)
+        ll = torch.take_along_dim(x, ids.clamp(0, n - 1)[..., None].long(), dim=-1)[..., 0]
+        return torch.exp(x - m[..., None]).sum(dim=-1), torch.where(inside, ll, 0)
+
+    m = local_region(row_max, None, logits, out_placements=partial("max"))
+    m = m.redistribute(mesh, rows)
+    sumexp, ll = local_region(terms, None, logits, m, shard(lab, ("batch", "seq")),
+                              out_placements=partial("sum"))
+    return torch.log(sumexp.redistribute(mesh, rows)) + m, ll.redistribute(mesh, rows)
+
+
 def _chunk_terms(model: LM, cfg, h, lab):
     """One chunk's (nll sum, z sum, count): float32 logits, their
-    logsumexp, the label's logit; negative labels masked out."""
+    logsumexp, the label's logit; negative labels masked out.  Where a
+    mesh splits the vocabulary, the terms are vocab-parallel."""
     logits = head_logits(model, cfg, h)
-    logz = torch.logsumexp(logits, dim=-1)
-    ll = torch.take_along_dim(logits, lab.clamp_min(0)[..., None].long(), dim=-1)
-    # under a mesh the gather from vocab-sharded logits is a masked partial
-    # sum: reduce it while it keeps the gather's shape
-    ll = shard(ll, ("batch", "seq", None))[..., 0]
+    if any(p.is_shard(logits.ndim - 1) for p in getattr(logits, "placements", ())):
+        logz, ll = _vocab_parallel_terms(logits, lab)
+    else:
+        logz = torch.logsumexp(logits, dim=-1)
+        ll = torch.take_along_dim(logits, lab.clamp_min(0)[..., None].long(), dim=-1)[..., 0]
     mask = (lab >= 0).float()
     nll = torch.sum((logz - ll) * mask)
     zl = torch.sum(torch.square(logz) * mask) if cfg.z_loss > 0 else torch.zeros_like(nll)

@@ -32,9 +32,12 @@ DTensors.  ``moe_ffn`` reads the active mesh as the JAX function does:
 * by default, ``moe_ffn_local(constrain=True)``: routing and the expert
   products stay in DTensor's hands (the expert-stacked weights sharded
   over "model"), with JAX's constraints on the dispatch buffers; the
-  dispatch and the combine, per batch row, run in row-local regions
-  (``sharding.local_region``) on each rank's rows, since DTensor has no
-  sharding strategy for ``searchsorted`` and the index writes;
+  dispatch runs in a row-local region (``sharding.local_region``) on
+  each rank's rows, since DTensor has no sharding strategy for
+  ``searchsorted`` and the index writes, and the combine gathers each
+  rank's own experts' contributions and reduces them once over the
+  dimensions that split the experts (``_combine_sharded``), as XLA
+  partitions JAX's gather and scatter-add;
 * with ``REPRO_MOE_SHARD_MAP_EP=1`` (read once, at import),
   ``moe_ffn_ep``: JAX's ``shard_map`` over "model" as a manual region on
   local tensors.  Each rank routes its rows, dispatches to its own
@@ -142,15 +145,27 @@ def _dispatch(x, probs, experts, n_experts: int, top_k: int, cap: int, offset=0)
     return buf, (slot, tok, weights)
 
 
-def _combine(out_buf, info, s: int, top_k: int):
-    """(B,E,cap,d) expert outputs -> (B,S,d): each token's k weighted
-    contributions, added in ascending expert id (the order of JAX's
-    sorted scatter-add) one at a time in the buffer's dtype."""
-    slot, tok, weights = info
+def _contributions(out_buf, slot, weights, lo=None):
+    """(B,E,cap,d) expert outputs -> the (B,S*k,d) weighted contributions,
+    in sorted order.  With ``lo``, ``out_buf`` holds the slots [lo, lo +
+    E*cap) of a larger buffer: the others give zeros."""
     b, e, cap, d = out_buf.shape
     flat = out_buf.reshape(b, e * cap, d)
     rows = torch.arange(b, device=out_buf.device)[:, None]
-    contrib = flat[rows, torch.clamp_max(slot, e * cap - 1)] * weights[..., None].to(flat.dtype)
+    w = weights[..., None].to(flat.dtype)
+    if lo is None:
+        return flat[rows, torch.clamp_max(slot, e * cap - 1)] * w
+    slot = slot - lo
+    inside = (slot >= 0) & (slot < e * cap)
+    return torch.where(inside[..., None], flat[rows, slot.clamp(0, e * cap - 1)] * w, 0)
+
+
+def _token_sum(contrib, tok, s: int, top_k: int):
+    """(B,S*k,d) contributions in sorted order -> (B,S,d): each token's k
+    contributions added in ascending expert id (the order of JAX's sorted
+    scatter-add) one at a time in their dtype."""
+    b, _, d = contrib.shape
+    rows = torch.arange(b, device=contrib.device)[:, None]
     # sorted order holds a token's assignments in ascending expert id; a
     # stable sort by token keeps that order within each token
     by_tok = torch.argsort(tok, dim=-1, stable=True)
@@ -159,6 +174,42 @@ def _combine(out_buf, info, s: int, top_k: int):
     for j in range(1, top_k):
         out = out + contrib[:, :, j]
     return out
+
+
+def _combine(out_buf, info, s: int, top_k: int):
+    """(B,E,cap,d) expert outputs -> (B,S,d)."""
+    slot, tok, weights = info
+    return _token_sum(_contributions(out_buf, slot, weights), tok, s, top_k)
+
+
+def _combine_sharded(out_buf, info, s: int, top_k: int, rows):
+    """``_combine`` of expert outputs split over their experts, as XLA
+    partitions JAX's gather and scatter-add: each rank gathers the
+    contributions of the slots its own experts hold (zeros for the
+    rest), one sum over the dimensions that split the experts (an
+    all-reduce of the (B, S*k, d) contributions) reduces them, and the
+    token sums run on each rank's rows.  Each contribution has one
+    non-zero term, so the result equals the unsplit combine bit for bit;
+    the outputs never cross a link.  ``rows``: the info's placements."""
+    from torch.distributed.tensor import Partial, Replicate
+
+    slot, tok, weights = info
+    mesh = out_buf.device_mesh
+    # the rows split as the info's, the experts as they are
+    buf_pl = [r if r.is_shard() else p if p.is_shard(1) else Replicate()
+              for p, r in zip(out_buf.placements, rows)]
+    out_buf = out_buf.redistribute(mesh, buf_pl)
+    split = {i for i, p in enumerate(buf_pl) if p.is_shard(1)}
+    (_, _, cap, _), (_, e0, _, _) = sharding.local_extent(out_buf.shape, mesh, buf_pl)
+
+    def contributions(ob, slot_, weights_):
+        return _contributions(ob, slot_, weights_, e0 * cap)
+
+    part = [Partial() if i in split else p for i, p in enumerate(rows)]
+    contrib = sharding.local_region(contributions, None, out_buf, slot, weights,
+                                    out_placements=part)
+    contrib = contrib.redistribute(mesh, rows)
+    return sharding.local_region(lambda c, t: _token_sum(c, t, s, top_k), rows, contrib, tok)
 
 
 def _expert_ffn(buf, wg, wu, wd, act):
@@ -179,18 +230,15 @@ def _moe_body(x, probs, experts, wg, wu, wd, cfg, act, offset=0, constrain=False
     With ``constrain`` (the EP-capable path under a mesh), JAX's
     constraints pin the dispatch buffer replicated over "model" and the
     experts' outputs to ("batch" x "experts"), so the expert products run
-    on each rank's own experts.  On DTensors the dispatch and the combine
-    run per batch row in row-local regions: DTensor has no sharding
-    strategy for ``searchsorted`` (nor for the index writes of the
-    buffer), and the combine gathers the experts' outputs of its rows."""
+    on each rank's own experts.  On DTensors the dispatch runs per batch
+    row in a row-local region (DTensor has no sharding strategy for
+    ``searchsorted``, nor for the index writes of the buffer), and the
+    combine is ``_combine_sharded``."""
     s = x.shape[1]
     cap = capacity(s, cfg.n_experts, cfg.moe_top_k, cfg.moe_capacity_factor)
 
     def dispatch(x_, probs_, experts_):
         return _dispatch(x_, probs_, experts_, wg.shape[0], cfg.moe_top_k, cap, offset)
-
-    def combine(out_buf, slot, tok, weights):
-        return _combine(out_buf, (slot, tok, weights), s, cfg.moe_top_k)
 
     rows = sharding.split_placements(x)
     # region: aten.searchsorted and aten.index_put_ (the dispatch)
@@ -202,8 +250,9 @@ def _moe_body(x, probs, experts, wg, wu, wd, cfg, act, offset=0, constrain=False
     out_buf = _expert_ffn(buf, wg, wu, wd, act)
     if constrain:
         out_buf = shard(out_buf, ("batch", "experts", "expert_cap", "embed"))
-    # region: aten.index.Tensor over the gathered expert outputs (the combine)
-    return sharding.local_region(combine, rows, out_buf, *info)
+    if rows is None:
+        return _combine(out_buf, info, s, cfg.moe_top_k)
+    return _combine_sharded(out_buf, info, s, cfg.moe_top_k, rows)
 
 
 def moe_ffn_local(params, x, cfg, act, constrain=False):

@@ -241,6 +241,36 @@ def _replicate():
     return Replicate()
 
 
+def _loss_terms_inputs():
+    """granite's smoke head (259 of 512 columns real, so the second
+    "model" rank holds 3) with a z-loss, a hidden chunk and its labels,
+    some masked."""
+    cfg = dataclasses.replace(configs.get_smoke_config(EMBED_ARCH), z_loss=1e-4)
+    model = lm.init_lm(cfg, seed=5, device="cpu").requires_grad_(True)
+    rs = np.random.default_rng(8)
+    h = torch.from_numpy(rs.normal(size=(4, 16, cfg.d_model)).astype(np.float32))
+    lab = torch.from_numpy(rs.integers(-1, cfg.vocab_size, (4, 16)))
+    return cfg, model, h, lab
+
+
+def _loss_terms_case():
+    """The vocab-parallel chunk terms on a (data 2, model 2) mesh: the
+    label's logit and logsumexp, the chunk's (nll, z, count) and the
+    gradients of nll + z with respect to the hidden chunk and the head."""
+    cfg, model, h, lab = _loss_terms_inputs()
+    mesh = _mesh((2, 2), ("data", "model"))
+    with sh.use_mesh(mesh), sh.use_rules(sh.rules_for_config(cfg)):
+        sh.distribute_params(model, mesh)
+        hd = sh.shard(h, ("batch", "seq", "embed")).detach().requires_grad_(True)
+        logits = lm.head_logits(model, cfg, hd)
+        logz, ll = lm._vocab_parallel_terms(logits.detach(), lab)
+        nll, zl, n = lm._chunk_terms(model, cfg, hd, lab)
+        g_h, g_head = torch.autograd.grad(nll + zl, [hd, model.lm_head])
+        return {"logits_placements": np.array([str(p) for p in logits.placements]),
+                "logz": _whole(logz), "ll": _whole(ll), "nll": _whole(nll), "z": _whole(zl),
+                "count": _whole(n), "grad/h": _whole(g_h), "grad/lm_head": _whole(g_head)}
+
+
 def _zero_case():
     """One AdamW update with ZeRO axes over data on a (data 2, model 2)
     mesh, from gradients every rank holds alike."""
@@ -372,6 +402,7 @@ def _rank(rank, port, out):
         for name in DECODE_CASES:
             _save(out, name, rank, _decode_case(name))
         _save(out, "moe", rank, _moe_case())
+        _save(out, "loss_terms", rank, _loss_terms_case())
         _save(out, "zero", rank, _zero_case())
         _save(out, "train_step", rank, _train_step_case())
         for name, shape in COMPRESSED_MESHES.items():
@@ -405,8 +436,8 @@ def ranks():
     proc = subprocess.run([sys.executable, __file__, out, str(_free_port())], env=env,
                           capture_output=True, text=True, timeout=240)
     assert proc.returncode == 0, proc.stderr[-4000:]
-    names = ("builders", *LOSS_MESHES, *EMBED_MESHES, *DECODE_CASES, "moe", "zero", "train_step",
-             *COMPRESSED_MESHES)
+    names = ("builders", *LOSS_MESHES, *EMBED_MESHES, *DECODE_CASES, "moe", "loss_terms", "zero",
+             "train_step", *COMPRESSED_MESHES)
     return {n: [dict(np.load(os.path.join(out, f"{n}_rank{r}.npz"))) for r in range(WORLD)]
             for n in names}
 
@@ -537,6 +568,48 @@ def test_moe_ffn_ep_matches_local(ranks):
         # rows split over "data" only: every row's sums as on one device
         for k in ("out", "aux"):
             assert _rel(got[f"data_only/{k}"], want[k].numpy()) <= 1e-6, k
+
+
+def test_meshed_moe_combine_equals_unmeshed(ranks):
+    """The constrained local path on (2, 2), whose combine reduces each
+    rank's contributions (one non-zero term an element) instead of
+    gathering the experts' outputs, against the unmeshed
+    ``moe_ffn_local``: the output and the aux loss bit for bit."""
+    cfg = configs.get_smoke_config("qwen3_moe_30b")
+    params = moe_mod.init_moe(torch.Generator().manual_seed(3), cfg)
+    x = torch.from_numpy(np.random.default_rng(4).normal(size=(4, 8, cfg.d_model))
+                         .astype(np.float32))
+    y, aux = moe_mod.moe_ffn_local(dict(params), x, cfg, activation(cfg.act))
+    for got in ranks["moe"]:
+        np.testing.assert_array_equal(got["local/out"], y.detach().numpy())
+        np.testing.assert_array_equal(got["local/aux"], aux.detach().numpy())
+
+
+def test_vocab_parallel_loss_terms_match_unmeshed(ranks):
+    """The chunk terms from vocab-sharded logits on (2, 2) against the
+    unmeshed ones: the label's logit bit for bit (a masked partial sum
+    with one non-zero term); the logsumexp, the nll and z sums within the
+    mesh loss's rtol=2e-5; the count exactly; the gradients within 2e-4
+    of the largest (the mesh gradient tests' bound).  The logits stay
+    split over "model"."""
+    cfg, model, h, lab = _loss_terms_inputs()
+    h.requires_grad_(True)
+    logits = lm.head_logits(model, cfg, h)
+    logz = torch.logsumexp(logits, dim=-1)
+    ll = torch.take_along_dim(logits, lab.clamp_min(0)[..., None], dim=-1)[..., 0]
+    nll, zl, n = lm._chunk_terms(model, cfg, h, lab)
+    grads = dict(zip(("h", "lm_head"), torch.autograd.grad(nll + zl, [h, model.lm_head])))
+    nll, zl = nll.detach(), zl.detach()
+    for got in ranks["loss_terms"]:
+        assert got["logits_placements"].tolist() == ["S(0)", "S(2)"]
+        np.testing.assert_array_equal(got["ll"], ll.detach().numpy())
+        np.testing.assert_allclose(got["logz"], logz.detach().numpy(), rtol=2e-5)
+        np.testing.assert_allclose(float(got["nll"]), float(nll), rtol=2e-5)
+        np.testing.assert_allclose(float(got["z"]), float(zl), rtol=2e-5)
+        assert float(got["count"]) == float(n)
+        for k, g in grads.items():
+            diff = float(np.abs(got[f"grad/{k}"] - g.numpy()).max())
+            assert diff <= 2e-4 * float(g.abs().max()), (k, diff)
 
 
 def test_zero_update_matches_unsharded(ranks):
