@@ -121,6 +121,22 @@ count their launches:
      to the unsharded run word for word; ``make_chains_mesh()`` is None
      on one card.
 
+Phase 38 runs right after 19:
+
+ 38. ``compiled_submit``: ``engine.submit(plan, compiled=True)`` (a CUDA
+     graph captured once per signature, then replayed) on MH ``cim`` and
+     ``fused`` at the main path's shape, Gibbs ``fused`` on ``ising``
+     1024 x 1024 x 4 and phase 19's one-rank ``nccl`` chains mesh: one
+     direct submit, three compiled ones (the third on another key, the
+     same signature) and a direct one on that key.  The ``jit_cache``
+     verdicts are ``miss, hit, hit``; every compiled result equals its
+     direct one bit for bit and the first two are unchanged after the
+     third; the kernel's launch count is the same on both paths; a replay
+     under the profiler makes one ``cudaGraphLaunch`` and no kernel-launch
+     call.  It prints the direct, capture and replay seconds, both busy
+     shares, the bytes the program holds, and the bytes left once the
+     engines are dropped.
+
 Phases 20-23 (tempering and serving) run between 19 and 12 as well:
 
  20. ``tempering_gibbs``: ``ReplicaExchange`` on the ``spin_glass``
@@ -153,7 +169,8 @@ Phases 24-28 (the autotuner, the CLIs, the serving mesh) run after 23:
  24. ``autotune_mh``: ``samplers.autotune_config`` on the MH main path
      (B = 64, V = 49,155, C = 256, ``fused``, ``execution="auto"``: scan
      and the kernel in the grid), with a fresh cache; each candidate's
-     rate and the tuner's seconds; a second call must hit the cache with
+     rate, the tuner's seconds and the device bytes left once its
+     engines (and their captured graphs) are gone; a second call must hit the cache with
      an equal config; the tuned engine's 1,024-step stream must equal the
      incumbent's;
  25. ``autotune_gibbs``: the same for ``ising`` 1024 x 1024 x 4 under
@@ -310,6 +327,7 @@ import atexit
 import collections
 import contextlib
 import dataclasses
+import gc
 import itertools
 import json
 import os
@@ -631,7 +649,7 @@ class Device(NamedTuple):
     self_device_time_total: float  # microseconds
 
 
-def traced(torch, run, match=None, launched=None, cpu=False, attempts=5):
+def traced(torch, run, match=None, launched=None, cpu=False, attempts=5, host_calls=None):
     """Profile ``run`` twice in one session, ``PAD_S`` of idle card after
     each: the first run (the lead) warms up and is left out, because the
     card's profiler has lost the first kernel of a session (PERF.md, Open
@@ -643,7 +661,9 @@ def traced(torch, run, match=None, launched=None, cpu=False, attempts=5):
     grew by in the second run: a session whose trace is short is recorded,
     with the launches whose kernels it lacks, and run again, at most
     ``attempts`` times in all; the script fails if none is complete or one
-    holds more kernels than were launched."""
+    holds more kernels than were launched.  ``host_calls``, a list, gets the
+    names of the second run's host events (runtime calls and, with
+    ``cpu``, PyTorch's operators) in the session kept."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
@@ -695,6 +715,8 @@ def traced(torch, run, match=None, launched=None, cpu=False, attempts=5):
         emit(phase="profiler_incomplete", **PROFILER["incomplete"][-1])
     check(device and found == want, f"{attempts} profiler sessions: {len(device)} device "
           f"events, {found} {match} for {want} launches in the last")
+    if host_calls is not None:
+        host_calls.extend(e.name() for e in host)
     return device, wall_ms
 
 
@@ -1810,6 +1832,105 @@ def main() -> int:
     del unsharded, sharded
     shutil.rmtree(ckpt_root, ignore_errors=True)
 
+    # 38. compiled_submit: submit(compiled=True) captures a CUDA graph once
+    # per signature and replays it after that
+    def compiled_case(case, eng, plan, other, kernel, match):
+        """One direct submit, then three compiled ones (the third on
+        another key: the same signature); a direct submit on that key."""
+        counter = (mh if kernel.startswith("mh") else gk).LAUNCHES
+
+        def timed(fn):
+            torch.cuda.synchronize()
+            n0 = counter[kernel]
+            t0 = time.perf_counter()
+            res = fn()
+            torch.cuda.synchronize()
+            return res, time.perf_counter() - t0, counter[kernel] - n0
+
+        direct, direct_s, direct_n = timed(lambda: eng.submit(plan).result)
+        tr = telemetry.enable()
+        runs = [timed(lambda p=p: eng.submit(p, compiled=True).result)
+                for p in (plan, plan, other)]
+        verdicts = [e.meta.get("jit_cache") for e in tr.events() if e.name == "engine.submit"]
+        telemetry.disable()
+        kept = [{f: getattr(r, f).clone() for f in fields} for r, _, _ in runs[:2]]
+        other_direct = eng.submit(other).result
+        check(verdicts == ["miss", "hit", "hit"], f"{case}: jit_cache verdicts {verdicts}")
+        check(all(same_result(r, direct) for r, _, _ in runs[:2]),
+              f"{case}: a compiled submit differs from the direct one")
+        check(same_result(runs[2][0], other_direct),
+              f"{case}: the replay on another key differs from the direct submit")
+        check(not torch.equal(runs[2][0].final_words, direct.final_words),
+              f"{case}: another key gave the same final words")
+        check(all(torch.equal(k[f], getattr(r, f)) for k, (r, _, _) in zip(kept, runs)
+                  for f in fields), f"{case}: a later replay changed a returned result")
+        check([n for _, _, n in runs] == [direct_n] * 3,
+              f"{case}: {kernel} counted {[n for _, _, n in runs]}, direct {direct_n}")
+        busy = {}
+        calls = []
+        for mode, fn, host in (("direct", lambda: eng.submit(plan), None),
+                               ("replay", lambda: eng.submit(plan, compiled=True), calls)):
+            # the CUDA runtime's calls only: with PyTorch's operators traced
+            # too, a direct cim run's trace matched 19 MH kernels to its 16
+            # launches
+            events, wall_ms = traced(torch, fn, match, lambda: counter[kernel],
+                                     host_calls=host)
+            busy[mode] = sum(e.self_device_time_total for e in events) / 1e3 / wall_ms
+        graph_launches = sum(n == "cudaGraphLaunch" for n in calls)
+        kernel_calls = sorted({n for n in calls if "Launch" in n and n != "cudaGraphLaunch"})
+        check(graph_launches == 1 and not kernel_calls,
+              f"{case}: a replay made {graph_launches} graph launches and {kernel_calls}")
+        ((sig, program),) = eng._compiled.items()
+        emit(phase="compiled_submit", case=case, verdicts=verdicts, bit_equal_direct=True,
+             first_results_unchanged=True, direct_s=direct_s, capture_s=runs[0][1],
+             replay_s=[runs[1][1], runs[2][1]], direct_busy_share=busy["direct"],
+             replay_busy_share=busy["replay"], launches_direct=direct_n,
+             launches_per_submit=[n for _, _, n in runs], replay_graph_launches=graph_launches,
+             replay_kernel_launch_calls=len(kernel_calls),
+             replay_memcpy_calls=sum(n == "cudaMemcpyAsync" for n in calls),
+             replay_syncs=sum("Synchronize" in n for n in calls), entry_bytes=program.nbytes,
+             signature={k: v for k, v in sig._asdict().items() if k not in ("target", "mesh")})
+        launches_by_path[f"compiled_submit_{case}"] = {kernel: direct_n}
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    held0 = torch.cuda.memory_allocated(dev)
+    mh_plan = samplers.RunPlan(target=samplers.TableTarget(logits), n_steps=N_STEPS,
+                               init_words=init, seed=SEED)
+    for randomness in ("cim", "fused"):
+        compiled_case(f"mh_{randomness}", samplers.MHEngine(
+            samplers.EngineConfig(randomness=randomness)), mh_plan,
+            mh_plan.replace(seed=SEED + 7), kernel_of[randomness], "mh_chain_kernel")
+    wl = workloads.build("ising", prng.PRNGKey(SEED, device=dev), randomness="fused",
+                         backend="pallas", beta=BETA, **main_kw)
+    g_plan = wl.plan(prng.PRNGKey(SEED + 1, device=dev))
+    compiled_case("gibbs_ising_fused", wl.engine, g_plan,
+                  g_plan.replace(key=prng.PRNGKey(SEED + 7, device=dev)), "gibbs_chain_fused",
+                  "gibbs_band_kernel")
+    del wl
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", world_size=1,
+                            rank=0, device_id=dev)
+    try:
+        mesh = DeviceMesh("cuda", [0], mesh_dim_names=("data",))
+        # a contiguous init: an expanded one is copied into the graph's input by a kernel
+        m_plan = samplers.RunPlan(target=samplers.TableTarget(logits), n_steps=256,
+                                  init_words=init.expand(4, B, C).contiguous(), seed=SEED,
+                                  mesh=mesh)
+        compiled_case("chains_mesh", samplers.MHEngine(samplers.EngineConfig(
+            randomness="fused", num_chains=4)), m_plan, m_plan.replace(seed=SEED + 7),
+            "mh_chain_fused", "mh_chain_kernel")
+    finally:
+        dist.destroy_process_group()
+    del mh_plan, g_plan, m_plan, mesh  # the plans hold their init words
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit(phase="compiled_submit_memory", allocated_before=held0,
+         allocated_after_engines_dropped=torch.cuda.memory_allocated(dev),
+         bytes_left=torch.cuda.memory_allocated(dev) - held0)
+
     # 20. tempering_gibbs: replica exchange on the full-width spin glass ---------
     from repro_torch import serving, tempering
     from repro_torch.workloads.spin_glass import SpinGlass, exhaustive_ground_state
@@ -2184,6 +2305,9 @@ def main() -> int:
         """``autotune_config`` twice on one cache (measured, then a hit);
         the tuned engine's stream against the incumbent's."""
         cache = str(scratch / f"{path}.json")
+        gc.collect()
+        torch.cuda.empty_cache()
+        held0 = torch.cuda.memory_allocated(dev)
         with path_run(path) as seen:
             t0 = time.perf_counter()
             tuned, res = samplers.autotune_config(cfg, target, init_words, cache_path=cache, **kw)
@@ -2191,6 +2315,12 @@ def main() -> int:
         launches = launches_by_path[path]
         check(launches[kernel] > 0, f"{path} launched no {kernel}")
         diff, err = hold_first(seen, kernel, path)
+        # each candidate's engine, and with it its captured graph, is gone
+        # once the recorded first launches are
+        del seen
+        gc.collect()
+        torch.cuda.empty_cache()
+        bytes_left = torch.cuda.memory_allocated(dev) - held0
         check(res.source == "measured", f"{path}: {res.source}")
         check(res.candidates[0][:3] == (cfg.chunk_steps, cfg.block_c, "pallas"),
               f"{path}: the incumbent is not candidate 0: {res.candidates[0]}")
@@ -2213,7 +2343,7 @@ def main() -> int:
              tuned_over_incumbent=res.steps_per_s / res.baseline_steps_per_s,
              tune_seconds=tune_s, cache_hit_seconds=hit_s, stream_n_steps=plan.n_steps,
              stream_collect=plan.collect or "all", tuned_stream_equals_incumbent=True,
-             tuner_kw=kw)
+             tuner_kw=kw, compiled_bytes_left=bytes_left)
         return res
 
     # 24. autotune_mh: the MH main path's table, fused, auto (scan and pallas)

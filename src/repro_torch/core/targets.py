@@ -56,8 +56,8 @@ def gray_to_binary(g) -> torch.Tensor:
 
 def _f32(value: float, device) -> torch.Tensor:
     """A Python float as JAX's weak type meets a float32 array: rounded
-    to float32 once."""
-    return torch.tensor(value, dtype=torch.float32, device=device)
+    to float32 once, filled in on ``device`` (no copy from the host)."""
+    return torch.full((), value, dtype=torch.float32, device=device)
 
 
 @dataclasses.dataclass(frozen=True)

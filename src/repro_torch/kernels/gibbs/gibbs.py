@@ -20,8 +20,13 @@ as any integer tensor and come out as int32, never widened here (the
 engine widens the rows it keeps).  ``plan_groups`` splits a batch into
 the groups one cooperative launch can hold and raises for a lattice too
 large for the card's shared memory (the per-lattice limit, the same for
-both entry points).  ``LAUNCHES`` counts kernel launches: one per lattice
-group of a call.
+both entry points).  ``LAUNCHES`` counts kernel launches, one per lattice
+group of a call: the kernel's runs on the card, on either path.  A direct
+run counts each launch from the host; a compiled submit's capture
+(``samplers/plan.py``) counts nothing, and each replay of its CUDA graph
+adds what the captured run launched.  The ready flags are zeroed by a
+``torch.zeros`` on every call, which a capture records as a device fill, so
+every replay starts from zeroed flags.
 """
 
 from __future__ import annotations

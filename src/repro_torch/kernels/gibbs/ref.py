@@ -85,8 +85,8 @@ class IsingLogit:
             ((torch.roll(s, 1, -2) + torch.roll(s, -1, -2)) + torch.roll(s, 1, -1))
             + torch.roll(s, -1, -1)
         )
-        beta = torch.tensor(self.beta, dtype=torch.float32, device=s.device)
-        field = torch.tensor(self.field, dtype=torch.float32, device=s.device)
+        beta = torch.full((), self.beta, dtype=torch.float32, device=s.device)
+        field = torch.full((), self.field, dtype=torch.float32, device=s.device)
         return _scaled(self.scale, 2.0 * (beta * nb + field))
 
 
@@ -116,7 +116,7 @@ class SpinGlassLogit:
             )
             + jd * torch.roll(s, -1, -2)
         ) + torch.roll(jd, 1, -2) * torch.roll(s, 1, -2)
-        field = torch.tensor(self.field, dtype=torch.float32, device=s.device)
+        field = torch.full((), self.field, dtype=torch.float32, device=s.device)
         return _scaled(self.scale, 2.0 * (nb + field))
 
 

@@ -12,7 +12,10 @@ fallback.
 Words are uint32 values held in int64 tensors, and the kernel reads and
 writes them so (the low 32 bits), so a wrapper call on the card is one
 kernel launch and nothing else.  ``LAUNCHES`` counts the kernel launches
-of each wrapper.  ``mh_chain``'s launch is the operator
+of each wrapper: the kernel's runs on the card, on either path.  A direct
+run counts each launch from the host; a compiled submit's capture
+(``samplers/plan.py``) counts nothing, and each replay of its CUDA graph
+adds what the captured run launched.  ``mh_chain``'s launch is the operator
 ``repro_torch::mh_chain`` (``torch.library``), so a dry run under fake
 tensors on the card reaches it through its fake implementation.
 """

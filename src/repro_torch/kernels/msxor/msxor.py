@@ -9,7 +9,9 @@ if the launch fails; for a CPU tensor it runs the plain version in
 
 Words are uint32 values held in int64 tensors, and the kernel reads them
 as they are (the low 32 bits of each); int32 bit patterns are accepted too
-and widened to int64 first.  ``LAUNCHES`` counts the kernel's launches.
+and widened to int64 first.  ``LAUNCHES`` counts the kernel's launches,
+and a compiled submit's replay adds what its captured run launched
+(``samplers/plan.py``), as for the MH and Gibbs kernels.
 """
 
 from __future__ import annotations

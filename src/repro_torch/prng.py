@@ -87,8 +87,8 @@ def uniform(
     floats = mant.to(torch.int32).view(torch.float32) - 1.0
     if minval == 0.0 and maxval == 1.0:  # u * 1 + 0 and max(0, u) are u
         return floats
-    lo = torch.tensor(minval, dtype=torch.float32, device=key.device)
-    hi = torch.tensor(maxval, dtype=torch.float32, device=key.device)
+    lo = torch.full((), minval, dtype=torch.float32, device=key.device)
+    hi = torch.full((), maxval, dtype=torch.float32, device=key.device)
     return torch.maximum(lo, _fma32(floats, hi - lo, lo))
 
 
@@ -123,7 +123,7 @@ def categorical(key: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
 
 def bernoulli(key: torch.Tensor, p: float, shape: tuple) -> torch.Tensor:
     """bool Bernoulli(p) of ``shape``: ``uniform < float32(p)``."""
-    p32 = torch.tensor(p, dtype=torch.float32, device=key.device)
+    p32 = torch.full((), p, dtype=torch.float32, device=key.device)
     return uniform(key, shape) < p32
 
 

@@ -549,8 +549,8 @@ def _gibbs_logp(target, words: torch.Tensor) -> torch.Tensor:
 
 def _acceptance_rate(acc: torch.Tensor, n_steps: int) -> torch.Tensor:
     total = np.float32(n_steps) * np.float32(max(1, acc.numel()))
-    return acc.sum().to(torch.float32) / torch.tensor(
-        total, dtype=torch.float32, device=acc.device
+    return acc.sum().to(torch.float32) / torch.full(
+        (), float(total), dtype=torch.float32, device=acc.device
     )
 
 
@@ -591,6 +591,9 @@ class MHEngine:
         self.config = config
         self.device = resolve_device(device)
         self._backend = config.backend()
+        # submit(compiled=True)'s programs by signature (samplers/plan.py):
+        # they live and die with the engine
+        self._compiled = {}
 
     @property
     def randomness(self) -> RandomnessBackend:
@@ -598,7 +601,9 @@ class MHEngine:
 
     def submit(self, plan, *, compiled: bool = False):
         """Run a validated ``RunPlan``; returns a re-submittable
-        ``RunHandle`` — the documented public entry."""
+        ``RunHandle`` — the documented public entry.  ``compiled=True``
+        captures the run as a CUDA graph once per signature and replays it
+        after that (``samplers/plan.py``)."""
         from repro_torch.samplers.plan import submit  # plan imports engine
 
         return submit(self, plan, compiled=compiled)

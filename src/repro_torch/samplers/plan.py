@@ -8,9 +8,11 @@ A ``RunPlan`` is one validated run spec: what to sample (``target``,
 ``RunHandle``, whose ``resume(n)`` continues the exact stream of one
 unsegmented run and whose ``save(directory)`` checkpoints that carry
 (``repro_torch.checkpoint``, the JAX package's on-disk format).  ``mesh``
-shards the chain axis (``samplers/engine.py``).  With telemetry on, every
-submit runs under an ``engine.submit`` span that times the host's side
-of the call: the span never waits for the card.
+shards the chain axis (``samplers/engine.py``).  ``submit(plan,
+compiled=True)`` is the JAX package's one-dispatch compiled entry: on the
+card the whole run is captured as a CUDA graph once per signature and
+replayed after that.  With telemetry on, every submit runs under an
+``engine.submit`` span that times the host's side of the call.
 """
 
 from __future__ import annotations
@@ -18,12 +20,15 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import json
-from typing import Any
+from typing import Any, NamedTuple
 
 import numpy as np
 import torch
 
 from repro_torch import prng, telemetry
+from repro_torch.kernels.gibbs import gibbs as gibbs_kernel
+from repro_torch.kernels.mh import mh as mh_kernel
+from repro_torch.kernels.msxor import msxor as msxor_kernel
 from repro_torch.samplers.engine import (
     EngineResult,
     MHEngine,
@@ -215,10 +220,206 @@ class RunHandle:
         return path
 
 
+# --- the one-dispatch compiled entry ---------------------------------------
+#
+# The JAX package jits ``engine.run`` with ``engine``, ``target``,
+# ``n_steps``, ``chain_id``, ``step0``, ``collect`` and ``mesh`` static (the
+# engine, target and mesh by identity) and traces anew on a new shape.  On
+# the card the counterpart of one such program is a CUDA graph: the whole
+# ``engine.run`` of one signature, its chunk loop and every kernel in it,
+# captured once and then replayed by one graph launch.  The programs live on
+# their engine (``MHEngine._compiled``) and die with it.  On the CPU there
+# is no graph: the cache keeps the signatures only, so the ``jit_cache``
+# verdicts are the card's.
+
+# the kernel launch counters a captured run moves
+_COUNTERS = (mh_kernel.LAUNCHES, gibbs_kernel.LAUNCHES, msxor_kernel.LAUNCHES)
+
+
+class Signature(NamedTuple):
+    """What one compiled program is specialised on: JAX's statics (the
+    target and mesh by identity) and the (shape, dtype) of each input as
+    the engine takes it, None where it is absent."""
+
+    target: int
+    mesh: int | None
+    n_steps: int
+    chain_id: int
+    step0: int
+    collect: str | None
+    key: tuple
+    init_words: tuple
+    init_logp: tuple | None
+
+
+@dataclasses.dataclass
+class _Program:
+    """One signature's program.  It holds its target and mesh, whose
+    tensors' addresses a graph bakes in, so that an ``id`` Python reuses
+    can never find it; on the card also the graph, its static inputs and
+    result, the kernel launches one run makes (``_COUNTERS``' order) and
+    the device bytes it holds."""
+
+    target: Any
+    mesh: Any
+    graph: Any = None
+    inputs: tuple = ()
+    result: EngineResult | None = None
+    launches: tuple = ()
+    nbytes: int = 0
+
+
+def _is_concrete_int(x) -> bool:
+    """A host int: a tensor ``step0`` takes the direct path, as a traced
+    one does in the JAX package."""
+    return isinstance(x, (int, np.integer))
+
+
+def _run(engine: MHEngine, plan: RunPlan, key, init_words, init_logp) -> EngineResult:
+    return engine.run(
+        key, plan.target, plan.n_steps, init_words, chain_id=plan.chain_id,
+        mesh=plan.mesh, step0=plan.step0, collect=plan.collect, init_logp=init_logp,
+    )
+
+
+def _inputs(plan: RunPlan) -> tuple:
+    """The key, init words and init log-probs as the engine takes them: a
+    tensor as it was given, anything else as a CPU tensor made here."""
+    key = plan.key if isinstance(plan.key, torch.Tensor) else plan.resolved_key("cpu")
+    words = plan.init_words
+    if not isinstance(words, torch.Tensor):
+        words = torch.from_numpy(np.asarray(words).astype(np.int64))
+    logp = plan.init_logp
+    if logp is not None and not isinstance(logp, torch.Tensor):
+        logp = torch.from_numpy(np.asarray(logp))
+    return key, words, logp
+
+
+def _signature(plan: RunPlan, inputs: tuple) -> Signature:
+    def layout(x):
+        return None if x is None else (tuple(x.shape), str(x.dtype).removeprefix("torch."))
+
+    key, words, logp = inputs
+    return Signature(
+        target=id(plan.target), mesh=None if plan.mesh is None else id(plan.mesh),
+        n_steps=int(plan.n_steps), chain_id=int(plan.chain_id), step0=int(plan.step0),
+        collect=plan.collect, key=layout(key), init_words=layout(words),
+        init_logp=layout(logp),
+    )
+
+
+def _launch_counts() -> tuple:
+    return tuple(dict(c) for c in _COUNTERS)
+
+
+def _add_launches(counts: tuple, sign: int = 1) -> None:
+    for counter, n in zip(_COUNTERS, counts):
+        for name, k in n.items():
+            counter[name] += sign * k
+
+
+def _stage(buffers: tuple, inputs: tuple) -> None:
+    """Copy a submit's inputs into a program's static buffers on the
+    current stream: a card's tensor by a device copy, a host tensor
+    through pinned memory, neither waiting for the card."""
+    for buf, x in zip(buffers, inputs):
+        if buf is not None:
+            buf.copy_(x.pin_memory() if x.device.type == "cpu" else x, non_blocking=True)
+
+
+def _capture(engine: MHEngine, plan: RunPlan, sig: Signature, inputs: tuple):
+    """A new signature's program and this submit's result.  On the card:
+    one warm-up run on a side stream (it builds the kernels and sets up
+    NCCL outside the capture, and its result is this submit's), then one
+    run captured into a CUDA graph over static input buffers.  The capture
+    launches nothing, so the launch counters are put back after it and the
+    program keeps what it counted, to add on every replay."""
+    program = _Program(target=plan.target, mesh=plan.mesh)
+    dev = engine.device
+    if dev.type != "cuda":
+        return program, _run(engine, plan, *inputs)
+    with torch.cuda.device(dev):
+        buffers = tuple(
+            None if x is None else torch.empty(x.shape, dtype=x.dtype, device=dev)
+            for x in inputs
+        )
+        _stage(buffers, inputs)
+        current = torch.cuda.current_stream(dev)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            result = _run(engine, plan, *buffers)
+        current.wait_stream(side)
+        for x in result:
+            if isinstance(x, torch.Tensor):
+                x.record_stream(current)
+        torch.cuda.empty_cache()  # as the capture does: its pool alone is counted
+        reserved = torch.cuda.memory_reserved(dev)
+        counts = _launch_counts()
+        graph = torch.cuda.CUDAGraph()
+        try:
+            # thread_local: NCCL's watchdog thread may query the card meanwhile
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                out = _run(engine, plan, *buffers)
+        except Exception as exc:
+            raise RuntimeError(
+                f"compiled submit {sig}: capturing engine.run as a CUDA graph "
+                f"(torch.cuda.graph) failed: {exc}"
+            ) from exc
+        finally:
+            captured = tuple(
+                {name: now[name] - before[name] for name in now}
+                for now, before in zip(_launch_counts(), counts)
+            )
+            _add_launches(captured, -1)
+        program.graph, program.inputs, program.result = graph, buffers, out
+        program.launches = captured
+        program.nbytes = torch.cuda.memory_reserved(dev) - reserved + sum(
+            x.numel() * x.element_size() for x in buffers if x is not None
+        )
+    return program, result
+
+
+def _replay(program: _Program, sig: Signature, inputs: tuple) -> EngineResult:
+    """Copy the inputs in, launch the graph on the current stream, and
+    return clones of its outputs: a later replay never changes a result
+    already handed out."""
+    with torch.cuda.device(program.inputs[1].device):
+        _stage(program.inputs, inputs)
+        try:
+            program.graph.replay()
+        except Exception as exc:
+            raise RuntimeError(
+                f"compiled submit {sig}: CUDAGraph.replay failed: {exc}"
+            ) from exc
+        _add_launches(program.launches)
+        return EngineResult(*(
+            x.clone() if isinstance(x, torch.Tensor) else x for x in program.result
+        ))
+
+
+def _submit_compiled(engine: MHEngine, plan: RunPlan) -> tuple[EngineResult, str]:
+    """The compiled entry: (result, ``"miss"`` when this submit captured,
+    ``"hit"`` when it reused a program).  A failed capture or replay
+    raises ``RuntimeError`` naming the signature: a card never runs a
+    compiled submit eagerly in its place."""
+    inputs = _inputs(plan)
+    sig = _signature(plan, inputs)
+    program = engine._compiled.get(sig)
+    if program is None:
+        program, result = _capture(engine, plan, sig, inputs)
+        engine._compiled[sig] = program
+        return result, "miss"
+    if program.graph is None:
+        return _run(engine, plan, *inputs), "hit"
+    return _replay(program, sig, inputs), "hit"
+
+
 def _submit_span(engine: MHEngine, plan: RunPlan, compiled: bool):
-    """The ``engine.submit`` telemetry span, with the JAX span's metadata
-    (no ``jit_cache``: the port has no jitted dispatcher).  It times the
-    host's side of the submit: kernels are queued, not waited for."""
+    """The ``engine.submit`` telemetry span, with the JAX span's metadata;
+    a compiled submit adds ``jit_cache``.  It times the host's side of the
+    submit: kernels are queued, not waited for (a miss waits, as a JAX
+    compile does)."""
     cfg = engine.config
     return telemetry.span(
         "engine.submit",
@@ -236,11 +437,14 @@ def _submit_span(engine: MHEngine, plan: RunPlan, compiled: bool):
 def submit(engine: MHEngine, plan: RunPlan, *, compiled: bool = False) -> RunHandle:
     """Run ``plan`` on ``engine``; the function behind ``MHEngine.submit``.
 
-    PyTorch runs eagerly and has no counterpart of the JAX package's
-    jitted dispatcher, so ``compiled=True`` runs the same path as the
-    default and is accepted for the JAX signature.  With telemetry on the
-    call runs under an ``engine.submit`` span; the sampled stream is the
-    same with telemetry on or off.
+    ``compiled=True`` routes through the cached compiled entry above (one
+    graph launch a submit once its signature is captured; on the CPU the
+    direct path).  A tensor ``step0`` always takes the direct path, as a
+    traced offset does in the JAX package.  With telemetry on the call
+    runs under an ``engine.submit`` span whose ``jit_cache`` records, on
+    the compiled path, whether this submit captured (``"miss"``) or
+    replayed (``"hit"``); the sampled stream is the same with telemetry on
+    or off.
     """
     if not isinstance(plan, RunPlan):
         raise TypeError(
@@ -248,10 +452,13 @@ def submit(engine: MHEngine, plan: RunPlan, *, compiled: bool = False) -> RunHan
             "with samplers.RunPlan(target=..., n_steps=..., init_words=..., "
             "seed=...)"
         )
-    with _submit_span(engine, plan, compiled):  # a shared no-op while telemetry is off
-        result = engine.run(
-            plan.resolved_key(engine.device), plan.target, plan.n_steps,
-            plan.init_words, chain_id=plan.chain_id, mesh=plan.mesh,
-            step0=plan.step0, collect=plan.collect, init_logp=plan.init_logp,
-        )
+    with _submit_span(engine, plan, compiled) as span:  # a shared no-op while telemetry is off
+        if compiled and _is_concrete_int(plan.step0):
+            result, verdict = _submit_compiled(engine, plan)
+            span.set(jit_cache=verdict)
+        else:
+            result = _run(
+                engine, plan, plan.resolved_key(engine.device), plan.init_words,
+                plan.init_logp,
+            )
     return RunHandle(plan=plan, result=result, engine=engine)

@@ -31,10 +31,11 @@ outdated state.  (Resizing the tensor's storage to zero would free it
 too, but a read of such a tensor is not checked: ``x + 1`` on it crashed
 the process under torch 2.13 on the CPU.)
 
-``jit_cache_size`` has no torch meaning: the port compiles nothing per
-segment signature (the CUDA kernels are built once per source hash).
-Here it counts the distinct ``(seg, collect)`` signatures an advance
-function has run, the programs the JAX package compiles for them.
+``jit_cache_size`` counts the distinct ``(seg, collect)`` signatures an
+advance function has run: the programs the JAX package compiles for
+them.  The port's advance functions run eagerly; the port's compiled
+programs are ``submit(compiled=True)``'s CUDA graphs, one a signature
+(``samplers/plan.py``), and no advance function is captured yet.
 """
 
 from __future__ import annotations

@@ -34,7 +34,8 @@ Retirement copies are issued right behind their own segment
 deferred finalize waits for that segment only, never for the kernels
 queued after it.  ``advance_compiles`` counts the distinct advance
 signatures (``dispatch.jit_cache_size``): the programs the JAX package
-compiles; the port compiles nothing at run time.
+compiles.  The port runs its advances eagerly: only
+``submit(compiled=True)`` captures a program (a CUDA graph).
 """
 
 from __future__ import annotations

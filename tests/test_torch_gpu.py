@@ -568,6 +568,143 @@ def test_one_rank_nccl_mesh(cuda, update):
         dist.destroy_process_group()
 
 
+# --- the compiled entry: submit(compiled=True) as a CUDA graph ------------------
+
+RESULT_FIELDS = ("samples", "accept_count", "final_words", "final_logp", "acceptance_rate")
+
+
+def _compiled_case(cuda, path):
+    """(engine, plan, plan on another key and init) for one path of the
+    compiled entry, at sizes that take milliseconds."""
+    rs = np.random.default_rng(21)
+    if path.startswith("gibbs"):
+        _, randomness, backend = path.split("_")
+        wl = workloads.build("ising", prng.PRNGKey(3, device=cuda), randomness=randomness,
+                             backend=backend, height=32, width=32, batch=2, n_steps=40,
+                             chunk_steps=16, collect="thin:3")
+        plan = wl.plan(prng.PRNGKey(4, device=cuda))
+        other = torch.from_numpy(rs.integers(0, 2, size=(2, 32, 32))).to(cuda)
+        return wl.engine, plan, plan.replace(key=prng.PRNGKey(5, device=cuda), init_words=other)
+    randomness, execution, chains = path.split("_")
+    chains = int(chains[-1])
+    table = torch.from_numpy((rs.normal(size=(4, 700)) * 2).astype(np.float32)).to(cuda)
+    target = samplers.TableTarget(table)
+    lead = (chains,) if chains > 1 else ()
+    init, other = (torch.from_numpy(rs.integers(0, 700, size=(*lead, 4, 64))).to(cuda)
+                   for _ in range(2))
+    eng = samplers.MHEngine(samplers.EngineConfig(randomness=randomness, execution=execution,
+                                                  num_chains=chains, chunk_steps=16))
+    plan = samplers.RunPlan(target=target, n_steps=50, init_words=init, seed=8, step0=5,
+                            collect="thin:4")
+    if execution == "scan" and chains == 1:
+        plan = plan.replace(init_logp=target.log_prob(init))
+        return eng, plan, plan.replace(seed=9, init_words=other,
+                                       init_logp=target.log_prob(other))
+    return eng, plan, plan.replace(seed=9, init_words=other)
+
+
+COMPILED_PATHS = ["host_pallas_c1", "cim_pallas_c1", "fused_pallas_c1", "cim_scan_c1",
+                  "fused_scan_c1", "fused_pallas_c2", "cim_pallas_c2", "gibbs_fused_pallas",
+                  "gibbs_cim_pallas", "gibbs_fused_scan"]
+
+
+def _launches():
+    return {**mh.LAUNCHES, **gk.LAUNCHES}
+
+
+@pytest.mark.parametrize("path", COMPILED_PATHS)
+def test_compiled_replay_equals_direct(cuda, path):
+    """A replay equals the direct path bit for bit, and the kernels'
+    launch counters grow by the same counts on both paths."""
+    eng, plan, _ = _compiled_case(cuda, path)
+    mh.reset_launches()
+    gk.reset_launches()
+    direct = eng.submit(plan).result
+    counts = _launches()
+    for _ in range(3):  # the capture, then two replays
+        mh.reset_launches()
+        gk.reset_launches()
+        got = eng.submit(plan, compiled=True).result
+        torch.cuda.synchronize()
+        assert _launches() == counts
+        for f in RESULT_FIELDS:
+            assert torch.equal(getattr(got, f), getattr(direct, f)), f
+    (program,) = eng._compiled.values()
+    assert program.graph is not None and program.nbytes > 0
+
+
+@pytest.mark.parametrize("path", ["cim_pallas_c1", "fused_pallas_c2", "gibbs_fused_pallas"])
+def test_compiled_result_survives_later_replays(cuda, path):
+    """Submit 1's result is the caller's own: a later replay on other
+    inputs (another key and init, the same signature) changes nothing in
+    it, and that replay equals its own direct run."""
+    eng, plan, other = _compiled_case(cuda, path)
+    first = eng.submit(plan, compiled=True).result  # the capture
+    second = eng.submit(plan, compiled=True).result  # a replay
+    kept = [{f: getattr(r, f).clone() for f in RESULT_FIELDS} for r in (first, second)]
+    third = eng.submit(other, compiled=True).result
+    torch.cuda.synchronize()
+    assert len(eng._compiled) == 1
+    for k, r in zip(kept, (first, second)):
+        for f in RESULT_FIELDS:
+            assert torch.equal(k[f], getattr(r, f)), f
+    assert not torch.equal(third.final_words, first.final_words)
+    want = eng.submit(other).result
+    for f in RESULT_FIELDS:
+        assert torch.equal(getattr(third, f), getattr(want, f)), f
+
+
+def test_dropped_engine_frees_its_graphs(cuda):
+    """The programs live on their engine: once it (and every handle that
+    holds it) is dropped, its graphs and their pools are gone."""
+    import gc
+    import weakref
+
+    eng, plan, _ = _compiled_case(cuda, "cim_pallas_c1")
+    eng.submit(plan)  # builds the kernels first
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()  # also ends frees that wait on stream events
+    before = torch.cuda.memory_allocated(cuda)
+    handles = [eng.submit(plan, compiled=True) for _ in range(2)]
+    (program,) = eng._compiled.values()
+    graph = weakref.ref(program.graph)
+    assert torch.cuda.memory_allocated(cuda) > before
+    del eng, handles, program
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    assert graph() is None
+    assert torch.cuda.memory_allocated(cuda) == before
+
+
+def test_compiled_submit_on_one_rank_nccl_mesh(cuda):
+    """The chains axis sharded over a one-rank ``nccl`` mesh: the
+    all-gather is captured with the chunk loop, and replays equal the
+    unsharded direct run."""
+    import socket
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", world_size=1,
+                            rank=0, device_id=cuda)
+    try:
+        mesh = DeviceMesh("cuda", [0], mesh_dim_names=("data",))
+        eng, plan, _ = _compiled_case(cuda, "fused_pallas_c2")
+        direct = eng.submit(plan).result
+        for _ in range(3):
+            got = eng.submit(plan.replace(mesh=mesh), compiled=True).result
+            for f in RESULT_FIELDS:
+                assert torch.equal(getattr(got, f), getattr(direct, f)), f
+        assert len(eng._compiled) == 1
+    finally:
+        dist.destroy_process_group()
+
+
 @pytest.mark.parametrize("spin_glass", [False, True])
 @pytest.mark.parametrize("scale", [0.37, 2.5])
 def test_scaled_gibbs_kernels_match_plain(cuda, spin_glass, scale):
@@ -1113,3 +1250,23 @@ def test_compressed_step_on_one_rank(cuda):
             torch.cuda.synchronize()
     assert mh.LAUNCHES["mh_chain"] == 1
     assert tuple(tokens.shape) == (4, 1) and bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all())
+
+
+def test_compiled_capture_failure_raises(cuda):
+    """No eager fallback on a card: a target whose log-prob reads the card
+    from the host cannot be captured, and the submit raises naming the
+    signature and the failing call."""
+    table = torch.randn(2, 64, device=cuda)
+
+    def host_read(words):
+        if float(words.float().mean()) < -1:  # a host read of a device value
+            raise AssertionError
+        return torch.gather(table, 1, words)
+
+    target = samplers.CallableTarget(host_read, nbits=6)
+    eng = samplers.MHEngine(samplers.EngineConfig(randomness="fused", execution="scan"))
+    plan = samplers.RunPlan(target=target, n_steps=4, init_words=np.zeros((2, 3), np.int64),
+                            seed=1)
+    with pytest.raises(RuntimeError, match=r"Signature\(.*torch\.cuda\.graph"):
+        eng.submit(plan, compiled=True)
+    assert not eng._compiled
