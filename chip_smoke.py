@@ -488,6 +488,11 @@ VLM_ARCH, AUDIO_ARCH = "phi3_vision_4p2b", "whisper_large_v3"
 AUDIO_CHECK_SEED = 3
 AUDIO_F64_TOL = 1e-6
 VLM_MAX_LEN = 576 + (LLM_PROMPT + 2) + LLM_GEN + 8
+# phase 39: each server of phases 29-34 serves CS_REQUESTS requests of
+# CS_GEN tokens on LLM_SLOTS slots (CS_GEN steps, the slots refilled, then
+# CS_GEN more), every step held against its eager twin; then CS_TIMED
+# replayed decodes, samples and steps are timed
+CS_REQUESTS, CS_GEN, CS_TIMED = 2 * LLM_SLOTS, 4, 8
 # phase 35: launch/train.py:main on hymba-1.5b at full width and depth
 # (bfloat16, Markov data), then make_decode_sample_step on its weights; the
 # cut (2 layers, float32) trains TRAIN_CHECK_STEPS AdamW steps on the card,
@@ -949,6 +954,7 @@ def main() -> int:
     dry_dir = ROOT / "build" / "chip_smoke_dryrun"
     dry_children = start_dryrun_children(dry_dir)
     dry_refs = {}  # what phases 29 and 35 measured, for phase 37 (b)
+    burst_tokens_per_s = {}  # phases 29-34's mcmc bursts, for phase 39
 
     # 2. cipher ----------------------------------------------------------
     kat = [
@@ -2492,6 +2498,7 @@ def main() -> int:
         """Phase 29; its names stay out of the phases after it."""
         t_phase = time.perf_counter()
         from repro_torch import configs as llm_configs
+        from repro_torch.core import token_sampler as llm_ts
         from repro_torch.launch import serve as cli_llm
         from repro_torch.models import lm as llm
 
@@ -2502,6 +2509,9 @@ def main() -> int:
         for sampler in ("mcmc", "greedy", "categorical"):
             path = f"serve_lm_{sampler}"
             torch.cuda.empty_cache()
+            # each path captures its own sampler programs: a replay of one
+            # captured before calls no launch wrapper to record
+            llm_ts.clear_cache()
             with path_run(path) as seen:
                 t0 = time.perf_counter()
                 row = cli_llm.main([*llm_argv, "--sampler", sampler])
@@ -2525,6 +2535,8 @@ def main() -> int:
                 record.update(first_launch_mismatches=diff, max_abs_err=err)
                 check(0.0 < row["acceptance"] < 1.0, f"{path}: acceptance {row['acceptance']}")
             llm_rows[sampler] = row
+            if sampler == "mcmc":
+                burst_tokens_per_s[LLM_ARCH] = row["tokens_per_s"]
             emit(**record)
             del seen
 
@@ -2709,12 +2721,17 @@ def main() -> int:
     @contextlib.contextmanager
     def recorded_routes(llm_moe, routes):
         """Keep each MoE layer's chosen experts (on their device) in
-        ``routes`` while a run goes; restores the router on exit."""
+        ``routes`` while a run goes; restores the router on exit.  A decode
+        program's capture records nothing (its tensors are the graph's,
+        which every replay overwrites), and a replay runs no Python: a
+        served burst records its prefills and each server's first, eager,
+        decode step (phase 39 records every step's experts eagerly)."""
         real = llm_moe.route
 
         def route(*args, **kw):
             out = real(*args, **kw)
-            routes.append(out[1])
+            if not torch.cuda.is_current_stream_capturing():
+                routes.append(out[1])
             return out
 
         llm_moe.route = route
@@ -2727,8 +2744,11 @@ def main() -> int:
     def served_calls(cli_llm, llm, timers, info):
         """Time every prefill, decode step and sample of a burst, each
         between two synchronisations (``timers``, ms), and note the served
-        model's and cache's bytes once (``info``).  Restores all on exit."""
-        real = (llm.prefill, llm.decode_step, cli_llm.BatchedServer._sample)
+        model's and cache's bytes once (``info``).  A decode step is the
+        server's ``_decode`` (its compiled program: the capture on the
+        first step, a replay after; a synchronisation inside
+        ``lm.decode_step`` would fail the capture).  Restores all on exit."""
+        real = (llm.prefill, cli_llm.BatchedServer._decode, cli_llm.BatchedServer._sample)
 
         def timed(fn, key):
             def run(*args, **kw):
@@ -2765,12 +2785,13 @@ def main() -> int:
                     cross_cache_bytes=nbytes(cross_leaves))
             return timed_sample(server, logits)
 
-        llm.prefill, llm.decode_step = timed(real[0], "prefill"), timed(real[1], "model")
+        llm.prefill, cli_llm.BatchedServer._decode = (timed(real[0], "prefill"),
+                                                      timed(real[1], "model"))
         cli_llm.BatchedServer._sample = sample
         try:
             yield
         finally:
-            llm.prefill, llm.decode_step, cli_llm.BatchedServer._sample = real
+            llm.prefill, cli_llm.BatchedServer._decode, cli_llm.BatchedServer._sample = real
 
     def served_burst(cli_llm, fcfg, sampler, max_len):
         """``launch/serve.py:main``'s burst through a ``BatchedServer`` of the
@@ -2824,6 +2845,7 @@ def main() -> int:
 
         t_phase = time.perf_counter()
         from repro_torch import configs as llm_configs
+        from repro_torch.core import token_sampler as llm_ts
         from repro_torch.launch import serve as cli_llm
         from repro_torch.models import lm as llm
         from repro_torch.models import moe as llm_moe
@@ -2859,6 +2881,7 @@ def main() -> int:
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
             timers, routes, info = {"prefill": [], "model": [], "sample": []}, [], {}
+            llm_ts.clear_cache()  # the path captures its own sampler programs
             with served_calls(cli_llm, llm, timers, info), recorded_routes(llm_moe, routes), \
                     path_run(path) as seen:
                 t0 = time.perf_counter()
@@ -2919,8 +2942,9 @@ def main() -> int:
                             if per_call[i][0] > 1]
                 steps = [per_call[i:i + n_layers] for i in range(0, len(per_call), n_layers)
                          if per_call[i][0] == 1]
-                check(len(prefills) == LLM_REQUESTS and len(steps) == row["decode_steps"]
-                      and len(per_call) == n_layers * (LLM_REQUESTS + row["decode_steps"]),
+                # one eager decode step a burst: the decode program's warm-up
+                check(len(prefills) == LLM_REQUESTS and len(steps) == 1
+                      and len(per_call) == n_layers * (LLM_REQUESTS + 1),
                       f"{path}: {len(per_call)} routed layers")
                 expert_bytes = 3 * fcfg.d_model * fcfg.d_ff * fcfg.param_dtype.itemsize
                 used_bound = [(step_bytes - expert_bytes * sum(e - u for _, _, u in st))
@@ -2930,6 +2954,7 @@ def main() -> int:
                     prefill_capacity_drops=[[sum(d for _, d, _ in pf), pf[0][0] * k * n_layers]
                                             for pf in prefills],
                     prefill_capacity=llm_moe.capacity(LLM_PROMPT, e, k, fcfg.moe_capacity_factor),
+                    decode_steps_routed=len(steps),
                     decode_capacity_drops=sum(d for st in steps for _, d, _ in st),
                     decode_distinct_experts_per_layer_mean=distinct,
                     decode_distinct_experts_per_layer_max=max(u for st in steps
@@ -2938,6 +2963,7 @@ def main() -> int:
                     decode_step_used_experts_bound_ms_range=[min(used_bound), max(used_bound)])
                 check(record["decode_capacity_drops"] == 0, f"{path}: a decode step dropped")
             if sampler == "mcmc":  # the first launch is also timed in 12
+                burst_tokens_per_s[arch] = row["tokens_per_s"]
                 check("mh_chain" in seen, f"{path} launched no mh_chain")
                 args, kw = seen["mh_chain"]
                 diff, err, _ = hold("mh_chain", f"{path} first launch", from_launch(args), kw)
@@ -3154,6 +3180,7 @@ def main() -> int:
 
         t_phase = time.perf_counter()
         from repro_torch import configs as llm_configs
+        from repro_torch.core import token_sampler as llm_ts
         from repro_torch.launch import train as cli_train
         from repro_torch.models import lm as llm
         from repro_torch.optim import adamw as llm_adamw
@@ -3242,6 +3269,7 @@ def main() -> int:
         cache = llm.init_cache(tcfg, b_, plen + 8, dev)
         _, cache = llm.prefill(model, tcfg, {"tokens": prompt}, cache)
         decode_sample = llm_step.make_decode_sample_step(tcfg)
+        llm_ts.clear_cache()  # the sample is captured here, its first launch recorded
         with path_run("train_lm") as seen:
             tokens_, cache, acc = decode_sample(model, prompt[:, -1:], cache,
                                                 prng.PRNGKey(SEED, device=dev))
@@ -3349,6 +3377,7 @@ def main() -> int:
         from torch.distributed.tensor import DTensor
 
         from repro_torch import configs as llm_configs
+        from repro_torch.core import token_sampler as llm_ts
         from repro_torch.distributed import compression
         from repro_torch.distributed import sharding as llm_sharding
         from repro_torch.models import lm as llm
@@ -3457,6 +3486,10 @@ def main() -> int:
                 cache = llm.init_cache(tcfg, b_, plen + 8, dev)
                 _, cache = llm.prefill(model, tcfg, {"tokens": prompt}, cache)
                 decode_sample = llm_step.make_decode_sample_step(tcfg)
+                # phase 35 captured this signature's sampler: capture it
+                # again here, under the mesh, so that its first launch is
+                # recorded
+                llm_ts.clear_cache()
                 with path_run("mesh_lm") as seen:
                     tokens_, cache, acc = decode_sample(model, prompt[:, -1:], cache,
                                                         prng.PRNGKey(SEED, device=dev))
@@ -3690,6 +3723,229 @@ def main() -> int:
     # 33-34. the VLM and audio families ----------------------------------------
     serve_family_phase("serve_lm_vlm", VLM_ARCH, ("mcmc", "greedy"), max_len=VLM_MAX_LEN)
     serve_family_phase("serve_lm_audio", AUDIO_ARCH, ("mcmc", "greedy"))
+
+    # 39. compiled_serve: the server's decode and sampler programs ---------------
+    def compiled_serve_case(arch, max_len):
+        """One full-width server (qwen3-moe at its DEPTH_CUTS depth) serving
+        CS_REQUESTS requests of CS_GEN tokens on LLM_SLOTS slots through its
+        decode program and the sampler's programs: every step (the slots
+        refilled halfway) is held at tolerance 0 against eager calls of
+        ``lm.decode_step`` and the sampler on clones of the state before
+        it, and every sample against the eager sampler on its logits;
+        then the replayed and eager steps are timed and traced."""
+        import gc
+
+        from repro_torch import compiled as llm_compiled
+        from repro_torch import configs as llm_configs
+        from repro_torch.core import token_sampler as llm_ts
+        from repro_torch.launch import serve as cli_llm
+        from repro_torch.models import lm as llm
+        from repro_torch.models import moe as llm_moe
+
+        t_case = time.perf_counter()
+        with depth_cut(arch):
+            fcfg = llm_configs.get_config(arch)
+        gc.collect()
+        torch.cuda.empty_cache()
+        llm_ts.clear_cache()
+        server = cli_llm.BatchedServer(fcfg, cli_llm.ServeConfig(
+            n_slots=LLM_SLOTS, max_len=max_len, gen_tokens=CS_GEN, sampler="mcmc"), device=dev)
+        scfg, model, v = server.sampler_cfg, server.model, fcfg.vocab_size
+        captures = []
+        real_capture = llm_compiled.capture
+
+        def capture(fn, inputs, device, what, *args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real_capture(fn, inputs, device, what, *args, **kw)
+            torch.cuda.synchronize()
+            captures.append((what.split("(")[0].strip(), time.perf_counter() - t0))
+            return out
+
+        samples, decoded = [], []
+        real_sample, real_decode = server._sample, server._decode
+
+        def sample(logits):  # each sample's key, logits, tokens and acceptance
+            key = server.key
+            tokens = real_sample(logits)
+            # a clone: the step keeps these tokens as last_tokens, into
+            # which a later admission writes its first token
+            samples.append((key, logits, tokens.clone(), server.acceptance[-1]))
+            return tokens
+
+        def decode():
+            decoded.append(real_decode())
+            return decoded[-1]
+
+        def eager_sample(key, logits):
+            engine = samplers.MHEngine(scfg.engine_config(), device=dev)
+            return llm_ts._sample(engine, scfg, prng.split(key)[1], logits[:, :v], None)
+
+        def leaves_of(cache_layers):
+            out = []
+            llm.tree_map(out.append, cache_layers)
+            return out
+
+        server._sample, server._decode = sample, decode
+        rs = np.random.default_rng(SEED)
+        queue = [cli_llm.Request(rid=rid, prompt=rs.integers(0, v, size=LLM_PROMPT + rid % 3))
+                 for rid in range(CS_REQUESTS)]
+        step_ms, eager_model_ms, eager_sample_ms, routes, n_steps = [], [], [], [], 0
+        llm_compiled.capture = capture
+        try:
+            with torch.inference_mode():
+                while queue or server.active():
+                    while queue and server.free_slot() is not None:
+                        server.submit(server.free_slot(), queue.pop(0))
+                    leaves = leaves_of(server.cache["layers"])
+                    state = ([x.clone() for x in leaves], server.cache["index"].clone(),
+                             server.last_tokens.clone(), server.key)
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    server.step()
+                    torch.cuda.synchronize()
+                    step_ms.append((time.perf_counter() - t0) * 1e3)
+                    n_steps += 1
+                    # the same step eagerly on the clones
+                    clones, index, tokens, key = state
+                    layers = llm.tree_map(lambda _: clones.pop(0), server.cache["layers"])
+                    with recorded_routes(llm_moe, routes):
+                        t0 = time.perf_counter()
+                        logits_e, cache_e = llm.decode_step(model, fcfg, tokens,
+                                                            {"index": index, "layers": layers})
+                        torch.cuda.synchronize()
+                    t1 = time.perf_counter()
+                    res_e = eager_sample(key, logits_e)
+                    torch.cuda.synchronize()
+                    eager_model_ms.append((t1 - t0) * 1e3)
+                    eager_sample_ms.append((time.perf_counter() - t1) * 1e3)
+                    where = f"compiled_serve {arch} step {n_steps}"
+                    check(torch.equal(decoded[-1], logits_e), f"{where}: logits differ")
+                    check(all(map(torch.equal, leaves_of(server.cache["layers"]),
+                                  leaves_of(layers))), f"{where}: the cache layers differ")
+                    check(torch.equal(server.cache["index"], cache_e["index"]),
+                          f"{where}: the index differs")
+                    check(torch.equal(server.last_tokens[:, 0], res_e.tokens)
+                          and server.acceptance[-1] == float(res_e.acceptance_rate),
+                          f"{where}: the sample differs")
+                    del state, clones, layers, cache_e, logits_e
+            with torch.inference_mode():
+                for key, logits, tokens, acceptance in samples:
+                    res_e = eager_sample(key, logits)
+                    check(torch.equal(tokens, res_e.tokens)
+                          and acceptance == float(res_e.acceptance_rate),
+                          f"compiled_serve {arch}: a sample (B = {len(tokens)}) differs")
+        finally:
+            llm_compiled.capture = real_capture
+        check(n_steps >= 8 and len(server._programs) == 1 and llm_ts.cache_size() == 2,
+              f"compiled_serve {arch}: {n_steps} steps, {len(server._programs)} decode and "
+              f"{llm_ts.cache_size()} sampler programs")
+        # timed: the replayed programs and whole steps (the slots idle: a
+        # step decodes and samples every row whatever its state), no
+        # model or sampler call from the host meanwhile
+        del server._sample, server._decode  # the class's methods again
+        host_calls = {"decode_step": 0, "sample_tokens": 0}
+        real_model, real_chain = llm.decode_step, samplers.MHEngine.sample_tokens
+
+        def counted(fn, name):
+            def run(*args, **kw):
+                host_calls[name] += 1
+                return fn(*args, **kw)
+            return run
+
+        def timed(fn):
+            out = []
+            for _ in range(CS_TIMED):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                out.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        llm.decode_step = counted(real_model, "decode_step")
+        samplers.MHEngine.sample_tokens = counted(real_chain, "sample_tokens")
+        try:
+            with torch.inference_mode():
+                replay_model_ms = timed(server._decode)
+                logits = server._decode()
+                replay_sample_ms = timed(lambda: server._sample(logits))
+                replay_step_ms = timed(server.step)
+                calls = []
+                events, wall_ms = traced(torch, server.step, "mh_chain_kernel",
+                                         lambda: mh.LAUNCHES["mh_chain"], host_calls=calls)
+        finally:
+            llm.decode_step, samplers.MHEngine.sample_tokens = real_model, real_chain
+        check(host_calls == {"decode_step": 0, "sample_tokens": 0},
+              f"compiled_serve {arch}: a replayed step called {host_calls} from the host")
+        graph_launches = sum(n == "cudaGraphLaunch" for n in calls)
+        kernel_calls = sum("Launch" in n and n != "cudaGraphLaunch" for n in calls)
+        check(graph_launches == 2, f"compiled_serve {arch}: a step made {graph_launches} graph "
+              f"launches")
+        # the eager step on the server's state, traced too
+        with torch.inference_mode():
+            eager_calls = []
+            state = {"index": server.cache["index"].clone(),
+                     "layers": llm.tree_map(torch.clone, server.cache["layers"])}
+
+            def eager_step():
+                logits_, _ = llm.decode_step(model, fcfg, server.last_tokens, dict(state))
+                eager_sample(server.key, logits_)
+
+            eager_events, eager_wall_ms = traced(torch, eager_step, "mh_chain_kernel",
+                                                 lambda: mh.LAUNCHES["mh_chain"],
+                                                 host_calls=eager_calls)
+            del state
+        busy = sum(e.self_device_time_total for e in events) / 1e3
+        eager_busy = sum(e.self_device_time_total for e in eager_events) / 1e3
+        (decode_program,) = server._programs.values()
+        record = dict(
+            phase="compiled_serve", arch=arch, layers=fcfg.n_layers, d_model=fcfg.d_model,
+            vocab=v, max_len=max_len, requests=CS_REQUESTS, gen=CS_GEN, steps=n_steps,
+            bit_equal_eager=True, samples_checked=len(samples),
+            step_ms=step_ms, step_ms_replayed_median=float(np.median(step_ms[1:])),
+            eager_model_ms_median=float(np.median(eager_model_ms)),
+            eager_sample_ms_median=float(np.median(eager_sample_ms)),
+            replay_model_ms_median=float(np.median(replay_model_ms)),
+            replay_sample_ms_median=float(np.median(replay_sample_ms)),
+            replay_step_ms_median=float(np.median(replay_step_ms)),
+            replay_step_ms_range=[min(replay_step_ms), max(replay_step_ms)],
+            traced_step_wall_ms=wall_ms, traced_step_busy_ms=busy,
+            traced_step_busy_share=busy / wall_ms,
+            traced_eager_step_wall_ms=eager_wall_ms, traced_eager_step_busy_ms=eager_busy,
+            traced_eager_step_busy_share=eager_busy / eager_wall_ms,
+            step_graph_launches=graph_launches, step_kernel_launch_calls=kernel_calls,
+            eager_step_kernel_launch_calls=sum("Launch" in n for n in eager_calls),
+            step_memcpy_calls=sum("Memcpy" in n for n in calls),
+            capture_s=captures, decode_program_bytes=decode_program.nbytes,
+            sampler_program_bytes={str(sig.logits[0]): p.nbytes
+                                   for sig, p in llm_ts._PROGRAMS.items()},
+            sampler_program_mh_chain=[p.launches[0]["mh_chain"]
+                                      for p in llm_ts._PROGRAMS.values()],
+            burst_tokens_per_s=burst_tokens_per_s.get(arch),
+            case_s=time.perf_counter() - t_case)
+        if fcfg.family == "moe":  # each step's experts, from its eager twin
+            e = fcfg.n_experts
+            ids = torch.arange(e, device=dev)
+            per_step = [routes[i:i + fcfg.n_layers] for i in range(0, len(routes), fcfg.n_layers)]
+            check(len(per_step) == n_steps, f"compiled_serve {arch}: {len(routes)} routed layers")
+            distinct = [[int(((x.reshape(x.shape[0], -1)[..., None] == ids).sum((0, 1)) > 0)
+                              .sum()) for x in st] for st in per_step]
+            record.update(decode_distinct_experts_per_layer_mean=[float(np.mean(d))
+                                                                  for d in distinct],
+                          decode_distinct_experts_per_layer_max=max(max(d) for d in distinct))
+        emit(**record)
+        del server, model, logits, samples, decoded, routes
+        llm_ts.clear_cache()
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    t_phase = time.perf_counter()
+    for arch_, max_len_ in ((LLM_ARCH, LLM_MAX_LEN), *((a, LLM_MAX_LEN) for _, a, _ in
+                                                       FAMILY_PHASES),
+                            (VLM_ARCH, VLM_MAX_LEN), (AUDIO_ARCH, LLM_MAX_LEN)):
+        compiled_serve_case(arch_, max_len_)
+    emit(phase="compiled_serve_total", seconds=time.perf_counter() - t_phase)
 
     # 35. train_lm: launch/train.py at full width and depth ----------------------
     train_lm_phase()

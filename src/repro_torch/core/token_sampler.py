@@ -14,19 +14,25 @@ This module is an API-compatible wrapper over the sampler engine
 ``auto`` runs the MH chain kernel of ``csrc/mh.cu``) and the randomness
 pipeline.  The engine runs where the logits are: a CUDA tensor on the
 card, a CPU tensor on the CPU (the kernel's plain version); anything else
-goes to the card.
+goes to the card.  As the JAX package jits ``_sample_tokens_impl``, the
+port compiles it: on the card each signature's sample is a CUDA graph,
+captured once and then replayed (``repro_torch.compiled``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 import warnings
 from typing import NamedTuple
 
+import numpy as np
 import torch
+from torch._guards import detect_fake_mode
 
-from repro_torch import samplers
+from repro_torch import compiled, samplers
+from repro_torch.distributed import sharding
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,16 +72,44 @@ class TokenSampleResult(NamedTuple):
     final_logp: torch.Tensor       # (batch,) float32 unnormalised log-prob
 
 
-def _sample_tokens_impl(
-    key,
-    logits,
-    cfg: TokenSamplerConfig,
-    init_tokens=None,
-) -> TokenSampleResult:
-    if not isinstance(logits, torch.Tensor):
-        device = samplers.engine.resolve_device(None)
-        logits = torch.as_tensor(logits, dtype=torch.float32, device=device)
-    engine = samplers.MHEngine(cfg.engine_config(), device=logits.device)
+# --- the compiled program ------------------------------------------------------
+#
+# The JAX package jits ``_sample_tokens_impl`` with ``cfg`` static: one
+# program for each config and input layout, in one cache for the process.
+# The port keeps one ``repro_torch.compiled`` program for each
+# ``Signature`` in ``_PROGRAMS``: on the card a CUDA graph of the whole
+# sample (the target, the argmax start, the chain with its randomness and
+# the decode), captured once and replayed by one graph launch; on the CPU
+# the signature only.  Each program holds the engine it captured with,
+# whose tensors' addresses its graph bakes in.
+
+_PROGRAMS: dict = {}
+
+
+class Signature(NamedTuple):
+    """JAX's static ``cfg`` (by value, as JAX hashes a static argument),
+    the device, and the (shape, dtype) of ``key``, of ``logits`` and of
+    ``init_tokens`` (None when absent)."""
+
+    cfg: TokenSamplerConfig
+    device: str
+    key: tuple
+    logits: tuple
+    init_tokens: tuple | None
+
+
+def cache_size() -> int:
+    """The number of compiled programs: the counterpart of JAX's
+    ``_sample_tokens_impl._cache_size()``."""
+    return len(_PROGRAMS)
+
+
+def clear_cache() -> None:
+    """Drop every compiled program, its graph and the engine it holds."""
+    _PROGRAMS.clear()
+
+
+def _sample(engine, cfg: TokenSamplerConfig, key, logits, init_tokens) -> TokenSampleResult:
     tokens, result = engine.sample_tokens(
         key,
         logits,
@@ -89,6 +123,44 @@ def _sample_tokens_impl(
         acceptance_rate=result.acceptance_rate,
         final_logp=result.final_logp[:, 0],
     )
+
+
+def _as_tensor(x, dtype=None):
+    if x is None or isinstance(x, torch.Tensor):
+        return x
+    return torch.from_numpy(np.asarray(x) if dtype is None else np.asarray(x).astype(dtype))
+
+
+def _sample_tokens_impl(
+    key,
+    logits,
+    cfg: TokenSamplerConfig,
+    init_tokens=None,
+) -> TokenSampleResult:
+    """One token per row of ``logits`` through the compiled program of
+    this call's signature.  The inputs are copied into the program's
+    static buffers (a strided view of the logits too), and the outputs
+    are clones: a later call never changes a result already handed out.
+    A failed capture or replay raises ``RuntimeError`` naming the
+    signature.  Under a fake tensor mode (a dry run traces the step) or
+    with DTensor inputs the sample runs directly, with a fresh engine,
+    and nothing is kept."""
+    if not isinstance(logits, torch.Tensor):
+        device = samplers.engine.resolve_device(None)
+        logits = torch.as_tensor(logits, dtype=torch.float32, device=device)
+    inputs = (_as_tensor(key, np.int64), logits, _as_tensor(init_tokens, np.int64))
+    device = logits.device
+    if detect_fake_mode(inputs) is not None or any(map(sharding.is_dtensor, inputs)):
+        return _sample(samplers.MHEngine(cfg.engine_config(), device=device), cfg, *inputs)
+    sig = Signature(cfg, str(device), *(compiled.layout(x) for x in inputs))
+    program = _PROGRAMS.get(sig)
+    engine = (samplers.MHEngine(cfg.engine_config(), device=device) if program is None
+              else program.holds)
+    result, _ = compiled.call(
+        _PROGRAMS, sig, functools.partial(_sample, engine, cfg), inputs, device,
+        f"token sampler {sig}", holds=engine, name="engine.sample_tokens",
+    )
+    return result
 
 
 def sample_tokens(

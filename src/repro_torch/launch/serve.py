@@ -19,6 +19,14 @@ split once for every sample.  The weights are drawn from a
 JAX's, so the two servers' streams agree when the weights are carried
 across (``repro_torch.convert.lm_from_numpy``).
 
+As the JAX server jits its decode step and its sampler, the port compiles
+them (``repro_torch.compiled``): on the card a step is one CUDA graph
+launch for the decode (one program for each server and signature) and,
+under ``mcmc``, one for the sampler (``core/token_sampler.py``), each
+captured at its signature's first call.  On the CPU both run directly.
+Prefill, the ``greedy`` and ``categorical`` draws and the key split stay
+eager, as they are in JAX.
+
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite3_8b --smoke \\
       --requests 8 --prompt-len 12 --gen 16 --sampler mcmc --device cpu
@@ -28,12 +36,15 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
+import operator
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from repro_torch import configs, prng
+from repro_torch import compiled, configs, prng
 from repro_torch.core import token_sampler
 from repro_torch.models import lm
 from repro_torch.samplers.engine import _wait, resolve_device
@@ -60,6 +71,23 @@ class Request:
     out_tokens: list = dataclasses.field(default_factory=list)
     t_submit: float = 0.0
     t_done: float = 0.0
+
+
+class DecodeSignature(NamedTuple):
+    """What a server's decode program is specialised on: the (shape,
+    dtype) of the tokens, of the per-row index and of each cache layer
+    leaf, in ``lm.tree_map`` order."""
+
+    tokens: tuple
+    index: tuple
+    layers: tuple
+
+
+def _decode_step(model, cfg, layers, tokens, index):
+    """``lm.decode_step`` on the cache ``{"index": index, "layers":
+    layers}``: (logits, the new index); the layers are written in place."""
+    logits, cache = lm.decode_step(model, cfg, tokens, {"index": index, "layers": layers})
+    return logits, cache["index"]
 
 
 class BatchedServer:
@@ -91,6 +119,7 @@ class BatchedServer:
         self.slot_remaining = np.zeros(n, dtype=int)
         self.last_tokens = torch.zeros((n, 1), dtype=torch.int32, device=self.device)
         self.acceptance: list[float] = []
+        self._programs: dict = {}  # DecodeSignature -> compiled.Program
 
     # --- request admission ----------------------------------------------------
 
@@ -151,12 +180,42 @@ class BatchedServer:
 
     # --- decode loop ------------------------------------------------------------
 
+    def _decode(self):
+        """One decode step of every slot through this server's compiled
+        program (JAX's ``self._decode`` jit): ``last_tokens`` and the
+        per-row index are copied into the program's static buffers, the
+        cache layers are read and written where they are (a prefill
+        splices into the same tensors), and the new index is copied back
+        into the server's own.  Returns a clone of the (B, padded vocab)
+        logits.  On the card a program bakes in the model's and the
+        cache's addresses: replacing ``model`` or a cache layer after its
+        capture raises ``RuntimeError``."""
+        layers = self.cache["layers"]
+        leaves = []
+        lm.tree_map(leaves.append, layers)
+        sig = DecodeSignature(
+            tokens=compiled.layout(self.last_tokens), index=compiled.layout(self.cache["index"]),
+            layers=tuple(compiled.layout(x) for x in leaves))
+        held = self._programs.get(sig)
+        if held is not None and held.graph is not None and not (
+                held.holds[0] is self.model and all(map(operator.is_, held.holds[1], leaves))):
+            raise RuntimeError(
+                f"decode step {sig}: the server's model or cache layers were replaced after "
+                "the capture; the program reads and writes the ones it captured")
+        (logits, index), _ = compiled.call(
+            self._programs, sig, functools.partial(_decode_step, self.model, self.cfg, layers),
+            (self.last_tokens, self.cache["index"]), self.device, f"decode step {sig}",
+            holds=(self.model, leaves), name="lm.decode_step")
+        self.cache["index"].copy_(index)
+        return logits
+
+
     @torch.inference_mode()
     def step(self) -> list[Request]:
         """One lock-step decode across all slots, idle ones too; finished
         requests free their slot and are returned (continuous batching:
         the caller refills freed slots from its overflow queue)."""
-        logits, self.cache = lm.decode_step(self.model, self.cfg, self.last_tokens, self.cache)
+        logits = self._decode()
         tokens = self._sample(logits)
         host = tokens.tolist()
         done = []

@@ -160,7 +160,10 @@ def decode_attention(q, k_cache, v_cache, *, index, window):
     scale = _scale(dh)
     qt = q[:, 0]  # (B, KV, R, dh)
     pos = torch.arange(smax, device=dev)
-    idx = torch.as_tensor(index, device=dev).broadcast_to((b,))  # scalar -> per-row
+    # scalar -> per-row; a cross-attention's int length is filled on the
+    # card (a copy from the host cannot be captured in a CUDA graph)
+    idx = (torch.as_tensor(index, device=dev) if isinstance(index, torch.Tensor)
+           else torch.full((), index, dtype=torch.int64, device=dev)).broadcast_to((b,))
     q_pos = idx - 1
     valid = pos[None, :] < idx[:, None]  # (B, Smax)
     if window is not None:

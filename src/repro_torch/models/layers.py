@@ -172,18 +172,20 @@ def _inverse_frequencies(d_head: int, theta: float, device):
     return torch.tensor(inv, dtype=torch.float32, device=device)
 
 
-@functools.lru_cache(maxsize=16)
+@functools.lru_cache(maxsize=None)
 def _cached_frequencies(d_head: int, theta: float, device):
     return _inverse_frequencies(d_head, theta, device)
 
 
 def rope_frequencies(d_head: int, theta: float = 10000.0, device=None):
     """The inverse frequencies in float64 numpy, then float32, as JAX makes
-    them; kept per (d_head, theta, device), so a decode step copies
-    nothing from the host (a copy from pageable memory waits for the
-    card).  Under a fake tensor mode (a dry run) the table is made anew
-    and never kept: a kept fake tensor would reach the real steps after
-    it.  Callers must not write to the tensor."""
+    them; kept per (d_head, theta, device) for the life of the process, so
+    a decode step copies nothing from the host (a copy from pageable
+    memory waits for the card, and cannot be captured) and the table a
+    captured decode program reads is never freed.  Under a fake tensor
+    mode (a dry run) the table is made anew and never kept: a kept fake
+    tensor would reach the real steps after it.  Callers must not write
+    to the tensor."""
     from torch._guards import detect_fake_mode
 
     if detect_fake_mode() is not None:

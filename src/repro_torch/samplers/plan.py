@@ -18,6 +18,7 @@ replayed after that.  With telemetry on, every submit runs under an
 from __future__ import annotations
 
 import dataclasses
+import functools
 import hashlib
 import json
 from typing import Any, NamedTuple
@@ -25,10 +26,7 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 
-from repro_torch import prng, telemetry
-from repro_torch.kernels.gibbs import gibbs as gibbs_kernel
-from repro_torch.kernels.mh import mh as mh_kernel
-from repro_torch.kernels.msxor import msxor as msxor_kernel
+from repro_torch import compiled, prng, telemetry
 from repro_torch.samplers.engine import (
     EngineResult,
     MHEngine,
@@ -225,15 +223,14 @@ class RunHandle:
 # The JAX package jits ``engine.run`` with ``engine``, ``target``,
 # ``n_steps``, ``chain_id``, ``step0``, ``collect`` and ``mesh`` static (the
 # engine, target and mesh by identity) and traces anew on a new shape.  On
-# the card the counterpart of one such program is a CUDA graph: the whole
-# ``engine.run`` of one signature, its chunk loop and every kernel in it,
-# captured once and then replayed by one graph launch.  The programs live on
-# their engine (``MHEngine._compiled``) and die with it.  On the CPU there
-# is no graph: the cache keeps the signatures only, so the ``jit_cache``
-# verdicts are the card's.
-
-# the kernel launch counters a captured run moves
-_COUNTERS = (mh_kernel.LAUNCHES, gibbs_kernel.LAUNCHES, msxor_kernel.LAUNCHES)
+# the card the counterpart of one such program is a CUDA graph
+# (``repro_torch.compiled``): the whole ``engine.run`` of one signature, its
+# chunk loop and every kernel in it, captured once and then replayed by one
+# graph launch.  The programs live on their engine (``MHEngine._compiled``)
+# and die with it; each holds its target and mesh, whose tensors' addresses
+# a graph bakes in, so that an ``id`` Python reuses can never find it.  On
+# the CPU there is no graph: the cache keeps the signatures only, so the
+# ``jit_cache`` verdicts are the card's.
 
 
 class Signature(NamedTuple):
@@ -250,23 +247,6 @@ class Signature(NamedTuple):
     key: tuple
     init_words: tuple
     init_logp: tuple | None
-
-
-@dataclasses.dataclass
-class _Program:
-    """One signature's program.  It holds its target and mesh, whose
-    tensors' addresses a graph bakes in, so that an ``id`` Python reuses
-    can never find it; on the card also the graph, its static inputs and
-    result, the kernel launches one run makes (``_COUNTERS``' order) and
-    the device bytes it holds."""
-
-    target: Any
-    mesh: Any
-    graph: Any = None
-    inputs: tuple = ()
-    result: EngineResult | None = None
-    launches: tuple = ()
-    nbytes: int = 0
 
 
 def _is_concrete_int(x) -> bool:
@@ -296,106 +276,12 @@ def _inputs(plan: RunPlan) -> tuple:
 
 
 def _signature(plan: RunPlan, inputs: tuple) -> Signature:
-    def layout(x):
-        return None if x is None else (tuple(x.shape), str(x.dtype).removeprefix("torch."))
-
-    key, words, logp = inputs
+    key, words, logp = (compiled.layout(x) for x in inputs)
     return Signature(
         target=id(plan.target), mesh=None if plan.mesh is None else id(plan.mesh),
         n_steps=int(plan.n_steps), chain_id=int(plan.chain_id), step0=int(plan.step0),
-        collect=plan.collect, key=layout(key), init_words=layout(words),
-        init_logp=layout(logp),
+        collect=plan.collect, key=key, init_words=words, init_logp=logp,
     )
-
-
-def _launch_counts() -> tuple:
-    return tuple(dict(c) for c in _COUNTERS)
-
-
-def _add_launches(counts: tuple, sign: int = 1) -> None:
-    for counter, n in zip(_COUNTERS, counts):
-        for name, k in n.items():
-            counter[name] += sign * k
-
-
-def _stage(buffers: tuple, inputs: tuple) -> None:
-    """Copy a submit's inputs into a program's static buffers on the
-    current stream: a card's tensor by a device copy, a host tensor
-    through pinned memory, neither waiting for the card."""
-    for buf, x in zip(buffers, inputs):
-        if buf is not None:
-            buf.copy_(x.pin_memory() if x.device.type == "cpu" else x, non_blocking=True)
-
-
-def _capture(engine: MHEngine, plan: RunPlan, sig: Signature, inputs: tuple):
-    """A new signature's program and this submit's result.  On the card:
-    one warm-up run on a side stream (it builds the kernels and sets up
-    NCCL outside the capture, and its result is this submit's), then one
-    run captured into a CUDA graph over static input buffers.  The capture
-    launches nothing, so the launch counters are put back after it and the
-    program keeps what it counted, to add on every replay."""
-    program = _Program(target=plan.target, mesh=plan.mesh)
-    dev = engine.device
-    if dev.type != "cuda":
-        return program, _run(engine, plan, *inputs)
-    with torch.cuda.device(dev):
-        buffers = tuple(
-            None if x is None else torch.empty(x.shape, dtype=x.dtype, device=dev)
-            for x in inputs
-        )
-        _stage(buffers, inputs)
-        current = torch.cuda.current_stream(dev)
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(current)
-        with torch.cuda.stream(side):
-            result = _run(engine, plan, *buffers)
-        current.wait_stream(side)
-        for x in result:
-            if isinstance(x, torch.Tensor):
-                x.record_stream(current)
-        torch.cuda.empty_cache()  # as the capture does: its pool alone is counted
-        reserved = torch.cuda.memory_reserved(dev)
-        counts = _launch_counts()
-        graph = torch.cuda.CUDAGraph()
-        try:
-            # thread_local: NCCL's watchdog thread may query the card meanwhile
-            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-                out = _run(engine, plan, *buffers)
-        except Exception as exc:
-            raise RuntimeError(
-                f"compiled submit {sig}: capturing engine.run as a CUDA graph "
-                f"(torch.cuda.graph) failed: {exc}"
-            ) from exc
-        finally:
-            captured = tuple(
-                {name: now[name] - before[name] for name in now}
-                for now, before in zip(_launch_counts(), counts)
-            )
-            _add_launches(captured, -1)
-        program.graph, program.inputs, program.result = graph, buffers, out
-        program.launches = captured
-        program.nbytes = torch.cuda.memory_reserved(dev) - reserved + sum(
-            x.numel() * x.element_size() for x in buffers if x is not None
-        )
-    return program, result
-
-
-def _replay(program: _Program, sig: Signature, inputs: tuple) -> EngineResult:
-    """Copy the inputs in, launch the graph on the current stream, and
-    return clones of its outputs: a later replay never changes a result
-    already handed out."""
-    with torch.cuda.device(program.inputs[1].device):
-        _stage(program.inputs, inputs)
-        try:
-            program.graph.replay()
-        except Exception as exc:
-            raise RuntimeError(
-                f"compiled submit {sig}: CUDAGraph.replay failed: {exc}"
-            ) from exc
-        _add_launches(program.launches)
-        return EngineResult(*(
-            x.clone() if isinstance(x, torch.Tensor) else x for x in program.result
-        ))
 
 
 def _submit_compiled(engine: MHEngine, plan: RunPlan) -> tuple[EngineResult, str]:
@@ -405,14 +291,10 @@ def _submit_compiled(engine: MHEngine, plan: RunPlan) -> tuple[EngineResult, str
     compiled submit eagerly in its place."""
     inputs = _inputs(plan)
     sig = _signature(plan, inputs)
-    program = engine._compiled.get(sig)
-    if program is None:
-        program, result = _capture(engine, plan, sig, inputs)
-        engine._compiled[sig] = program
-        return result, "miss"
-    if program.graph is None:
-        return _run(engine, plan, *inputs), "hit"
-    return _replay(program, sig, inputs), "hit"
+    return compiled.call(
+        engine._compiled, sig, functools.partial(_run, engine, plan), inputs, engine.device,
+        f"compiled submit {sig}", holds=(plan.target, plan.mesh), name="engine.run",
+    )
 
 
 def _submit_span(engine: MHEngine, plan: RunPlan, compiled: bool):

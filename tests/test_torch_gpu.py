@@ -1270,3 +1270,210 @@ def test_compiled_capture_failure_raises(cuda):
     with pytest.raises(RuntimeError, match=r"Signature\(.*torch\.cuda\.graph"):
         eng.submit(plan, compiled=True)
     assert not eng._compiled
+
+
+# --- the compiled server: BatchedServer's decode program and the sampler's ----------
+
+
+def _serve_mods():
+    from repro_torch import compiled, configs
+    from repro_torch.core import token_sampler as ts
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+
+    return compiled, configs, ts, serve, lm
+
+
+def _eager_server(serve, lm, ts, cfg, scfg, device):
+    """A server with JAX's two jits undone: ``lm.decode_step`` and the
+    sampler (on a fresh engine) called directly at every step."""
+
+    class Eager(serve.BatchedServer):
+        def _decode(self):
+            logits, cache = lm.decode_step(self.model, self.cfg, self.last_tokens, self.cache)
+            self.cache["index"].copy_(cache["index"])
+            return logits
+
+        def _sample(self, logits):
+            keys = prng.split(self.key)
+            self.key, sub = keys[0], keys[1]
+            engine = samplers.MHEngine(self.sampler_cfg.engine_config(), device=self.device)
+            res = ts._sample(engine, self.sampler_cfg, sub, logits[:, :self.cfg.vocab_size],
+                             None)
+            self.acceptance.append(float(res.acceptance_rate))
+            return res.tokens
+
+    return Eager(cfg, scfg, device=device)
+
+
+def _recorded_drive(server, prompts):
+    """``main``'s loop over ``prompts`` (5 requests on 4 slots: a refill,
+    and idle slots decoding past the cache), keeping each decode's logits."""
+    from repro_torch.launch import serve
+
+    logits, real = [], server._decode
+
+    def decode():
+        out = real()
+        logits.append(out)
+        return out
+
+    server._decode = decode
+    queue = [serve.Request(rid=i, prompt=p) for i, p in enumerate(prompts)]
+    finished = []
+    while queue or server.active():
+        while queue and server.free_slot() is not None:
+            server.submit(server.free_slot(), queue.pop(0))
+        finished.extend(server.step())
+    torch.cuda.synchronize()
+    return {r.rid: list(r.out_tokens) for r in finished}, logits
+
+
+@pytest.mark.parametrize("arch", ["granite3_8b", "qwen3_moe_30b"])
+def test_compiled_server_equals_eager(cuda, arch, monkeypatch):
+    """A smoke server on the card serves through its decode program and
+    the sampler's programs (miss, then hit), and equals a server that
+    calls ``lm.decode_step`` and the sampler eagerly, bit for bit: streams,
+    every step's logits, the caches, the index and the acceptance."""
+    compiled, configs, ts, serve, lm = _serve_mods()
+    cfg = configs.get_smoke_config(arch)
+    scfg = serve.ServeConfig(n_slots=4, max_len=4 + 2 + 6 + 8, gen_tokens=6, mcmc_steps=8)
+    rs = np.random.default_rng(3)
+    prompts = [rs.integers(0, cfg.vocab_size, size=4 + i % 3) for i in range(5)]
+    verdicts = []
+    real_call = compiled.call
+
+    def call(programs, sig, *args, **kw):
+        out = real_call(programs, sig, *args, **kw)
+        verdicts.append((type(sig).__name__, out[1]))
+        return out
+
+    with torch.inference_mode():
+        want = _recorded_drive(_eager_server(serve, lm, ts, cfg, scfg, cuda), prompts)
+    ts.clear_cache()
+    monkeypatch.setattr(compiled, "call", call)
+    server = serve.BatchedServer(cfg, scfg, device=cuda)
+    eager = _eager_server(serve, lm, ts, cfg, scfg, cuda)
+    with torch.inference_mode():
+        got = _recorded_drive(server, prompts)
+        again = _recorded_drive(eager, prompts)
+    assert got[0] == want[0] == again[0]
+    assert len(got[1]) == len(want[1]) and all(map(torch.equal, got[1], want[1]))
+    assert server.acceptance == eager.acceptance
+    leaves, eager_leaves = [], []
+    lm.tree_map(leaves.append, server.cache["layers"])
+    lm.tree_map(eager_leaves.append, eager.cache["layers"])
+    assert all(map(torch.equal, leaves, eager_leaves))
+    assert torch.equal(server.cache["index"], eager.cache["index"])
+    decode = [v for n, v in verdicts if n == "DecodeSignature"]
+    sample = [v for n, v in verdicts if n == "Signature"]
+    assert decode == ["miss"] + ["hit"] * (len(decode) - 1) and len(decode) == len(got[1])
+    assert sample.count("miss") == 2 and sample[0] == "miss"  # B = 1, then B = 4
+    assert ts.cache_size() == 2 and len(server._programs) == 1
+    (program,) = server._programs.values()
+    assert program.graph is not None and program.nbytes > 0
+    assert all(p.graph is not None and p.launches[0]["mh_chain"] == 1
+               for p in ts._PROGRAMS.values())
+
+
+def test_compiled_server_results_survive_replays(cuda):
+    """A replayed step's logits and a replayed sample are the caller's
+    own: later replays on other inputs change nothing in them.  A program
+    never reads a model that replaced the one it captured with."""
+    _, configs, ts, serve, lm = _serve_mods()
+    cfg = configs.get_smoke_config("granite3_8b")
+    server = serve.BatchedServer(cfg, serve.ServeConfig(n_slots=2, max_len=24, gen_tokens=8,
+                                                        mcmc_steps=8), device=cuda)
+    rs = np.random.default_rng(4)
+    v = cfg.vocab_size
+    with torch.inference_mode():
+        for slot in range(2):
+            server.submit(slot, serve.Request(rid=slot, prompt=rs.integers(0, 200, size=5)))
+        server._decode()  # the capture
+        first = server._decode()  # a replay
+        kept = first.clone()
+        ts._sample_tokens_impl(server.key, first[:, :v], server.sampler_cfg)
+        sample = ts._sample_tokens_impl(server.key, first[:, :v], server.sampler_cfg)
+        kept_sample = [x.clone() for x in sample]
+        for _ in range(3):
+            server.step()
+        other = ts._sample_tokens_impl(prng.PRNGKey(9, device=cuda), first[:, :v] * 0.5,
+                                       server.sampler_cfg)
+        torch.cuda.synchronize()
+        assert torch.equal(first, kept)
+        assert all(map(torch.equal, sample, kept_sample))
+        assert not torch.equal(other.final_logp, sample.final_logp)
+        server.model = lm.init_lm(cfg, 1, cuda)
+        with pytest.raises(RuntimeError, match="replaced after the capture"):
+            server.step()
+
+
+def test_dropped_server_and_sampler_cache_free_their_graphs(cuda):
+    """The decode programs die with their server, the sampler's with
+    ``clear_cache``: afterwards nothing they held stays allocated."""
+    import gc
+
+    _, configs, ts, serve, _ = _serve_mods()
+    cfg = configs.get_smoke_config("qwen3_moe_30b")
+    scfg = serve.ServeConfig(n_slots=4, max_len=24, gen_tokens=4, mcmc_steps=8)
+    prompts = [np.arange(5) + i for i in range(5)]
+
+    def drive():
+        server = serve.BatchedServer(cfg, scfg, device=cuda)
+        with torch.inference_mode():
+            out = _recorded_drive(server, prompts)[0]
+        assert len(server._programs) == 1 and ts.cache_size() == 2
+        return out
+
+    def settled():
+        ts.clear_cache()
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        return torch.cuda.memory_allocated(cuda)
+
+    ts.clear_cache()
+    first = drive()  # builds the kernels and every cached table first
+    before = settled()
+    assert drive() == first
+    assert settled() == before
+
+
+def test_compiled_server_capture_failure_raises(cuda, monkeypatch):
+    """No eager fallback on the card: a decode or a sample that reads the
+    card from the host cannot be captured, and the call raises naming its
+    signature; nothing is kept."""
+    _, configs, ts, serve, lm = _serve_mods()
+    cfg = configs.get_smoke_config("granite3_8b")
+    scfg = serve.ServeConfig(n_slots=2, max_len=24, gen_tokens=4, mcmc_steps=8)
+    server = serve.BatchedServer(cfg, scfg, device=cuda)
+    real_decode, real_sample = lm.decode_step, ts._sample
+
+    def host_read_decode(*args):
+        logits, cache = real_decode(*args)
+        if float(logits.sum()) != float(logits.sum()):  # a host read of a device value
+            raise AssertionError
+        return logits, cache
+
+    def host_read_sample(*args):
+        out = real_sample(*args)
+        if float(out.acceptance_rate) < 0:
+            raise AssertionError
+        return out
+
+    with torch.inference_mode():
+        server.submit(0, serve.Request(rid=0, prompt=np.arange(5)))
+        # drawn before the failures: after a failed capture PyTorch leaves
+        # the default CUDA generator in its capturing state, and a draw
+        # from it raises
+        logits = torch.randn(2, cfg.vocab_size, device=cuda)
+        monkeypatch.setattr(lm, "decode_step", host_read_decode)
+        with pytest.raises(RuntimeError, match=r"DecodeSignature\(.*torch\.cuda\.graph"):
+            server.step()
+        assert not server._programs
+        monkeypatch.setattr(lm, "decode_step", real_decode)
+        ts.clear_cache()
+        monkeypatch.setattr(ts, "_sample", host_read_sample)
+        with pytest.raises(RuntimeError, match=r"token sampler Signature\(.*torch\.cuda\.graph"):
+            ts._sample_tokens_impl(prng.PRNGKey(1, device=cuda), logits, server.sampler_cfg)
+        assert ts.cache_size() == 0

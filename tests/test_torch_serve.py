@@ -186,8 +186,14 @@ def _streams_equal_jax(arch, sampler, logit_tol, prompt_seed=3):
     rec_j, rec_p = Recorded(js), Recorded(ps)
     rng = np.random.default_rng(prompt_seed)
     prompts = [rng.integers(0, jcfg.vocab_size, size=prompt_len + rid % 3) for rid in range(5)]
+    j_programs, p_programs = jts._sample_tokens_impl._cache_size(), ts.cache_size()
     ref = _drive(js, [jserve.Request(rid=i, prompt=p) for i, p in enumerate(prompts)])
     out = _drive(ps, [serve.Request(rid=i, prompt=p) for i, p in enumerate(prompts)])
+    # the port compiles what JAX jits: one decode program a server and
+    # signature, and one sampler program a config and input layout
+    assert len(ps._programs) == js._decode._cache_size()
+    assert (ts.cache_size() - p_programs
+            == jts._sample_tokens_impl._cache_size() - j_programs)
     assert int(np.asarray(js.cache["index"]).max()) > js.scfg.max_len  # the clamp ran
     np.testing.assert_array_equal(np.asarray(js.cache["index"]), ps.cache["index"].numpy())
     assert len(rec_j.calls) == len(rec_p.calls) == 5 + 2 * gen
@@ -271,6 +277,29 @@ class TestBatchedServerSmoke:
             ref = _drive(solo, [serve.Request(rid=rid, prompt=prompt)])
             assert out[rid] == ref[rid], f"packed decode diverged rid={rid}"
 
+    def test_sampler_program_signatures(self):
+        """The sampler's programs are keyed as JAX's jit cache is: B = 1
+        (an admission) and B = n_slots (a step) are two signatures, a
+        repeat reuses one, another config or an ``init_tokens`` is a new
+        one.  ``n_steps=3``: a config no other test samples with."""
+        cfg, server = self._server(2)
+        scfg = dataclasses.replace(server.sampler_cfg, n_steps=3)
+        rs = np.random.default_rng(2)
+        logits = torch.from_numpy(rs.normal(size=(2, cfg.padded_vocab)).astype(np.float32))
+        before = ts.cache_size()
+
+        def sample(rows, c=scfg, **kw):
+            return ts._sample_tokens_impl(server.key, logits[:rows, :cfg.vocab_size], c, **kw)
+
+        one, two, again = sample(1), sample(2), sample(2)
+        assert ts.cache_size() == before + 2
+        assert torch.equal(two.tokens, again.tokens) and one.tokens.shape == (1,)
+        sample(2, dataclasses.replace(scfg, temperature=0.5))
+        assert ts.cache_size() == before + 3
+        init = torch.tensor([1, 2], dtype=torch.int32)
+        sample(2, init_tokens=init), sample(2, init_tokens=init + 1)
+        assert ts.cache_size() == before + 4
+
     def test_retired_slot_is_refilled(self):
         cfg, server = self._server(1)
         rng = np.random.default_rng(1)
@@ -281,6 +310,7 @@ class TestBatchedServerSmoke:
         out2 = _drive(server, [second])
         assert len(out2[1]) == 1 + self.GEN
         assert out[0] is not out2[1]
+        assert len(server._programs) == 1  # one decode signature across requests
 
 
 def _masked(text: str) -> list[str]:
