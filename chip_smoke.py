@@ -270,7 +270,22 @@ each at full width and depth in bfloat16 with random weights from a seed:
      cut to 2 layers in float32 trains 2 AdamW steps on the card and on
      the CPU from the same weights and batches: losses, gradient norms
      and parameters within the tolerances stated beside
-     ``TRAIN_LOSS_TOL``.
+     ``TRAIN_LOSS_TOL``.  The launcher's steps are its compiled program
+     (one capture, then replays): the first step's seconds are the
+     capture's;
+ 40. ``compiled_train``: ``run_training``'s step (``train.compiled_step``)
+     on each of ``CT_CASES`` (hymba-1.5b at phase 35's shape; qwen3-moe
+     cut to 2 layers at full width, 2 x 256 tokens, its routing captured):
+     from one state saved to pinned host memory, ``CT_STEPS`` eager steps,
+     the state restored in place, ``CT_STEPS`` compiled steps; every
+     step's metrics and a bitwise digest of the state after it, and the
+     whole state (parameters, moments, step) at the end, equal the eager
+     twin's at tolerance 0; a replayed step makes one ``cudaGraphLaunch``
+     and calls neither ``lm.train_loss`` nor ``adamw_update`` from the
+     host.  It prints both paths' step seconds, the capture's seconds,
+     the bytes the program holds, graph launches and kernel-launch calls
+     a step and the busy share (profiler) beside the FLOP and state-bytes
+     bounds, and the optimizer's share of an eager step.
 
  36. ``mesh_lm``: the distributed layer on a one-rank ``nccl`` DeviceMesh
      ("pod", "data", "model") of shape (1, 1, 1): (a) hymba-1.5b at full
@@ -509,6 +524,13 @@ CS_REQUESTS, CS_GEN, CS_TIMED = 2 * LLM_SLOTS, 4, 8
 TRAIN_ARCH, TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO = "hymba_1p5b", 6, 8, 1024, 2
 TRAIN_CHECK_STEPS, TRAIN_CHECK_BATCH, TRAIN_CHECK_SEQ = 2, 2, 64
 TRAIN_LOSS_TOL, TRAIN_GNORM_RTOL, TRAIN_PARAM_RMS_RTOL = 1e-4, 1e-4, 1e-3
+# phase 40: run_training's step on each case (arch, layers kept or None for
+# the full depth, rows, sequence, microbatches): CT_STEPS eager steps from
+# one state, the state restored from pinned host memory, CT_STEPS compiled
+# steps (a capture, then replays), every step at tolerance 0
+CT_STEPS = 3
+CT_CASES = ((TRAIN_ARCH, None, TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO),
+            ("qwen3_moe_30b", 2, 2, 256, 1))
 # phase 36: compressed-pod steps of hymba-1.5b at phase 35's batch; granite-3
 # 8B cut to MESH_RULES_LAYERS layers, a batch of MESH_RULES_BATCH x
 # MESH_RULES_SEQ tokens, a prefill of MESH_PROMPT and MESH_DECODE steps;
@@ -3145,34 +3167,34 @@ def main() -> int:
 
     @contextlib.contextmanager
     def recorded_train_steps(cli_train, record):
-        """Time every train step ``launch/train.py`` runs between two
-        synchronisations and keep its metrics on the host (``record``);
-        restores the step factory on exit."""
-        real = cli_train.make_train_step
+        """Time every train step ``launch/train.py`` runs (its
+        ``compiled_step``: a capture or a replay on the card, the direct
+        step on the CPU) between two synchronisations and keep its metrics
+        on the host (``record``); yields a dict whose ``"programs"`` is the
+        run's program cache; restores ``compiled_step`` on exit."""
+        real, seen = cli_train.compiled_step, {}
 
-        def factory(*args, **kw):
-            step_fn = real(*args, **kw)
+        def run(programs, step_fn, model, opt, batch, n_micro, device):
+            seen["programs"] = programs
+            sync = model.embed.is_cuda
+            if sync:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            n_programs = len(programs)
+            out = real(programs, step_fn, model, opt, batch, n_micro, device)
+            if sync:
+                torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            record.append(dict(seconds=seconds, captured=len(programs) > n_programs,
+                               **{k: float(out[k]) for k in (
+                                   "loss", "grad_norm", "lr", "tokens", "ce_loss")}))
+            return out
 
-            def run(model, opt, batch):
-                sync = model.embed.is_cuda
-                if sync:
-                    torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                out = step_fn(model, opt, batch)
-                if sync:
-                    torch.cuda.synchronize()
-                seconds = time.perf_counter() - t0
-                record.append(dict(seconds=seconds, **{k: float(out[2][k]) for k in (
-                    "loss", "grad_norm", "lr", "tokens", "ce_loss")}))
-                return out
-
-            return run
-
-        cli_train.make_train_step = factory
+        cli_train.compiled_step = run
         try:
-            yield
+            yield seen
         finally:
-            cli_train.make_train_step = real
+            cli_train.compiled_step = real
 
     def train_lm_phase():
         """Phase 35; its names stay out of the phases after it."""
@@ -3199,25 +3221,15 @@ def main() -> int:
         tcfg = llm_configs.get_config(TRAIN_ARCH)
         argv = ["--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS), "--batch", str(TRAIN_BATCH),
                 "--seq", str(TRAIN_SEQ), "--n-micro", str(TRAIN_MICRO)]
-        steps, optimizer_s = [], []
-        real_update = llm_step.adamw_update
-
-        def timed_update(*args, **kw):  # the optimizer's share of a step
-            torch.cuda.synchronize()
+        steps = []
+        with recorded_train_steps(cli_train, steps) as seen_run, path_run("train_lm_steps"):
             t0 = time.perf_counter()
-            out = real_update(*args, **kw)
-            torch.cuda.synchronize()
-            optimizer_s.append(time.perf_counter() - t0)
-            return out
-
-        llm_step.adamw_update = timed_update
-        try:
-            with recorded_train_steps(cli_train, steps), path_run("train_lm_steps"):
-                t0 = time.perf_counter()
-                row = cli_train.main(argv)
-                main_s = time.perf_counter() - t0
-        finally:
-            llm_step.adamw_update = real_update
+            row = cli_train.main(argv)
+            main_s = time.perf_counter() - t0
+        (train_program,) = seen_run["programs"].values()
+        check(train_program.graph is not None and [x["captured"] for x in steps] == [True] + [
+            False] * (TRAIN_STEPS - 1), f"train_lm: {len(seen_run['programs'])} programs, "
+              f"captures {[x['captured'] for x in steps]}")
         peak_bytes = torch.cuda.max_memory_allocated()
         model, opt = row["model"], row["opt_state"]
         check(launches_by_path["train_lm_steps"] == {k: 0 for k in launches_by_path[
@@ -3251,7 +3263,8 @@ def main() -> int:
              param_bytes=param_bytes, moment_bytes=moment_bytes,
              accumulator_bytes=4 * n_params if TRAIN_MICRO > 1 else 0,
              max_memory_allocated=peak_bytes, tokens_per_step=tokens, steps=steps,
-             optimizer_s=optimizer_s,
+             compiled=True, capture_step_s=steps[0]["seconds"],
+             program_bytes=train_program.nbytes,
              step_s_median_after_first=float(np.median(warm)), step_s_range=[min(warm), max(warm)],
              flop_bound_s=bound_s, model_flops=model_flops, attention_flops=attn_flops,
              bound_by="operations", tokens_per_s_median=tokens / float(np.median(warm)),
@@ -3286,7 +3299,7 @@ def main() -> int:
              tokens=tokens_[:, 0].tolist(), acceptance=float(acc), launches=launches,
              first_launch_mismatches=diff, max_abs_err=err,
              first_launch_shape=list(args[0].shape), cache_index=int(cache["index"]))
-        del model, opt, row, cache, seen, args, kw
+        del model, opt, row, cache, seen, args, kw, train_program, seen_run
         gc.collect()
         torch.cuda.empty_cache()
 
@@ -3367,6 +3380,216 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         emit(phase="train_lm_total", seconds=time.perf_counter() - t_phase)
+
+    def compiled_train_case(arch, layers, rows, seq, n_micro):
+        """Phase 40 on one case; its names stay out of the phases after it."""
+        import gc
+        import operator
+
+        from repro_torch import compiled as llm_compiled
+        from repro_torch import configs as llm_configs
+        from repro_torch.data import DataConfig, SyntheticTokenPipeline
+        from repro_torch.launch import train as cli_train
+        from repro_torch.models import lm as llm
+        from repro_torch.optim import adamw_init
+        from repro_torch.training import step as llm_step
+
+        t_case = time.perf_counter()
+        cfg = llm_configs.get_config(arch)
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        run = cli_train.TrainRun(cfg=cfg, steps=CT_STEPS, global_batch=rows, seq_len=seq,
+                                 n_micro=n_micro, seed=SEED)
+        model = llm.init_lm(cfg, SEED, dev)
+        opt_cfg, step_fn = cli_train.run_step_fn(run)
+        opt = adamw_init(model, opt_cfg)
+        data = SyntheticTokenPipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                                                 global_batch=rows, seed=SEED), device=dev)
+        batches = [data.host_batch(t) for t in range(CT_STEPS + 2)]  # 2 more traced
+        tensors = cli_train.state_tensors(model, opt)
+        where = f"compiled_train {arch}"
+
+        @torch.no_grad()
+        def to_host(ts):
+            """Copies of ``ts`` in pinned host memory, one flat buffer a dtype."""
+            sizes = collections.Counter()
+            for t in ts:
+                sizes[t.dtype] += t.numel()
+            flat = {dt: torch.empty(n, dtype=dt, pin_memory=True) for dt, n in sizes.items()}
+            at, out = collections.Counter(), []
+            for t in ts:
+                h = flat[t.dtype][at[t.dtype]:at[t.dtype] + t.numel()].view(t.shape)
+                at[t.dtype] += t.numel()
+                out.append(h.copy_(t, non_blocking=True))
+            torch.cuda.synchronize()
+            return out
+
+        words = {4: torch.int32, 2: torch.int16}
+
+        @torch.no_grad()
+        def digest(ts):
+            """Each tensor's bits as integers: their int64 sum and sum of
+            squares (wrapping), a fingerprint of the state that any changed
+            bit almost surely moves."""
+            out = []
+            for t in ts:
+                w = t.reshape(-1).view(words[t.element_size()]).long()
+                out.append(torch.stack([w.sum(), (w * w).sum()]))
+            return torch.stack(out)
+
+        def synced(fn):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            return out, time.perf_counter() - t0
+
+        # the eager twin: CT_STEPS steps from the saved state, the
+        # optimizer's share of each timed
+        t0 = time.perf_counter()
+        start = to_host(tensors)
+        save_s = time.perf_counter() - t0
+        real_update, real_loss, real_capture = (llm_step.adamw_update, llm.train_loss,
+                                                llm_compiled.capture)
+        optimizer_s, eager_s, eager_metrics, eager_digests = [], [], [], []
+
+        def timed_update(*args, **kw):
+            out, seconds = synced(lambda: real_update(*args, **kw))
+            optimizer_s.append(seconds)
+            return out
+
+        llm_step.adamw_update = timed_update
+        try:
+            for t in range(CT_STEPS):
+                (_, _, m), seconds = synced(lambda: step_fn(model, opt, batches[t]))
+                eager_s.append(seconds)
+                eager_metrics.append({k: m[k].clone() for k in cli_train.METRICS})
+                eager_digests.append(digest(tensors))
+        finally:
+            llm_step.adamw_update = real_update
+        eager_end = to_host(tensors)
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            for t, h in zip(tensors, start):
+                t.copy_(h, non_blocking=True)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        del start
+        check(all(map(operator.is_, tensors, cli_train.state_tensors(model, opt))),
+              f"{where}: the state's tensors were replaced")
+
+        # the compiled steps: the first captures, the others replay
+        programs, captures = {}, []
+        host_calls = {"train_loss": 0, "adamw_update": 0}
+
+        def capture(*args, **kw):
+            out, seconds = synced(lambda: real_capture(*args, **kw))
+            captures.append(seconds)
+            return out
+
+        def counted(fn, name):
+            def run_(*args, **kw):
+                host_calls[name] += 1
+                return fn(*args, **kw)
+            return run_
+
+        compiled_s, compiled_metrics, compiled_digests = [], [], []
+        llm_compiled.capture = capture
+        try:
+            for t in range(CT_STEPS):
+                if t == 1:  # the replays: no model or optimizer call from the host
+                    llm.train_loss = counted(real_loss, "train_loss")
+                    llm_step.adamw_update = counted(real_update, "adamw_update")
+                m, seconds = synced(lambda: cli_train.compiled_step(
+                    programs, step_fn, model, opt, batches[t], n_micro, dev))
+                compiled_s.append(seconds)
+                compiled_metrics.append(m)
+                compiled_digests.append(digest(tensors))
+            peak_bytes = torch.cuda.max_memory_allocated()
+            for t in range(CT_STEPS):
+                check(all(torch.equal(compiled_metrics[t][k], eager_metrics[t][k])
+                          for k in cli_train.METRICS),
+                      f"{where} step {t}: metrics {compiled_metrics[t]} against the eager "
+                      f"twin's {eager_metrics[t]}")
+                check(torch.equal(compiled_digests[t], eager_digests[t]),
+                      f"{where} step {t}: the state's digest differs from the eager twin's")
+            differing = [i for i, (t, h) in enumerate(zip(tensors, eager_end))
+                         if not torch.equal(t, h.to(dev, non_blocking=True))]
+            check(not differing, f"{where}: {len(differing)} state tensors differ from the "
+                  f"eager twin's after {CT_STEPS} steps (first {differing[:4]})")
+            del eager_end
+            # one replayed step and one eager step under the profiler
+            calls = []
+            events, wall_ms = traced(torch, lambda: cli_train.compiled_step(
+                programs, step_fn, model, opt, batches[CT_STEPS], n_micro, dev),
+                host_calls=calls)
+        finally:
+            llm_compiled.capture = real_capture
+            llm.train_loss, llm_step.adamw_update = real_loss, real_update
+        check(host_calls == {"train_loss": 0, "adamw_update": 0},
+              f"{where}: a replayed step called {host_calls} from the host")
+        graph_launches = sum(n == "cudaGraphLaunch" for n in calls)
+        check(graph_launches == 1 and len(programs) == 1 and len(captures) == 1,
+              f"{where}: a replayed step made {graph_launches} graph launches; "
+              f"{len(programs)} programs, {len(captures)} captures")
+        eager_calls = []
+        eager_events, eager_wall_ms = traced(
+            torch, lambda: step_fn(model, opt, batches[CT_STEPS + 1]), host_calls=eager_calls)
+        busy = sum(e.self_device_time_total for e in events) / 1e3
+        eager_busy = sum(e.self_device_time_total for e in eager_events) / 1e3
+        by_kernel = collections.defaultdict(lambda: [0.0, 0])  # the replay's device ms
+        for e in events:
+            by_kernel[e.name[:100]][0] += e.self_device_time_total / 1e3
+            by_kernel[e.name[:100]][1] += 1
+        (sig, program), = programs.items()
+
+        # the bounds: 6 N a token forward and backward plus 2 N recomputed
+        # (N the parameters a token meets: top_k of n_experts experts),
+        # attention as phase 35 counts it; and the state read and written
+        # once with the batch read
+        n_params = sum(p.numel() for p in model.parameters())
+        expert = sum(p.numel() for n, p in model.named_parameters() if ".moe.w_" in n)
+        active = n_params - expert + (expert * cfg.moe_top_k / cfg.n_experts if expert else 0)
+        tokens = rows * seq
+        model_flops = 8 * active * tokens
+        attn_flops = 16 * rows * seq ** 2 * cfg.n_heads * cfg.d_head * cfg.n_layers
+        flop_bound_s = (model_flops + attn_flops) / BF16_OPS_PER_S
+        state_bytes = sum(t.numel() * t.element_size() for t in tensors)
+        batch_bytes = sum(x.numel() * x.element_size() for x in batches[0].values())
+        state_bound_s = (2 * state_bytes + batch_bytes) / HBM_BYTES_PER_S
+        emit(phase="compiled_train", arch=arch, layers=cfg.n_layers, d_model=cfg.d_model,
+             rows=rows, seq=seq, n_micro=n_micro, steps=CT_STEPS, parameters=n_params,
+             active_parameters=active, signature=str(sig), bit_equal_eager=True,
+             metrics=[{k: float(v) for k, v in m.items()} for m in compiled_metrics],
+             eager_step_s=eager_s, eager_optimizer_s=optimizer_s,
+             compiled_step_s=compiled_s, capture_call_s=captures[0],
+             replay_step_s_median=float(np.median(compiled_s[1:])),
+             eager_step_s_median=float(np.median(eager_s)),
+             program_bytes=program.nbytes, state_bytes=state_bytes,
+             max_memory_allocated=peak_bytes, save_s=save_s, restore_s=restore_s,
+             traced_replay_wall_ms=wall_ms, traced_replay_busy_ms=busy,
+             traced_replay_busy_share=busy / wall_ms, replay_device_events=len(events),
+             replay_device_ms_by_kernel=sorted(([n, ms, k] for n, (ms, k) in by_kernel.items()),
+                                               key=lambda x: -x[1])[:15],
+             traced_eager_wall_ms=eager_wall_ms, traced_eager_busy_ms=eager_busy,
+             traced_eager_busy_share=eager_busy / eager_wall_ms,
+             replay_graph_launches=graph_launches,
+             replay_kernel_launch_calls=sum("Launch" in n and n != "cudaGraphLaunch"
+                                            for n in calls),
+             replay_memcpy_calls=sum("Memcpy" in n for n in calls),
+             eager_kernel_launch_calls=sum("Launch" in n for n in eager_calls),
+             flop_bound_s=flop_bound_s, model_flops=model_flops, attention_flops=attn_flops,
+             state_bytes_bound_s=state_bound_s, bound_by="operations"
+             if flop_bound_s >= state_bound_s else "bytes", host_calls_in_replays=host_calls,
+             case_s=time.perf_counter() - t_case)
+        del model, opt, tensors, programs, program, batches, data, step_fn
+        del eager_metrics, compiled_metrics, eager_digests, compiled_digests, events
+        gc.collect()
+        torch.cuda.empty_cache()
+        getattr(torch._C, "_host_emptyCache", lambda: None)()  # the pinned copies
 
     def mesh_lm_phase():
         """Phase 36; its names stay out of the phases after it."""
@@ -3949,6 +4172,12 @@ def main() -> int:
 
     # 35. train_lm: launch/train.py at full width and depth ----------------------
     train_lm_phase()
+
+    # 40. compiled_train: run_training's step as a CUDA graph, against eager ---
+    t_phase = time.perf_counter()
+    for case_ in CT_CASES:
+        compiled_train_case(*case_)
+    emit(phase="compiled_train_total", seconds=time.perf_counter() - t_phase)
 
     # 36. mesh_lm: the distributed layer on a one-rank nccl mesh ----------------
     mesh_lm_phase()

@@ -18,6 +18,18 @@ JAX's: ``run_training(run, model=...)`` trains given weights (for
 example JAX's, carried by ``convert.lm_from_numpy``).  The run is on the
 card unless ``--device cpu`` is asked for; without a card it raises.
 
+The step is the port of JAX's ``jax.jit(make_train_step(...))``: one
+compiled program (``repro_torch.compiled``) a ``TrainSignature``, the
+batch's layouts and ``n_micro``.  On the card a signature's first step
+runs once (its result) and is captured as a CUDA graph; later steps copy
+the batch into the program's buffers and replay it, one graph launch a
+step.  The graph reads and writes the model's parameters and the AdamW
+state in their own tensors (``adamw_update`` and ``load_state`` write
+them in place), and only the metrics come out of it, cloned.  A failed
+capture or replay raises ``RuntimeError`` naming the signature; no eager
+step runs in its place.  On the CPU the step runs directly and the cache
+keeps the signatures, as many as JAX's jit keeps programs.
+
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --arch hymba_1p5b --smoke \\
       --steps 50 --batch 8 --seq 64 --device cpu
@@ -27,12 +39,14 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import operator
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from repro_torch import configs
+from repro_torch import compiled, configs
 from repro_torch.checkpoint import CheckpointConfig, CheckpointManager
 from repro_torch.convert import named_to_tree, tree_to_named
 from repro_torch.data import DataConfig, SyntheticTokenPipeline
@@ -60,6 +74,64 @@ class TrainRun:
     device: str | None = None        # the card unless "cpu" is asked for
 
 
+class TrainSignature(NamedTuple):
+    """What a train program is compiled for, as JAX's jit keys ``step_fn``
+    on its inputs' layouts: ``compiled.layout`` of each batch input (None
+    where the family has none) and the microbatch count."""
+
+    tokens: tuple | None
+    labels: tuple | None
+    image_embeds: tuple | None
+    frames: tuple | None
+    n_micro: int
+
+
+BATCH_KEYS = ("tokens", "labels", "image_embeds", "frames")
+# what a step returns, the metrics a program clones out of its graph
+METRICS = ("loss", "ce_loss", "aux_loss", "tokens", "grad_norm", "lr")
+
+
+def state_tensors(model, opt_state) -> list:
+    """The tensors a step reads and writes in place: the parameters, the
+    step counter, and the moments (and master copies)."""
+    out = [*model.parameters(), opt_state["step"]]
+    for part in ("m", "v", "master"):
+        out.extend(opt_state.get(part, {}).values())
+    return out
+
+
+def compiled_step(programs: dict, step_fn, model, opt_state, batch: dict, n_micro: int,
+                  device) -> dict:
+    """``step_fn(model, opt_state, batch)`` (an unmeshed ``make_train_step``
+    with ``n_micro`` microbatches) through the program of the batch's
+    ``TrainSignature`` in ``programs``; returns the metrics ``METRICS``.
+    The model and ``opt_state`` are trained in place.  On the card a
+    program bakes in the addresses of ``state_tensors``: a step after one
+    of them was replaced raises ``RuntimeError``."""
+    unknown = set(batch) - set(BATCH_KEYS)
+    if unknown:
+        raise ValueError(f"a train batch holds no {sorted(unknown)}")
+    inputs = tuple(batch.get(k) for k in BATCH_KEYS)
+    sig = TrainSignature(*map(compiled.layout, inputs), n_micro=n_micro)
+    tensors = state_tensors(model, opt_state)
+    held = programs.get(sig)
+    if held is not None and held.graph is not None and not (
+            held.holds[0] is model and len(held.holds[1]) == len(tensors)
+            and all(map(operator.is_, held.holds[1], tensors))):
+        raise RuntimeError(
+            f"train step {sig}: the model's parameters or the optimizer state were replaced "
+            "after the capture; the program reads and writes the ones it captured")
+
+    def run(*staged):
+        _, _, metrics = step_fn(model, opt_state, {
+            k: x for k, x in zip(BATCH_KEYS, staged) if x is not None})
+        return tuple(metrics[k] for k in METRICS)
+
+    values, _ = compiled.call(programs, sig, run, inputs, device, f"train step {sig}",
+                              holds=(model, tensors), name="the train step")
+    return dict(zip(METRICS, values))
+
+
 def _host_stack(values) -> torch.Tensor:
     return torch.stack([v.detach().cpu() for v in values])
 
@@ -77,17 +149,30 @@ def state_tree(model, opt_state, stack=_host_stack) -> dict:
 @torch.no_grad()
 def load_state(model, opt_state, tree) -> dict:
     """Write a restored run state (host tensors in the JAX layout) into the
-    model and the optimizer state; returns the optimizer state."""
+    model's and the optimizer state's own tensors; returns the optimizer
+    state."""
     named = dict(model.named_parameters())
     for name, value in tree_to_named(tree["params"], named).items():
         named[name].copy_(value)
-    opt_state["step"] = tree["opt"]["step"].to(device=opt_state["step"].device,
-                                                  dtype=torch.int32)
+    opt_state["step"].copy_(tree["opt"]["step"])  # in place: a program holds it
     for part in ("m", "v", "master"):
         if part in opt_state:
             for name, value in tree_to_named(tree["opt"][part], named).items():
                 opt_state[part][name].copy_(value)
     return opt_state
+
+
+def run_step_fn(run: TrainRun):
+    """(the AdamW config, the unmeshed step function) ``run_training``
+    trains ``run`` with: AdamW at ``run.lr`` under the cosine schedule of
+    ``run.warmup`` and ``run.steps``, ``run.n_micro`` microbatches."""
+    opt_cfg = AdamWConfig(lr=run.lr)
+
+    def schedule(s):
+        return cosine_schedule(s, run.warmup, run.steps)
+
+    return opt_cfg, make_train_step(run.cfg, None, opt_cfg, schedule_fn=schedule,
+                                    step_cfg=TrainStepConfig(n_micro=run.n_micro))
 
 
 def run_training(run: TrainRun, preemption: PreemptionHandler | None = None, model=None):
@@ -98,7 +183,7 @@ def run_training(run: TrainRun, preemption: PreemptionHandler | None = None, mod
     device = resolve_device(run.device)
     if model is None:
         model = lm.init_lm(cfg, run.seed, device)
-    opt_cfg = AdamWConfig(lr=run.lr)
+    opt_cfg, step_fn = run_step_fn(run)
     opt_state = adamw_init(model, opt_cfg)
 
     data = SyntheticTokenPipeline(
@@ -109,17 +194,6 @@ def run_training(run: TrainRun, preemption: PreemptionHandler | None = None, mod
             seed=run.seed,
         ),
         device=device,
-    )
-
-    def schedule(s):
-        return cosine_schedule(s, run.warmup, run.steps)
-
-    step_fn = make_train_step(
-        cfg,
-        None,
-        opt_cfg,
-        schedule_fn=schedule,
-        step_cfg=TrainStepConfig(n_micro=run.n_micro),
     )
 
     manager = None
@@ -143,11 +217,12 @@ def run_training(run: TrainRun, preemption: PreemptionHandler | None = None, mod
         ),
     )
 
+    programs: dict = {}  # TrainSignature -> compiled.Program, JAX's jit cache
     losses = []
     for step in range(start_step, run.steps):
         batch = data.host_batch(step)
         t0 = time.time()
-        model, opt_state, metrics = step_fn(model, opt_state, batch)
+        metrics = compiled_step(programs, step_fn, model, opt_state, batch, run.n_micro, device)
         loss = float(metrics["loss"])
         watchdog.record(0, time.time() - t0)
         watchdog.check()

@@ -27,7 +27,10 @@ dict shares them.
 In train mode each block runs under a non-reentrant
 ``torch.utils.checkpoint`` when ``cfg.remat_policy`` is ``"nothing"`` or
 ``"dots"`` (JAX's ``_remat``): its activations are recomputed in the
-backward pass, which changes no value.
+backward pass, which changes no value.  No op of the loss draws a random
+number, so the checkpoints keep no generator state
+(``preserve_rng_state=False``): saving and setting the card's generator
+would read it from the host, which a captured train step cannot do.
 """
 
 from __future__ import annotations
@@ -215,7 +218,7 @@ def _stack_apply(stack, x, cfg, *, mode: str, positions, cache_layers=None, cach
         kw = dict(mode=mode, positions=positions, cache=cl, cache_index=cache_index, meta=meta,
                   enc_out=enc_out)
         if remat:
-            x, _, a = checkpoint(layer, x, use_reentrant=False, **kw)
+            x, _, a = checkpoint(layer, x, use_reentrant=False, preserve_rng_state=False, **kw)
         else:
             x, _, a = layer(x, **kw)
         aux = aux + a
@@ -406,7 +409,8 @@ def chunked_ce_loss(model: LM, cfg, hidden, labels):
     for i in range(s // c):
         h, lab = hidden[:, i * c:(i + 1) * c], labels[:, i * c:(i + 1) * c]
         if torch.is_grad_enabled():
-            nll, zl, n = checkpoint(_chunk_terms, model, cfg, h, lab, use_reentrant=False)
+            nll, zl, n = checkpoint(_chunk_terms, model, cfg, h, lab, use_reentrant=False,
+                                   preserve_rng_state=False)
         else:
             nll, zl, n = _chunk_terms(model, cfg, h, lab)
         loss_sum, z_sum, count = loss_sum + nll, z_sum + zl, count + n
@@ -425,7 +429,11 @@ def train_loss(model: LM, cfg, batch):
                          device=labels.device)
         labels = torch.cat([pad, labels], dim=1)
     loss, count = chunked_ce_loss(model, cfg, hidden, labels)
-    aux = torch.as_tensor(aux, dtype=torch.float32, device=loss.device)
+    # every family but the MoE sums no router loss: a Python 0.0, filled
+    # on the card (a copy from the host cannot be captured)
+    aux = (torch.as_tensor(aux, dtype=torch.float32, device=loss.device)
+           if isinstance(aux, torch.Tensor)
+           else torch.full((), np.float32(aux), dtype=torch.float32, device=loss.device))
     total = loss
     if cfg.family == "moe":
         total = total + cfg.aux_loss_weight * aux

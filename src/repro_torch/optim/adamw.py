@@ -8,11 +8,13 @@ int32 scalar on the parameters' device), and ``m``, ``v`` (and
 shape.  ``convert.named_to_tree`` gives it the JAX tree's layout for a
 checkpoint.
 
-``adamw_update`` writes the new parameters and moments in place (the
-full-width model's weights and moments fill a large share of the card)
-and returns them.  Its arithmetic is JAX's as XLA compiles it on the
-CPU (measured bit for bit there): the moments' ``b * m + (1 - b) * g``
-is ``fma(b, m, (1 - b) * g)``; the bias-corrected step ``(m / b1c) /
+``adamw_update`` writes the new parameters, the step counter, the
+moments and the master copies in place (the full-width model's weights
+and moments fill a large share of the card, and a captured train step
+must read and write the state's own tensors) and returns them.  Its
+arithmetic is JAX's as XLA compiles it on the CPU (measured bit for bit
+there): the moments' ``b * m + (1 - b) * g`` is ``fma(b, m, (1 - b) *
+g)``, written into the moment itself; the bias-corrected step ``(m / b1c) /
 (sqrt(v / b2c) + eps)`` is rewritten ``m / (b1c * (sqrt(v / b2c) +
 eps))``; and ``p - lr * (u + wd * p)`` is two fused multiply-adds,
 ``fma(-lr, fma(wd, p, u), p)``.  The fused multiply-adds are
@@ -30,8 +32,11 @@ under a mesh, ``adamw_update`` constrains ``m``, ``v`` and ``master`` to
 those axes, so each data-parallel rank keeps its slice of them, and the
 new parameters are brought back to their own placements (the
 all-gather of ZeRO-1).  Without a mesh the constraints are the
-identity.  The port's parameters are one tensor a layer where the JAX
-tree stacks them, so a stacked leaf's ZeRO dim may differ from JAX's.
+identity.  Under those constraints (which may change a moment's
+placements) the moments, master copies and step counter are new
+tensors in the state's dicts.  The port's parameters are one tensor a
+layer where the JAX tree stacks them, so a stacked leaf's ZeRO dim may
+differ from JAX's.
 """
 
 from __future__ import annotations
@@ -118,14 +123,15 @@ def fma(a, b, c):
 
 def _scalar(x, like: torch.Tensor) -> torch.Tensor:
     """A Python number as XLA's float32 constant, a 0-d tensor on
-    ``like``'s device."""
-    return torch.tensor(np.float32(x), device=like.device)
+    ``like``'s device: a fill there, since a copy from the host cannot be
+    captured."""
+    return torch.full((), np.float32(x), dtype=torch.float32, device=like.device)
 
 
-def _madd(a, x, b, y):
+def _madd(a, x, b, y, out=None):
     """``a * x + b * y`` (a, b scalars) with the one fused rounding of
-    ``fma(a, x, b * y)``."""
-    return fma(x, _scalar(a, x), y * b)
+    ``fma(a, x, b * y)``, into ``out`` when given (it may be ``x``)."""
+    return torch.addcmul(y * b, x, _scalar(a, x), out=out)
 
 
 @torch.no_grad()
@@ -133,36 +139,43 @@ def adamw_update(grads: dict, opt_state: dict, params, cfg: AdamWConfig = AdamWC
                  lr_scale=1.0, axes_tree=None):
     """One AdamW step.  ``grads`` maps parameter names to gradients;
     ``params`` is the module (or name -> tensor dict) they belong to.
-    Returns (params, new_opt_state, metrics ``grad_norm``, ``lr``); the
-    parameters are updated in place, the moments replaced in the state's
-    dicts.  With ``axes_tree`` the moments and master copies are
-    constrained to their ZeRO axes (a no-op without a mesh)."""
+    Returns (params, opt_state, metrics ``grad_norm``, ``lr``): the
+    parameters, the step counter, the moments and the master copies are
+    written in place, and the state returned is ``opt_state`` itself.
+    With ``axes_tree`` the moments and master copies are constrained to
+    their ZeRO axes (a no-op without a mesh) and, like the step counter,
+    replaced in a new state dict."""
     named = _named(params)
     zaxes, rules = None, None
     if axes_tree is not None:
         zaxes = zero_axes_tree(named, axes_tree)
         rules = get_rules().replace(_zero=("pod", "data"))
-    step = opt_state["step"] + 1
+    inplace = zaxes is None
+    step = opt_state["step"].add_(1) if inplace else opt_state["step"] + 1
     gn = global_norm(grads)
     clip = torch.clamp_max(cfg.clip_norm / torch.clamp_min(gn, 1e-9), 1.0)
-    lr = torch.as_tensor(lr_scale, dtype=torch.float32, device=gn.device) * cfg.lr
+    if not isinstance(lr_scale, torch.Tensor):
+        lr_scale = torch.full((), np.float32(lr_scale), dtype=torch.float32, device=gn.device)
+    lr = lr_scale.to(device=gn.device, dtype=torch.float32) * cfg.lr
     stepf = step.float()
     b1c = 1.0 - torch.pow(torch.full_like(stepf, cfg.b1), stepf)
     b2c = 1.0 - torch.pow(torch.full_like(stepf, cfg.b2), stepf)
     masters = opt_state.get("master")
     for name, p in named.items():
         g = grads[name].float() * clip
-        m = _madd(cfg.b1, opt_state["m"][name], 1.0 - cfg.b1, g)
-        v = _madd(cfg.b2, opt_state["v"][name], 1.0 - cfg.b2, torch.square(g))
+        m_old, v_old = opt_state["m"][name], opt_state["v"][name]
+        m = _madd(cfg.b1, m_old, 1.0 - cfg.b1, g, out=m_old if inplace else None)
+        v = _madd(cfg.b2, v_old, 1.0 - cfg.b2, torch.square(g), out=v_old if inplace else None)
         del g
-        if zaxes is not None:
+        if not inplace:
             m, v = shard(m, zaxes[name], rules), shard(v, zaxes[name], rules)
-        opt_state["m"][name], opt_state["v"][name] = m, v
+            opt_state["m"][name], opt_state["v"][name] = m, v
         update = m / (b1c * (_sqrt32(v / b2c) + cfg.eps))
         p32 = (masters[name] if masters is not None else p).float()
-        p32_n = fma(fma(p32, _scalar(cfg.weight_decay, p32), update), -lr, p32)
-        if masters is not None:
-            masters[name] = p32_n if zaxes is None else shard(p32_n, zaxes[name], rules)
+        p32_n = torch.addcmul(p32, fma(p32, _scalar(cfg.weight_decay, p32), update), -lr,
+                              out=p32 if masters is not None and inplace else None)
+        if masters is not None and not inplace:
+            masters[name] = shard(p32_n, zaxes[name], rules)
         p.copy_(p32_n.to(p.dtype))
-    new_state = dict(opt_state, step=step)
+    new_state = opt_state if inplace else dict(opt_state, step=step)
     return params, new_state, {"grad_norm": gn, "lr": lr}

@@ -7,7 +7,8 @@ itself is torch's, which may differ from XLA's in the last bit.
 
 ``step`` is an int or a tensor; the result is a float32 tensor on the
 step's device (the CPU for an int), so a schedule evaluated on a step
-counter that lives on the card costs no copy.
+counter that lives on the card costs no copy (its constants are fills
+on the card, which a captured train step can hold).
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ from repro_torch.optim.adamw import fma
 def _f32(step) -> torch.Tensor:
     if isinstance(step, torch.Tensor):
         return step.float()
-    return torch.tensor(float(step), dtype=torch.float32)
+    return torch.full((), np.float32(step), dtype=torch.float32)
 
 
 def _over(x: torch.Tensor, c: float) -> torch.Tensor:
@@ -44,6 +45,7 @@ def cosine_schedule(step, warmup_steps: int, total_steps: int,
     progress = torch.clamp(
         _over(step - warmup_steps, max(1.0, float(total_steps - warmup_steps))), 0.0, 1.0)
     wave = 1.0 + torch.cos(progress * float(np.float32(math.pi)))
-    cos = fma(wave, torch.tensor(np.float32((1.0 - final_frac) * 0.5), device=wave.device),
-              torch.full_like(wave, final_frac))
+    half = torch.full((), np.float32((1.0 - final_frac) * 0.5), dtype=torch.float32,
+                      device=wave.device)
+    cos = fma(wave, half, torch.full_like(wave, final_frac))
     return torch.where(step < warmup_steps, warm, cos)

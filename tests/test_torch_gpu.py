@@ -8,6 +8,7 @@ that has the card and no JAX:
 """
 
 import contextlib
+import io
 import re
 
 import numpy as np
@@ -1252,6 +1253,123 @@ def test_compressed_step_on_one_rank(cuda):
     assert tuple(tokens.shape) == (4, 1) and bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all())
 
 
+# --- the compiled train step: run_training's program a TrainSignature ----------------
+
+
+def _train_case(cfg, n_micro, device, steps=3):
+    """A model, its AdamW state and the step function ``run_training``
+    makes for a run of ``steps`` steps (warmup 2, lr 1e-3, seed 0)."""
+    from repro_torch.launch import train
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw_init
+
+    model = lm.init_lm(cfg, 0, device)
+    opt_cfg, step_fn = train.run_step_fn(train.TrainRun(cfg=cfg, steps=steps, lr=1e-3, warmup=2,
+                                                        n_micro=n_micro))
+    return model, adamw_init(model, opt_cfg), step_fn
+
+
+def _train_batches(cfg, device, steps, rows=4, seq=16):
+    from repro_torch.data import DataConfig, SyntheticTokenPipeline
+
+    data = SyntheticTokenPipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                                             global_batch=rows, seed=0), device=device)
+    return [data.host_batch(t) for t in range(steps)]
+
+
+@pytest.mark.parametrize("arch,n_micro", [("hymba_1p5b", 1), ("hymba_1p5b", 2),
+                                          ("qwen3_moe_30b", 2)])
+def test_compiled_train_step_equals_eager(cuda, arch, n_micro, monkeypatch):
+    """A smoke config's train step through its program (a capture, then
+    replays that call no ``lm.train_loss`` from the host) against the
+    eager step on a twin, three steps at tolerance 0: every metric, every
+    parameter, the step counter and the moments.  A program refuses a
+    state whose tensors were replaced after its capture."""
+    from repro_torch import configs
+    from repro_torch.launch import train
+    from repro_torch.models import lm
+
+    cfg = configs.get_smoke_config(arch)
+    model_e, opt_e, fn_e = _train_case(cfg, n_micro, cuda)
+    model_c, opt_c, fn_c = _train_case(cfg, n_micro, cuda)
+    programs, calls, real_loss = {}, [], lm.train_loss
+
+    def counted(*args):
+        calls.append(1)
+        return real_loss(*args)
+
+    for t, batch in enumerate(_train_batches(cfg, cuda, 3)):
+        _, _, want = fn_e(model_e, opt_e, batch)
+        if t:  # the replays: no loss from the host
+            monkeypatch.setattr(lm, "train_loss", counted)
+        got = train.compiled_step(programs, fn_c, model_c, opt_c, batch, n_micro, cuda)
+        monkeypatch.setattr(lm, "train_loss", real_loss)
+        torch.cuda.synchronize()
+        assert all(torch.equal(got[k], want[k]) for k in train.METRICS), (t, got, want)
+        assert all(map(torch.equal, train.state_tensors(model_c, opt_c),
+                       train.state_tensors(model_e, opt_e))), t
+    assert not calls and int(opt_c["step"]) == 3
+    (sig,) = programs
+    assert sig.n_micro == n_micro and sig.tokens == ((4, 16), "int32") and sig.frames is None
+    assert programs[sig].graph is not None and programs[sig].nbytes > 0
+    opt_c["step"] = opt_c["step"].clone()
+    with pytest.raises(RuntimeError, match="replaced after the capture"):
+        train.compiled_step(programs, fn_c, model_c, opt_c, batch, n_micro, cuda)
+
+
+def test_checkpoints_keep_no_generator_state_on_the_card(cuda, monkeypatch):
+    """The loss's checkpoints keep no generator state (a captured step
+    cannot read the card's generator): on the card too, the loss and every
+    gradient equal those of checkpoints that save and restore it."""
+    from torch.utils import checkpoint as ckpt
+
+    from repro_torch import configs
+    from repro_torch.models import lm
+
+    cfg = configs.get_smoke_config("hymba_1p5b")
+    model = lm.init_lm(cfg, 2, cuda).requires_grad_(True)
+    (batch,) = _train_batches(cfg, cuda, 1, rows=2, seq=8)
+
+    def loss_and_grads():
+        loss, _ = lm.train_loss(model, cfg, batch)
+        return loss, torch.autograd.grad(loss, list(model.parameters()))
+
+    def preserving(fn, *args, **kw):
+        assert kw.pop("preserve_rng_state") is False
+        return ckpt.checkpoint(fn, *args, preserve_rng_state=True, **kw)
+
+    loss, grads = loss_and_grads()
+    monkeypatch.setattr(lm, "checkpoint", preserving)
+    loss_p, grads_p = loss_and_grads()
+    assert torch.equal(loss, loss_p) and all(map(torch.equal, grads, grads_p))
+
+
+def test_run_training_replays_one_program(cuda, monkeypatch):
+    """``run_training`` on the card: one program for its one batch layout,
+    captured at the first step and replayed at the others; its losses
+    equal those of the eager steps on a twin."""
+    from repro_torch import configs, compiled
+    from repro_torch.launch import train
+
+    cfg = configs.get_smoke_config("granite3_8b")
+    verdicts, real_call = [], compiled.call
+
+    def call(programs, sig, *args, **kw):
+        out = real_call(programs, sig, *args, **kw)
+        verdicts.append(out[1])
+        return out
+
+    monkeypatch.setattr(compiled, "call", call)
+    run = train.TrainRun(cfg=cfg, steps=4, global_batch=4, seq_len=16, lr=1e-3, warmup=2,
+                         n_micro=2, log_every=100)
+    with contextlib.redirect_stdout(io.StringIO()):
+        _, opt, losses = train.run_training(run)
+    assert verdicts == ["miss", "hit", "hit", "hit"] and int(opt["step"]) == 4
+    model_e, opt_e, fn_e = _train_case(cfg, 2, cuda, steps=4)
+    want = [float(fn_e(model_e, opt_e, b)[2]["loss"]) for b in _train_batches(cfg, cuda, 4)]
+    assert losses == want
+
+
 def test_compiled_capture_failure_raises(cuda):
     """No eager fallback on a card: a target whose log-prob reads the card
     from the host cannot be captured, and the submit raises naming the
@@ -1477,3 +1595,25 @@ def test_compiled_server_capture_failure_raises(cuda, monkeypatch):
         with pytest.raises(RuntimeError, match=r"token sampler Signature\(.*torch\.cuda\.graph"):
             ts._sample_tokens_impl(prng.PRNGKey(1, device=cuda), logits, server.sampler_cfg)
         assert ts.cache_size() == 0
+
+
+def test_compiled_train_step_capture_failure_raises(cuda):
+    """No eager fallback on the card: a step function that copies from
+    the host cannot be captured; the step raises naming its
+    ``TrainSignature``, and nothing is kept."""
+    from repro_torch import configs
+    from repro_torch.launch import train
+
+    cfg = configs.get_smoke_config("granite3_8b")
+    model, opt, step_fn = _train_case(cfg, 1, cuda)
+
+    def copying(model_, opt_, batch_):
+        out = step_fn(model_, opt_, batch_)
+        out[2]["loss"] = out[2]["loss"] + torch.tensor(np.float32(0.0), device=cuda)
+        return out
+
+    programs = {}
+    (batch,) = _train_batches(cfg, cuda, 1)
+    with pytest.raises(RuntimeError, match=r"train step TrainSignature\(.*torch\.cuda\.graph"):
+        train.compiled_step(programs, copying, model, opt, batch, 1, cuda)
+    assert not programs

@@ -113,6 +113,160 @@ def test_preempt_resume_bit_exact(tmp_path):
     assert int(opt_b["step"]) == 6
 
 
+def _preempted_after(module, handler, n_batches):
+    """``module``'s pipeline with a preemption requested as its
+    ``n_batches``-th batch is drawn; restores it on exit."""
+    orig = module.SyntheticTokenPipeline.host_batch
+    calls = {"n": 0}
+
+    def counting(self, step_):
+        calls["n"] += 1
+        if calls["n"] == n_batches:
+            handler.simulate_preemption()
+        return orig(self, step_)
+
+    return counting, orig
+
+
+def test_program_count_is_jax_jit_cache(tmp_path, monkeypatch):
+    """One train program a batch signature, as JAX's ``jax.jit`` of the
+    step keeps one: a run of fixed batch layout, preempted after two steps,
+    and its resumed run each keep one program, and JAX's jit traces its
+    step once in each.  The resumed JAX run's dispatch cache holds a second
+    entry for the same trace: its restored state enters as numpy arrays
+    (``restore_latest``), where the port writes it into its own tensors."""
+    import types
+
+    jitted, traces = [], []
+    real_jit = jax.jit
+
+    def jit(fn, *args, **kw):
+        def traced(*a):
+            traces.append(len(jitted) - 1)
+            return fn(*a)
+
+        jitted.append(real_jit(traced, *args, **kw))
+        return jitted[-1]
+
+    proxy = types.SimpleNamespace(**{n: getattr(jax, n) for n in dir(jax)
+                                     if not n.startswith("__")})
+    proxy.jit = jit
+    monkeypatch.setattr(jtrain, "jax", proxy)
+    programs, real_step = [], train.compiled_step
+
+    def compiled_step(progs, *args):
+        if not any(progs is p for p in programs):
+            programs.append(progs)
+        return real_step(progs, *args)
+
+    monkeypatch.setattr(train, "compiled_step", compiled_step)
+    jcfg = jconfigs.get_smoke_config("granite3_8b")
+    tcfg = configs.get_smoke_config("granite3_8b")
+    kw = dict(steps=4, global_batch=2, seq_len=8, log_every=100, ckpt_every=100)
+    losses = {}
+    for mod, cfg, extra in ((jtrain, jcfg, {}), (train, tcfg, {"device": "cpu"})):
+        handler = PreemptionHandler()
+        counting, orig = _preempted_after(mod, handler, 2)
+        run = mod.TrainRun(cfg=cfg, ckpt_dir=str(tmp_path / mod.__name__), **kw, **extra)
+        with redirect_stdout(io.StringIO()):
+            monkeypatch.setattr(mod.SyntheticTokenPipeline, "host_batch", counting)
+            first = mod.run_training(run, preemption=handler)[2]
+            monkeypatch.setattr(mod.SyntheticTokenPipeline, "host_batch", orig)
+            losses[mod] = (first, mod.run_training(run)[2])
+    assert [len(a) for a in losses[train]] == [len(a) for a in losses[jtrain]] == [2, 2]
+    assert traces == [0, 1]
+    assert [len(p) for p in programs] == [traces.count(i) for i in range(len(jitted))] == [1, 1]
+    assert [j._cache_size() for j in jitted] == [1, 2]
+    assert all(list(p) == [train.TrainSignature(
+        tokens=((2, 8), "int32"), labels=((2, 8), "int32"), image_embeds=None, frames=None,
+        n_micro=1)] for p in programs)
+
+
+def _pointers(model, opt_state) -> list[int]:
+    return [t.data_ptr() for t in train.state_tensors(model, opt_state)]
+
+
+@pytest.mark.parametrize("resumed", [False, True])
+def test_state_is_written_in_place(tmp_path, monkeypatch, resumed):
+    """``run_training`` trains the model's parameters and the AdamW state
+    in their own tensors: after the steps (and, resumed, after
+    ``load_state``) every parameter, the step counter and every moment is
+    the tensor ``adamw_init`` saw before the first step."""
+    cfg = configs.get_smoke_config("mamba2_1p3b")
+    seen, real_init = [], train.adamw_init
+
+    def adamw_init(model, *args):
+        state = real_init(model, *args)
+        seen.append((model, state, _pointers(model, state)))
+        return state
+
+    monkeypatch.setattr(train, "adamw_init", adamw_init)
+    run = train.TrainRun(cfg=cfg, steps=3, global_batch=2, seq_len=8, log_every=100,
+                         ckpt_every=2, ckpt_dir=str(tmp_path), device="cpu")
+    with redirect_stdout(io.StringIO()):
+        if resumed:
+            train.run_training(dataclasses.replace(run, steps=2))
+        model, opt, losses = train.run_training(run)
+    (_, _, before), = seen[-1:]
+    assert len(losses) == (1 if resumed else 3) and int(opt["step"]) == 3
+    assert seen[-1][1] is opt and _pointers(model, opt) == before
+
+
+def test_load_state_and_master_copies_keep_their_tensors():
+    """``load_state`` copies a restored state into the state's own tensors
+    (the step counter too), and ``adamw_update`` with master copies writes
+    them in place and returns the state it was given."""
+    cfg = configs.get_smoke_config("granite3_8b")
+    model = lm.init_lm(cfg, seed=3, device="cpu")
+    opt = adamw.adamw_init(model)
+    tree = train.state_tree(lm.init_lm(cfg, seed=4, device="cpu"), adamw.adamw_init(model))
+    tree["opt"]["step"] = torch.tensor(5, dtype=torch.int64)
+    before = _pointers(model, opt)
+    assert train.load_state(model, opt, tree) is opt
+    assert _pointers(model, opt) == before and int(opt["step"]) == 5
+    mcfg = adamw.AdamWConfig(use_master=True)
+    opt = adamw.adamw_init(model, mcfg)
+    grads = {n: torch.full_like(p, 0.5) for n, p in model.named_parameters()}
+    before = _pointers(model, opt)
+    _, out, _ = adamw.adamw_update(grads, opt, model, mcfg, 1.0)
+    assert out is opt and _pointers(model, opt) == before and int(opt["step"]) == 1
+    assert all(torch.equal(opt["master"][n], p) for n, p in model.named_parameters())
+
+
+def test_checkpoints_keep_no_generator_state():
+    """The loss's checkpoints run with ``preserve_rng_state=False`` (a
+    captured step cannot read the card's generator): no op of the loss
+    draws a random number, so the loss and every gradient equal those of
+    checkpoints that save and restore the generator, bit for bit."""
+    from torch.utils import checkpoint as ckpt
+
+    cfg = configs.get_smoke_config("hymba_1p5b")
+    model = lm.init_lm(cfg, seed=2, device="cpu").requires_grad_(True)
+    rows = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (2, 9)).astype(np.int32))
+    batch = {"tokens": rows[:, :-1], "labels": rows[:, 1:]}
+
+    def loss_and_grads():
+        loss, _ = lm.train_loss(model, cfg, batch)
+        return loss, torch.autograd.grad(loss, list(model.parameters()))
+
+    calls = []
+
+    def preserving(fn, *args, **kw):
+        calls.append(kw.pop("preserve_rng_state"))
+        return ckpt.checkpoint(fn, *args, preserve_rng_state=True, **kw)
+
+    loss, grads = loss_and_grads()
+    real = lm.checkpoint
+    lm.checkpoint = preserving
+    try:
+        loss_p, grads_p = loss_and_grads()
+    finally:
+        lm.checkpoint = real
+    assert calls and not any(calls)
+    assert torch.equal(loss, loss_p) and all(map(torch.equal, grads, grads_p))
+
+
 def test_checkpoint_layout_is_jax(tmp_path):
     """The run state is the JAX launcher's tree: the JAX package restores
     the port's checkpoint into its own state's structure, leaf for leaf,

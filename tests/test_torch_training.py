@@ -154,6 +154,57 @@ def test_adamw_steps(clip_norm, use_master):
             assert all(t.dtype == torch.bfloat16 for t in tparams.values())
 
 
+def _bits(x: torch.Tensor) -> int:
+    assert x.dtype == torch.float32 and x.shape == ()
+    return int(x.view(torch.int32))
+
+
+def _host_cosine(step, warmup_steps, total_steps, final_frac=0.1):
+    """``schedule.cosine_schedule`` as it was before its constants became
+    fills on the device: each copied from the host by ``torch.tensor``."""
+    step = (step.float() if isinstance(step, torch.Tensor)
+            else torch.tensor(float(step), dtype=torch.float32))
+    warm = torch.clamp_max(schedule._over(step + 1.0, max(1.0, float(warmup_steps))), 1.0)
+    progress = torch.clamp(
+        schedule._over(step - warmup_steps, max(1.0, float(total_steps - warmup_steps))),
+        0.0, 1.0)
+    wave = 1.0 + torch.cos(progress * float(np.float32(np.pi)))
+    cos = adamw.fma(wave, torch.tensor(np.float32((1.0 - final_frac) * 0.5)),
+                    torch.full_like(wave, final_frac))
+    return torch.where(step < warmup_steps, warm, cos)
+
+
+def test_device_fills_equal_the_host_constants():
+    """The constants a captured train step cannot copy from the host are
+    fills on the device (``torch.full((), np.float32(x))``): each equals
+    the ``torch.tensor(np.float32(x))`` it replaced bit for bit, the
+    schedules over steps 0-30 (a Python step and a tensor one) are what
+    they were, and so are a Python ``lr_scale``'s ``lr`` and the loss's
+    ``aux_loss`` of a family without a router."""
+    cfg = adamw.AdamWConfig()
+    like = torch.zeros(3)
+    for x in (cfg.b1, cfg.b2, 1.0 - cfg.b1, 1.0 - cfg.b2, cfg.weight_decay, 0.45, 1 / 3):
+        assert _bits(adamw._scalar(x, like)) == _bits(torch.tensor(np.float32(x)))
+    for s in range(31):
+        assert _bits(schedule._f32(s)) == _bits(torch.tensor(float(s), dtype=torch.float32))
+        for args in ((5, 40), (0, 30), (20, 25)):
+            for step_ in (s, torch.tensor(s, dtype=torch.int32)):
+                assert _bits(schedule.cosine_schedule(step_, *args)) == _bits(
+                    _host_cosine(step_, *args)), (s, args)
+    params = {"w": torch.ones(4)}
+    for scale in (1.0, 0.3, 1 / 7):
+        _, _, metrics = adamw.adamw_update({"w": torch.ones(4)}, adamw.adamw_init(params),
+                                           params, cfg, scale)
+        assert _bits(metrics["lr"]) == _bits(
+            torch.as_tensor(scale, dtype=torch.float32) * cfg.lr)
+    tcfg = configs.get_smoke_config("granite3_8b")
+    model = lm.init_lm(tcfg, seed=0, device="cpu")
+    tokens = torch.zeros((1, 4), dtype=torch.int32)
+    with torch.no_grad():
+        _, metrics = lm.train_loss(model, tcfg, {"tokens": tokens, "labels": tokens})
+    assert _bits(metrics["aux_loss"]) == _bits(torch.tensor(0.0, dtype=torch.float32))
+
+
 def test_fma_is_one_rounding():
     """``adamw.fma`` (``torch.addcmul``) rounds once, as XLA's contracted
     multiply-adds do: equal to the emulation ``prng._fma32`` on a million
