@@ -162,7 +162,20 @@ Phases 20-23 (tempering and serving) run between 19 and 12 as well:
      staggered arrivals: one kernel launch per chunk and class, every
      request equal to its solo run on the card, slots reused; warm bursts
      with the port's pinned ``non_blocking`` retirement copies and with a
-     blocking copy, in turns; then a ``cim`` class at smoke size.
+     blocking copy, in turns; then a ``cim`` class at smoke size.  Each
+     chunk of a kernel class is a replay of its ``(seg, collect)``
+     program (a CUDA graph; the first call of a signature captures it);
+ 41. ``compiled_serving``: the ``serving`` phase's ``fused`` burst and
+     its ``cim`` burst, each served twice on one scheduler (cold, then
+     warm) through the classes' programs, then twice through each
+     advance's eager body (set in place of the advance by the phase, not
+     a user's switch): every request equal on both paths and to its solo
+     run at tolerance 0, one kernel launch a chunk and class, a class's
+     programs its distinct ``(seg, collect)``, a replay at step bases
+     other than its capture's after a mid-flight join; burst and
+     per-chunk host seconds, capture seconds and bytes a program, and one
+     traced chunk of each class on each path (graph launches,
+     kernel-launch calls, the card's busy share).
 
 Phases 24-28 (the autotuner, the CLIs, the serving mesh) run after 23:
 
@@ -2298,6 +2311,184 @@ def main() -> int:
          requests=len(done), launches=launches_now(), seconds=secs, served_equals_solo=exact,
          kernel_launches_per_chunk={k: sorted(set(v)) for k, v in per_chunk.items()})
     del sched, done, glass_wl, glass, rex
+
+    # 41. compiled_serving: the kernel advances' programs against their eager body
+    from repro_torch import compiled as adv_compiled
+
+    def instrument(sched, eager):
+        """Record each class's advance calls (signature, step bases, hit or
+        capture, host seconds) and each chunk's host seconds and kernel
+        launches; with ``eager`` the class's advance is its eager body."""
+        rec = {}
+        for name in ("gmm", "ising"):
+            ex = sched.executor_for(name)
+            programs = ex._advance.programs
+            real_adv = ex._advance.eager if eager else ex._advance
+            real_chunk = ex.advance_chunk
+            r = rec[name] = dict(calls=[], chunk_s=[], launches=[], programs=programs)
+
+            def advance(words, keys, step0s, *, seg, collect, real=real_adv, r=r):
+                hit = (seg, collect) in r["programs"]
+                t0 = time.perf_counter()
+                out = real(words, keys, step0s, seg=seg, collect=collect)
+                r["calls"].append(dict(sig=(seg, collect), step0s=step0s.tolist(), hit=hit,
+                                       host_s=time.perf_counter() - t0))
+                return out
+
+            def chunk(real=real_chunk, ex=ex, r=r):
+                if not ex.active_count:  # an idle class advances nothing
+                    return real()
+                n0 = sum(launches_now().values())
+                t0 = time.perf_counter()
+                done = real()
+                r["chunk_s"].append(time.perf_counter() - t0)
+                r["launches"].append(sum(launches_now().values()) - n0)
+                return done
+
+            if not eager:
+                advance.programs = programs  # advance_compiles reads it
+            ex._advance, ex.advance_chunk = advance, chunk
+        return rec
+
+    def timed_serve(sched, reqs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sched.serve(reqs)
+        seconds = time.perf_counter() - t0
+        return seconds
+
+    def compiled_serving_case(case, randomness, smoke, wkw, make_reqs, trace_steps):
+        """``make_reqs()`` on 4 slots a class, through the programs and
+        through the eager body, each path cold then warm on one
+        scheduler; then one chunk of each class traced on each path, with
+        4 requests of ``trace_steps`` steps in its slots."""
+        runs, served = {}, {}
+        for path in ("programs", "eager"):
+            sched = serving.Scheduler(n_slots=4, randomness=randomness, execution="pallas",
+                                      smoke=smoke, workload_kwargs=wkw)
+            rec = instrument(sched, path == "eager")
+            captures = []
+            real_capture = adv_compiled.capture
+
+            def capture(fn, inputs, device, what, *args, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = real_capture(fn, inputs, device, what, *args, **kw)
+                torch.cuda.synchronize()
+                captures.append((what, time.perf_counter() - t0))
+                return out
+
+            adv_compiled.capture = capture
+            torch.cuda.synchronize()
+            reset_launches()
+            try:
+                cold = make_reqs()
+                cold_s = timed_serve(sched, cold)
+                torch.cuda.synchronize()
+                launches = launches_now()
+                n_cold = {k: len(v["calls"]) for k, v in rec.items()}
+                warm = make_reqs()
+                warm_s = timed_serve(sched, warm)
+            finally:
+                adv_compiled.capture = real_capture
+            where = f"compiled_serving {case} {path}"
+            check(all(n == 1 for v in rec.values() for n in v["launches"]),
+                  f"{where}: chunks launched {[v['launches'] for v in rec.values()]}")
+            for a, b in zip(cold, warm):
+                check(all(np.array_equal(getattr(a, f), getattr(b, f)) for f in
+                          ("samples", "final_words", "accept_count", "final_logp")),
+                      f"{where}: request {a.rid} differs between the cold and warm bursts")
+            if path == "programs":
+                launches_by_path[f"compiled_serving_{case}"] = launches
+                for name, v in rec.items():
+                    sigs = {c["sig"] for c in v["calls"]}
+                    check(len(v["programs"]) == len(sigs)
+                          and all(p.graph is not None for p in v["programs"].values()),
+                          f"{where} {name}: {len(v['programs'])} programs for {sigs}")
+                    check(sum(not c["hit"] for c in v["calls"]) == len(sigs),
+                          f"{where} {name}: captured more than once a signature")
+                check(sched.compiled_programs == sum(len(v["programs"]) for v in rec.values()),
+                      f"{where}: {sched.compiled_programs} advance signatures counted")
+            served[path] = (cold, warm)
+            runs[path] = dict(sched=sched, rec=rec, captures=captures, cold_s=cold_s,
+                              warm_s=warm_s, n_cold=n_cold)
+        for a, b in zip(served["programs"][0], served["eager"][0]):
+            check(all(np.array_equal(getattr(a, f), getattr(b, f)) for f in
+                      ("samples", "final_words", "accept_count", "final_logp")),
+                  f"compiled_serving {case}: request {a.rid} differs from its eager twin")
+        exact = served_equals_solo(served["programs"][0], randomness, smoke, wkw)
+        # a replay at other step bases than its capture's, after a mid-flight join
+        captured_at, rejoined = {}, 0
+        for name, v in runs["programs"]["rec"].items():
+            for c in v["calls"]:
+                if not c["hit"]:
+                    captured_at[(name, c["sig"])] = c["step0s"]
+                elif (c["step0s"] != captured_at[(name, c["sig"])] and 0 in c["step0s"]
+                      and max(c["step0s"]) > 0):
+                    rejoined += 1
+        paths = {}
+        for path, run in runs.items():
+            per_class = {}
+            for name, v in run["rec"].items():
+                warm_calls = v["calls"][run["n_cold"][name]:]
+                per_class[name] = dict(
+                    chunks=len(v["calls"]), signatures=sorted({c["sig"] for c in v["calls"]}),
+                    kernel_launches_per_chunk=sorted(set(v["launches"])),
+                    warm_chunk_host_s_median=float(np.median(v["chunk_s"][run["n_cold"][name]:])),
+                    warm_advance_host_s_median=float(np.median([c["host_s"] for c in warm_calls])),
+                    warm_advance_host_s_range=[min(c["host_s"] for c in warm_calls),
+                                               max(c["host_s"] for c in warm_calls)])
+                if path == "programs":
+                    per_class[name].update(
+                        programs=len(v["programs"]),
+                        program_bytes={f"{k[0]},{k[1]}": p.nbytes
+                                       for k, p in v["programs"].items()})
+            paths[path] = dict(cold_burst_s=run["cold_s"], warm_burst_s=run["warm_s"],
+                               capture_s=run["captures"], classes=per_class)
+        # one chunk of each class traced on each path, its 4 slots filled at
+        # step 0 and one chunk run first (a new signature is captured there)
+        for path, run in runs.items():
+            for name in ("gmm", "ising"):
+                ex = run["sched"].executor_for(name)
+                for i in range(4):
+                    ex.admit(serving.ServeRequest(rid=1000 + i, workload=name, seed=300 + i,
+                                                  n_steps=trace_steps, collect="all"))
+                ex.advance_chunk()
+                calls = []
+                events, wall_ms = traced(
+                    torch, ex.advance_chunk,
+                    "mh_chain_kernel" if name == "gmm" else "gibbs_band_kernel",
+                    lambda: sum(launches_now().values()), host_calls=calls)
+                while ex.active_count:
+                    ex.advance_chunk()
+                ex.drain()
+                busy = sum(e.self_device_time_total for e in events) / 1e3
+                paths[path]["classes"][name]["traced_chunk"] = dict(
+                    wall_ms=wall_ms, busy_ms=busy, busy_share=busy / wall_ms,
+                    graph_launches=sum(c == "cudaGraphLaunch" for c in calls),
+                    kernel_launch_calls=sum("Launch" in c and c != "cudaGraphLaunch"
+                                            for c in calls),
+                    memcpy_calls=sum("Memcpy" in c for c in calls))
+        graph_launches = [paths["programs"]["classes"][k]["traced_chunk"]["graph_launches"]
+                          for k in ("gmm", "ising")]
+        check(graph_launches == [1, 1],
+              f"compiled_serving {case}: a traced chunk made {graph_launches} graph launches")
+        emit(phase="compiled_serving", case=case, randomness=randomness, smoke=smoke,
+             n_slots=4, requests=len(served["programs"][0]), bit_equal_eager=True,
+             served_equals_solo=exact, replays_after_a_join_at_other_step0s=rejoined,
+             launches=launches_by_path[f"compiled_serving_{case}"], **paths)
+        return rejoined
+
+    def cim_burst():
+        return [serving.ServeRequest(rid=r.rid, workload=r.workload, n_steps=r.n_steps,
+                                     seed=r.seed, collect=r.collect, t_arrive=r.t_arrive)
+                for r in cim_reqs]
+
+    t_phase = time.perf_counter()
+    rejoined = compiled_serving_case("fused", "fused", False, s_kw, burst, 32 * 16)
+    rejoined += compiled_serving_case("cim", "cim", True, {}, cim_burst, 32 * 16)
+    check(rejoined > 0, "no chunk replayed a program at other step bases after a join")
+    emit(phase="compiled_serving_total", seconds=time.perf_counter() - t_phase)
 
     # 24-28. the autotuner, the CLIs and the serving mesh ---------------------
     from repro_torch.launch import monitor as cli_monitor

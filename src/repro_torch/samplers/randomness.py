@@ -18,7 +18,10 @@ Chunked streaming contract: the operands of absolute step ``t`` depend
 only on ``(key, t)`` — host/cim fold ``t`` into the key, fused folds it
 into the cipher counter — so any chunking yields the same stream.
 ``need_flips=False`` returns ``(None, u)`` with an unchanged u stream.
-Operands land on the key's device.
+Operands land on the key's device.  A start is an int or a 0-d int64
+tensor on the key's device (JAX's draw takes a traced start): the same
+start draws the same bits either way, and a tensor start is never read
+on the host, so a draw at a step held on the card can be captured.
 """
 
 from __future__ import annotations
@@ -45,10 +48,16 @@ def chain_keys(key: torch.Tensor, num_chains: int, base: int = 0) -> torch.Tenso
     return prng.fold_in(key, ids)
 
 
-def step_keys(key: torch.Tensor, start: int, n_steps: int) -> torch.Tensor:
+def _steps(start, n_steps: int, device) -> torch.Tensor:
+    """Absolute steps [start, start + n) as int64 on ``device``; ``start``
+    an int or a 0-d int64 tensor there."""
+    base = start if isinstance(start, torch.Tensor) else int(start)
+    return base + torch.arange(n_steps, dtype=torch.int64, device=device)
+
+
+def step_keys(key: torch.Tensor, start, n_steps: int) -> torch.Tensor:
     """(n_steps, 2) per-step keys for absolute steps [start, start + n)."""
-    ts = int(start) + torch.arange(n_steps, dtype=torch.int64, device=key.device)
-    return prng.fold_in(key, ts)
+    return prng.fold_in(key, _steps(start, n_steps, key.device))
 
 
 @runtime_checkable
@@ -58,7 +67,7 @@ class RandomnessBackend(Protocol):
     name: str
 
     def chunk(
-        self, key, start: int, n_steps: int, shape: tuple, nbits: int,
+        self, key, start, n_steps: int, shape: tuple, nbits: int,
         need_flips: bool = True,
     ) -> tuple[torch.Tensor | None, torch.Tensor]:
         """Operands for steps [start, start + n_steps): flips
@@ -128,8 +137,7 @@ class FusedRandomness:
     def chunk(self, key, start, n_steps, shape, nbits, need_flips=True):
         k0, k1 = rng.key_words(key)
         site = rng.site_index(shape, device=key.device)
-        ts = int(start) + torch.arange(n_steps, dtype=torch.int64, device=key.device)
-        s0, s1 = rng.step_key(k0, k1, ts)
+        s0, s1 = rng.step_key(k0, k1, _steps(start, n_steps, key.device))
         s0 = s0.reshape(n_steps, *(1,) * len(shape))
         s1 = s1.reshape(n_steps, *(1,) * len(shape))
         u = rng.uniform_at(s0, s1, site)

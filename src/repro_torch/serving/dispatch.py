@@ -17,35 +17,42 @@ the PyTorch port of ``repro.serving.dispatch``.
     lattice axis (per-lattice ``t0b`` / ``parity0``) — so slots at
     different absolute steps advance in one launch on their solo streams.
     Host/cim randomness draws each slot's operands at its own offset and
-    folds them.
+    folds them.  Each chunk runs through a compiled program of its
+    ``(seg, collect)`` (``repro_torch.compiled``): on the card one CUDA
+    graph replay, the slot keys and step bases staged into it.
   * ``SegmentPipeline`` bounds how far host-side finalisation may lag
     the device; the executor issues each retiring slot's copies to the
     host (``to_host``: pinned memory, ``non_blocking``, an event) right
     behind its own segment, so a finalize waits for that segment alone.
 
 Donation: JAX donates the carried slot state to the next segment and
-deletes the old buffers.  PyTorch has no donation; the port keeps the
-carry in a ``Carry`` and ``poison_donated`` drops its tensor after each
-dispatch, so a stale read raises ``RuntimeError`` instead of seeing an
-outdated state.  (Resizing the tensor's storage to zero would free it
-too, but a read of such a tensor is not checked: ``x + 1`` on it crashed
-the process under torch 2.13 on the CPU.)
+deletes the old buffers.  The scan class call returns a new carry; the
+kernel advance writes the final words back into the carry it was given,
+as a donated buffer is reused, so the executor keeps one words tensor
+for its life and a program holds it.  Either way the executor hands the
+old ``Carry`` to ``poison_donated``, which drops its tensor, so a stale
+read raises ``RuntimeError`` instead of seeing an outdated state.
+(Resizing the tensor's storage to zero would free it too, but a read of
+such a tensor is not checked: ``x + 1`` on it crashed the process under
+torch 2.13 on the CPU.)
 
 ``jit_cache_size`` counts the distinct ``(seg, collect)`` signatures an
 advance function has run: the programs the JAX package compiles for
-them.  The port's advance functions run eagerly; the port's compiled
-programs are ``submit(compiled=True)``'s CUDA graphs, one a signature
-(``samplers/plan.py``), and no advance function is captured yet.
+them.  The kernel advance keeps one ``compiled.Program`` for each (on
+the CPU a record of the signature, the body run directly); the scan
+class advance runs eagerly and records its signatures only.
 """
 
 from __future__ import annotations
 
 from collections import deque
 
+import functools
+
 import numpy as np
 import torch
 
-from repro_torch import telemetry
+from repro_torch import compiled, telemetry
 from repro_torch.kernels.gibbs import ops as gibbs_ops
 from repro_torch.kernels.mh import ops as mh_ops
 from repro_torch.samplers import RunPlan
@@ -90,8 +97,9 @@ class Carry:
 
 def jit_cache_size(fn) -> int:
     """Distinct ``(seg, collect)`` signatures ``fn`` (an advance function
-    of this module) has run; 0 for any other callable."""
-    return len(getattr(fn, "signatures", ()))
+    of this module) has run: the kernel advance's programs, the scan
+    class advance's recorded signatures; 0 for any other callable."""
+    return len(getattr(fn, "programs", getattr(fn, "signatures", ())))
 
 
 def poison_donated(*carries) -> None:
@@ -144,15 +152,6 @@ def _advance_fn(body):
 
     advance.signatures = set()
     return advance
-
-
-def _per_slot(values, repeat: int, device) -> torch.Tensor:
-    """Host ints, each repeated ``repeat`` times, as an int64 tensor made
-    on ``device`` by fills: no copy from the host, so the chunk loop does
-    not wait for the card."""
-    return torch.cat([
-        torch.full((repeat,), int(v), dtype=torch.int64, device=device) for v in values
-    ])
 
 
 def make_class_advance_fn(members, n_pad: int, n_slots: int, mesh=None):
@@ -220,99 +219,130 @@ def make_class_advance_fn(members, n_pad: int, n_slots: int, mesh=None):
     return _advance_fn(body)
 
 
+def _compiled_advance(body, device, what: str):
+    """``body(words, keys, step0s, *, seg, collect) -> (samples, acc)``,
+    which writes the final words into ``words``, as an advance function
+    with one ``compiled.Program`` a ``(seg, collect)`` in its ``programs``:
+    JAX's jit with ``seg`` and ``collect`` static.  A program holds the
+    carry tensor it captured and stages ``keys`` and ``step0s`` (a host
+    or card tensor) into its buffers; on the card a failed capture or
+    replay raises the ``RuntimeError`` naming the signature, and a carry
+    other than the captured one raises too.  ``advance.eager`` runs the
+    body directly, outside any program: the twin a check compares a
+    program with."""
+    programs: dict = {}
+
+    def advance(words, keys, step0s, *, seg: int, collect: str):
+        sig = (int(seg), collect)
+        where = f"{what} (seg={sig[0]}, collect={collect!r})"
+        held = programs.get(sig)
+        if held is not None and held.graph is not None and held.holds is not words:
+            raise RuntimeError(
+                f"{where}: the slot carry was replaced after the capture; the program "
+                "reads and writes the one it captured")
+        (samples, acc), _ = compiled.call(
+            programs, sig, functools.partial(body, words, seg=sig[0], collect=collect),
+            (keys, step0s), device, where, holds=words, name="the packed segment")
+        return samples, words, acc
+
+    def eager(words, keys, step0s, *, seg: int, collect: str):
+        samples, acc = body(words, keys, step0s.to(device, non_blocking=True), seg=int(seg),
+                            collect=collect)
+        return samples, words, acc
+
+    advance.programs = programs
+    advance.eager = eager
+    return advance
+
+
 def make_pallas_advance_fn(engine, target, state_shape: tuple):
     """The packed pallas segment: one kernel call over ALL slots a chunk.
 
-    Returns ``advance(words, keys, step0s, *, seg, collect, active)`` ->
-    ``(samples, words', accept)``, each with a leading slot axis and the
+    Returns ``advance(words, keys, step0s, *, seg, collect)`` ->
+    ``(samples, words, accept)``, each with a leading slot axis and the
     member's shaped state.  The fold is the engine's chains-axis fold
     with slots in place of chains — slot-major into the MH column axis
     (site = i·C + c stays the solo site index) or the Gibbs lattice axis
     (i mod B stays the solo lattice index) — and the kernels take
     per-column / per-lattice key words and absolute-step bases as
     operands, so every slot advances on its solo stream in one launch.
-    ``keys`` are the slots' stream keys: each request key already folded
-    as ``engine.run`` folds it (``chain_key(key, 0)``, once at admission).
-    Host/cim randomness draws the operands of each occupied slot at its
-    own offset; free slots get zeros.
+    ``keys`` (S, 2) are the slots' stream keys: each request key already
+    folded as ``engine.run`` folds it (``chain_key(key, 0)``, once at
+    admission); ``step0s`` is the (S,) int64 tensor of their absolute
+    steps.  Every slot runs, as under JAX's ``vmap``: host/cim randomness
+    draws each slot's operands at its own offset, a free slot's under the
+    dummy key at step 0, and a free slot's outputs reach no request.
 
-    ``words'`` is a new tensor (never a view of ``samples``): the caller
-    deletes the old carry, and a kept row must survive that.  No logp
-    carry crosses segments here: the caller derives a retiring slot's
-    final log-prob from its words (``final_logp``).  The Gibbs logit spec
-    is taken once (``_fused_gibbs_logit``): a tempered lattice hands over
-    its scaled spec.
+    ``words`` is the carry: the final words are written back into it (the
+    Gibbs kernels' int32 spins widened into the int64 carry) and it is
+    returned as the new carry, while ``samples`` and ``accept`` are new
+    tensors on every call, so a kept row outlives the next segment.  No
+    logp carry crosses segments here: the caller derives a retiring
+    slot's final log-prob from its words (``final_logp``) before the next
+    segment overwrites them.  The Gibbs logit spec is taken once
+    (``_fused_gibbs_logit``): a tempered lattice hands over its scaled
+    spec.
     """
     backend = engine.randomness
     update = engine.config.update
-    dev = engine.device
 
-    def operands(keys, step0s, active, seg, shape, nbits, need_flips):
-        flips, us = [], []
-        for s in range(keys.shape[0]):
-            if s in active:
-                f, u = backend.chunk(keys[s], step0s[s], seg, shape, nbits, need_flips=need_flips)
-            else:
-                u = torch.zeros((seg, *shape), dtype=torch.float32, device=dev)
-                f = torch.zeros((seg, *shape), dtype=torch.int64, device=dev) if need_flips else None
-            flips.append(f)
-            us.append(u)
-        return flips, us
+    def operands(keys, step0s, seg, shape, nbits, need_flips):
+        """Each slot's (flips, u) at its own offset: no host read of a
+        step base, so the draw is captured with the kernel."""
+        return [backend.chunk(keys[s], step0s[s], seg, shape, nbits, need_flips=need_flips)
+                for s in range(keys.shape[0])]
 
     if update == "mh":
         nbits = target.nbits
         b, c = state_shape
 
-        def body(words, keys, step0s, *, seg, collect, active):
+        def body(words, keys, step0s, *, seg, collect):
             s = words.shape[0]
             state0 = words.permute(1, 0, 2).reshape(b, s * c)
             if backend.name == "fused":
                 k0c, k1c = _fused_key_cols(keys, c)
                 samples, acc = mh_ops.mh_sample_fused(
-                    target.table, state0, k0c, k1c, n_steps=seg, t0=_per_slot(step0s, c, dev),
-                    nbits=nbits, p_bfr=backend.p_bfr, cc=c,
+                    target.table, state0, k0c, k1c, n_steps=seg,
+                    t0=step0s.repeat_interleave(c), nbits=nbits, p_bfr=backend.p_bfr, cc=c,
                 )
             else:
-                flips, us = operands(keys, step0s, active, seg, (b, c), nbits, True)
+                ops = operands(keys, step0s, seg, (b, c), nbits, True)
                 samples, acc = mh_ops.mh_sample(
-                    target.table, state0, _chains_fold_mh(torch.stack(flips)),
-                    _chains_fold_mh(torch.stack(us)), nbits=nbits,
+                    target.table, state0, _chains_fold_mh(torch.stack([f for f, _ in ops])),
+                    _chains_fold_mh(torch.stack([u for _, u in ops])), nbits=nbits,
                 )
             # (seg, b, s*c) -> (s, seg, b, c): slot-major columns
             samples = samples.reshape(seg, b, s, c).permute(2, 0, 1, 3)
             acc = acc.reshape(b, s, c).permute(1, 0, 2)
-            words_out = samples[:, -1].clone()
-            if collect != "all":
-                samples = samples[:, :0]
-            return samples, words_out, acc
+            words.copy_(samples[:, -1])
+            return (samples if collect == "all" else samples[:, :0]), acc
 
     else:
         spec = _fused_gibbs_logit(target)
         b, h, w = state_shape
 
-        def body(words, keys, step0s, *, seg, collect, active):
+        def body(words, keys, step0s, *, seg, collect):
             s = words.shape[0]
             state0 = words.reshape(s * b, h, w)
             if backend.name == "fused":
                 k0b, k1b = _fused_key_cols(keys, b)
                 samples, acc = gibbs_ops.gibbs_sweep_fused(
-                    state0, k0b, k1b, spec, n_steps=seg, t0=_per_slot(step0s, b, dev), lat_b=b,
+                    state0, k0b, k1b, spec, n_steps=seg, t0=step0s.repeat_interleave(b),
+                    lat_b=b,
                 )
             else:
-                _, us = operands(keys, step0s, active, seg, (b, h, w), 1, False)
+                us = [u for _, u in operands(keys, step0s, seg, (b, h, w), 1, False)]
                 u = torch.stack(us, dim=1).reshape(seg, s * b, h, w)
                 samples, acc = gibbs_ops.gibbs_sweep(
-                    state0, u, spec, parity0=_per_slot([t % 2 for t in step0s], b, dev),
+                    state0, u, spec, parity0=(step0s % 2).repeat_interleave(b),
                 )
             # (seg, s*b, h, w) -> (s, seg, b, h, w): slot-major lattices
             samples = samples.reshape(seg, s, b, h, w).permute(1, 0, 2, 3, 4)
             acc = acc.reshape(s, b, h, w)
-            words_out = samples[:, -1].to(torch.int64)  # widened: a new tensor
-            if collect != "all":
-                samples = samples[:, :0]
-            return samples, words_out, acc
+            words.copy_(samples[:, -1])  # int32 spins widened into the int64 carry
+            return (samples if collect == "all" else samples[:, :0]), acc
 
-    return _advance_fn(body)
+    return _compiled_advance(body, engine.device, f"packed {update} advance")
 
 
 def final_logp(engine, target, words: torch.Tensor) -> torch.Tensor:

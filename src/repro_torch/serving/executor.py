@@ -10,7 +10,8 @@ runs because each slot replays exactly the solo call:
     the next segment and then deleted (``dispatch.poison_donated``) —
     stored *flat* (one zero-padded vector per slot) under scan execution
     so heterogeneous workload members share the pool, and shaped under
-    pallas (kernel geometry is per workload);
+    pallas (kernel geometry is per workload), where one tensor serves the
+    executor's life: each segment writes its final words back into it;
   * each slot streams from its *request's* key (``PRNGKey(seed)`` split
     exactly as the JAX package's ``launch.sample`` does), so the stream
     belongs to the request, never to the slot;
@@ -32,10 +33,12 @@ strided slice of its slot's rows on absolute steps ``(step0 + t) % k ==
 Retirement copies are issued right behind their own segment
 (``dispatch.to_host``: pinned memory, ``non_blocking``, an event), so a
 deferred finalize waits for that segment only, never for the kernels
-queued after it.  ``advance_compiles`` counts the distinct advance
+queued after it: under pallas execution before the next segment
+overwrites the carry.  ``advance_compiles`` counts the distinct advance
 signatures (``dispatch.jit_cache_size``): the programs the JAX package
-compiles.  The port runs its advances eagerly: only
-``submit(compiled=True)`` captures a program (a CUDA graph).
+compiles.  Under pallas execution each is a compiled program of the
+port (on the card a CUDA graph, replayed once a chunk); the scan class
+advance runs eagerly.
 """
 
 from __future__ import annotations
@@ -469,6 +472,8 @@ class PackedExecutor:
         return finished
 
     def _segment_inputs(self, active):
+        """(collect, step0s, keys): every slot's absolute step as host ints
+        (0 for a free slot) and the (S, 2) stack of its stream key."""
         collect = (
             "all" if any(self._slots[i].mode != "last" for i in active) else "last"
         )
@@ -515,13 +520,16 @@ class PackedExecutor:
         )
 
     def _advance_pallas(self, active, seg: int) -> list:
-        """One kernel call over all slots: shaped words carry, per-slot
-        key words and step base (dispatch.make_pallas_advance_fn)."""
+        """One kernel call over all slots (dispatch.make_pallas_advance_fn):
+        the shaped words carry, written in place, and each slot's key words
+        and step base, staged as an (S,) int64 tensor.  The new ``Carry``
+        wraps the same tensor; the old one is poisoned all the same."""
         collect, step0s, keys = self._segment_inputs(active)
         old_words = self.words
         before = dispatch.jit_cache_size(self._advance)
         samples, words, acc = self._advance(
-            old_words.tensor, keys, step0s, seg=seg, collect=collect, active=active,
+            old_words.tensor, keys, torch.tensor(step0s, dtype=torch.int64), seg=seg,
+            collect=collect,
         )
         self._count_compiles(before)
         self.words = Carry(words)
@@ -537,8 +545,9 @@ class PackedExecutor:
 
     def _bookkeep(self, active, seg, collect, rows_of, acc_of, words_of, logp_of) -> list:
         """Per-slot segment bookkeeping: issue the copies of kept rows and
-        retirement payloads to the host NOW, right behind this segment
-        (the getters read the segment's outputs, never a deleted carry),
+        retirement payloads to the host NOW, right behind this segment and
+        before the next one overwrites a carry written in place (the
+        getters read the segment's outputs, never a deleted carry),
         advance progress, collect retirees."""
         retired = []
         for i in active:

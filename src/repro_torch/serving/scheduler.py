@@ -260,8 +260,9 @@ class Scheduler:
     @property
     def compiled_programs(self) -> int:
         """Advance signatures across all classes: the programs the JAX
-        package compiles per burst.  The port compiles none at run time
-        (``PackedExecutor.advance_compiles``)."""
+        package compiles per burst (``PackedExecutor.advance_compiles``).
+        A kernel class keeps a compiled program for each (on the card a
+        CUDA graph); a scan class runs its advance eagerly."""
         return sum(ex.advance_compiles for ex in self.executors.values())
 
     @property

@@ -795,13 +795,93 @@ def test_packed_chunk_is_one_launch(cuda, workload, randomness):
     ex.drain()
     assert chunks > 0
     for r in reqs:
-        k_init, k_run = prng.split(prng.PRNGKey(r.seed, device=cuda))
-        wl = workloads.build(workload, k_init, randomness=randomness, backend="pallas",
-                             smoke=True)
-        ref_ = wl.engine.run(k_run, wl.target, r.n_steps, wl.init_words, collect=r.collect)
-        assert np.array_equal(r.samples, ref_.samples.cpu().numpy())
-        assert np.array_equal(r.final_words, ref_.final_words.cpu().numpy())
-        assert np.array_equal(r.accept_count, ref_.accept_count.cpu().numpy())
+        _assert_served_equals_solo(r, workload, randomness, cuda)
+
+
+def _assert_served_equals_solo(r, workload, randomness, cuda):
+    k_init, k_run = prng.split(prng.PRNGKey(r.seed, device=cuda))
+    wl = workloads.build(workload, k_init, randomness=randomness, backend="pallas", smoke=True)
+    ref_ = wl.engine.run(k_run, wl.target, r.n_steps, wl.init_words, collect=r.collect)
+    assert np.array_equal(r.samples, ref_.samples.cpu().numpy())
+    assert np.array_equal(r.final_words, ref_.final_words.cpu().numpy())
+    assert np.array_equal(r.accept_count, ref_.accept_count.cpu().numpy())
+    assert np.array_equal(r.final_logp, ref_.final_logp.cpu().numpy())
+
+
+# the kernel advance's bursts: (chunk steps, the (rid, seed, steps, collect)
+# admitted before each chunk): a mid-flight join, then a third request in
+# the slot the second retires from
+ADVANCE_PLANS = {
+    "gmm": (8, [[(0, 1, 48, "all")], [(1, 2, 16, "thin:3")], [], [], [(2, 3, 32, "last")]]),
+    "ising": (4, [[(0, 5, 32, "all")], [(1, 6, 16, "thin:3")], [], [], [], [],
+                  [(2, 7, 32, "last")]]),
+}
+
+
+def _serve_advance_plan(workload, randomness, eager=False, record=None):
+    """``ADVANCE_PLANS[workload]`` through a kernel executor on the card,
+    its finalize deferred to the drain; with ``eager`` through the
+    advance's body alone; ``record`` gets each call's handed-out
+    ``(samples, accept)`` beside clones taken at once.  Returns (the
+    requests, the advance's programs)."""
+    from repro_torch import serving
+
+    chunk, plan = ADVANCE_PLANS[workload]
+    ex = serving.PackedExecutor.for_workload(workload, n_slots=2, randomness=randomness,
+                                             execution="pallas", smoke=True, chunk_steps=chunk,
+                                             pipeline_depth=16)
+    programs = ex._advance.programs
+    real = ex._advance.eager if eager else ex._advance
+
+    def advance(*args, **kw):
+        out = real(*args, **kw)
+        if record is not None:
+            record.append(((out[0], out[2]), (out[0].clone(), out[2].clone())))
+        return out
+
+    ex._advance = advance
+    reqs = []
+    for admits in plan:
+        for rid, seed, n, collect in admits:
+            reqs.append(serving.ServeRequest(rid=rid, workload=workload, n_steps=n, seed=seed,
+                                             collect=collect))
+            ex.admit(reqs[-1])
+        ex.advance_chunk()
+    while ex.active_count:
+        ex.advance_chunk()
+    ex.drain()
+    return reqs, programs
+
+
+@pytest.mark.parametrize("workload", ["gmm", "ising"])
+@pytest.mark.parametrize("randomness", ["fused", "cim"])
+def test_compiled_advance_equals_eager_body(cuda, workload, randomness):
+    """Each chunk of the kernel advance is a replay of its (seg, collect)
+    program, captured at other step bases; over a burst with a mid-flight
+    join and a reused slot every request equals, at tolerance 0, its twin
+    served through the advance's eager body and its solo run."""
+    reqs, programs = _serve_advance_plan(workload, randomness)
+    twins, unused = _serve_advance_plan(workload, randomness, eager=True)
+    assert programs and all(p.graph is not None for p in programs.values()) and not unused
+    for r, t in zip(reqs, twins):
+        for f in ("samples", "final_words", "accept_count", "final_logp"):
+            assert np.array_equal(getattr(r, f), getattr(t, f)), (r.rid, f)
+        _assert_served_equals_solo(r, workload, randomness, cuda)
+
+
+@pytest.mark.parametrize("workload", ["gmm", "ising"])
+def test_compiled_advance_results_survive_replays(cuda, workload):
+    """The samples and accept counts a replay hands out are its own
+    tensors, and the retirement payloads are copied behind their segment:
+    later replays, which overwrite the carry, change none of them."""
+    record = []
+    reqs, programs = _serve_advance_plan(workload, "fused", record=record)
+    torch.cuda.synchronize()
+    assert len(record) > len(programs)
+    for handed, clones in record:
+        assert all(map(torch.equal, handed, clones))
+    for r in reqs:
+        _assert_served_equals_solo(r, workload, "fused", cuda)
 
 
 # --- the autotuner and the CLIs on the card ------------------------------------------
@@ -1617,3 +1697,26 @@ def test_compiled_train_step_capture_failure_raises(cuda):
     with pytest.raises(RuntimeError, match=r"train step TrainSignature\(.*torch\.cuda\.graph"):
         train.compiled_step(programs, copying, model, opt, batch, 1, cuda)
     assert not programs
+
+
+def test_compiled_advance_capture_failure_raises(cuda, monkeypatch):
+    """No eager fallback on the card: a kernel advance whose body copies
+    from the host cannot be captured; the chunk raises naming its
+    ``(seg, collect)``, and nothing is kept."""
+    from repro_torch import serving
+    from repro_torch.kernels.mh import ops as mh_ops
+
+    real = mh_ops.mh_sample_fused
+
+    def copying(*args, **kw):
+        samples, acc = real(*args, **kw)
+        return samples + torch.tensor(0, dtype=torch.int64, device=cuda), acc
+
+    ex = serving.PackedExecutor.for_workload("gmm", n_slots=2, randomness="fused",
+                                             execution="pallas", smoke=True, chunk_steps=8)
+    ex.admit(serving.ServeRequest(rid=0, workload="gmm", n_steps=16, seed=1, collect="all"))
+    monkeypatch.setattr(mh_ops, "mh_sample_fused", copying)
+    with pytest.raises(RuntimeError,
+                       match=r"packed mh advance \(seg=8, collect='all'\): .*torch\.cuda\.graph"):
+        ex.advance_chunk()
+    assert not ex._advance.programs

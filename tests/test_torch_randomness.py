@@ -56,6 +56,24 @@ def test_chunk_streams(name, start, nbits):
     assert torch.equal(lean, tu)
 
 
+@pytest.mark.parametrize("name", ["host", "cim", "fused"])
+@pytest.mark.parametrize("start", [0, 13, 2**31 - 3])
+def test_tensor_start_draws_what_an_int_start_draws(name, start):
+    """A 0-d int64 tensor start (a step base held on the card, never read
+    on the host) draws the int start's operands bit for bit."""
+    tb = trand.make_randomness_backend(name, p_bfr=0.4, rng_p_bfr=0.45, rng_bit_width=12,
+                                       rng_stages=2)
+    key = trand.chain_key(prng.PRNGKey(2), 1)
+    t = torch.tensor(start, dtype=torch.int64)
+    assert torch.equal(trand.step_keys(key, t, 6), trand.step_keys(key, start, 6))
+    for need_flips in (True, False):
+        f, u = tb.chunk(key, start, 4, (3, 5), 16, need_flips=need_flips)
+        tf, tu = tb.chunk(key, t, 4, (3, 5), 16, need_flips=need_flips)
+        assert torch.equal(tu, u)
+        assert (tf is None) == (f is None) == (not need_flips)
+        assert f is None or torch.equal(tf, f)
+
+
 @partitionable
 def test_chunking_invariance():
     tb = trand.CIMRandomness()

@@ -295,13 +295,46 @@ def test_packed_pallas_matches_packed_scan():
 
 def test_advance_signatures_are_counted():
     """``advance_compiles`` counts distinct (seg, collect) signatures, the
-    programs the JAX package compiles; the port compiles none."""
+    programs the JAX package compiles: the kernel advance keeps one
+    program for each (on the CPU the record of its signature)."""
     ex = make_executor(execution="pallas")
     ex.admit(req(0, "gmm", 20, 2))
     run_to_completion(ex)
     assert ex.advance_compiles == 2  # (8, "all") and the final (4, "all")
+    assert set(ex._advance.programs) == {(8, "all"), (4, "all")}
     assert dispatch.jit_cache_size(ex._advance) == 2
     assert dispatch.jit_cache_size(len) == 0
+
+
+@pytest.mark.parametrize("workload,randomness,chunk,plan", [
+    # (rid, seed, steps) admitted before each chunk; the third request
+    # reuses the slot the second retires from
+    ("gmm", "cim", 8, [[(0, 1, 48)], [(1, 2, 16)], [], [], [(2, 3, 32)]]),
+    ("ising", "fused", 4, [[(0, 5, 32)], [(1, 6, 16)], [], [], [], [], [(2, 5, 32)]]),
+])
+def test_kernel_carry_is_written_in_place(workload, randomness, chunk, plan):
+    """The kernel advance writes each segment's final words into the one
+    carry tensor the executor holds for its life, across a mid-flight
+    join, a retirement and the reuse of the freed slot; a retiring slot's
+    payloads are copied behind its own segment, before the next one
+    overwrites the carry (the finalize is deferred to the drain)."""
+    ex = PackedExecutor.for_workload(workload, n_slots=2, randomness=randomness,
+                                     execution="pallas", smoke=True, chunk_steps=chunk,
+                                     pipeline_depth=16, device="cpu")
+    carry = ex.words.tensor
+    ptr = carry.data_ptr()
+    reqs, slots, done = [], [], []
+    for admits in plan:
+        for rid, seed, n in admits:
+            reqs.append(req(rid, workload, n, seed))
+            slots.append(ex.admit(reqs[-1]))
+        done.extend(ex.advance_chunk())
+        assert ex.words.tensor is carry
+    assert slots[2] == slots[1]  # the freed slot, reused
+    assert {r.rid for r in done + run_to_completion(ex)} == {0, 1, 2}
+    assert ex.words.tensor is carry and carry.data_ptr() == ptr
+    for r in reqs:
+        assert_matches_solo(r, randomness)
 
 
 # --- the donation guard ------------------------------------------------------------
