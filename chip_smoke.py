@@ -166,15 +166,15 @@ Phases 20-23 (tempering and serving) run between 19 and 12 as well:
      chunk of a kernel class is a replay of its ``(seg, collect)``
      program (a CUDA graph; the first call of a signature captures it);
  41. ``compiled_serving``: the ``serving`` phase's ``fused`` burst and
-     its ``cim`` burst, each served twice on one scheduler (cold, then
-     warm) through the classes' programs, then twice through each
-     advance's eager body (set in place of the advance by the phase, not
-     a user's switch): every request equal on both paths and to its solo
+     its ``cim`` burst, each served cold and warm through the classes'
+     programs and through each advance's eager body (set in place of
+     the advance by the phase, not a user's switch), one scheduler a
+     path, the paths in turns: every request equal on both paths and to its solo
      run at tolerance 0, one kernel launch a chunk and class, a class's
      programs its distinct ``(seg, collect)``, a replay at step bases
      other than its capture's after a mid-flight join; burst and
-     per-chunk host seconds, capture seconds and bytes a program, and one
-     traced chunk of each class on each path (graph launches,
+     per-chunk host seconds, capture seconds and bytes a program, and two
+     traced chunks of each class on each path, in turns (graph launches,
      kernel-launch calls, the card's busy share).
 
 Phases 24-28 (the autotuner, the CLIs, the serving mesh) run after 23:
@@ -2359,67 +2359,71 @@ def main() -> int:
 
     def compiled_serving_case(case, randomness, smoke, wkw, make_reqs, trace_steps):
         """``make_reqs()`` on 4 slots a class, through the programs and
-        through the eager body, each path cold then warm on one
-        scheduler; then one chunk of each class traced on each path, with
-        4 requests of ``trace_steps`` steps in its slots."""
-        runs, served = {}, {}
+        through the eager body, one scheduler a path, in turns: programs
+        cold, eager cold, programs warm, eager warm; then a chunk of each
+        class traced on each path, twice, with 4 requests of
+        ``trace_steps`` steps in its slots."""
+        runs = {}
         for path in ("programs", "eager"):
             sched = serving.Scheduler(n_slots=4, randomness=randomness, execution="pallas",
                                       smoke=smoke, workload_kwargs=wkw)
-            rec = instrument(sched, path == "eager")
-            captures = []
-            real_capture = adv_compiled.capture
+            runs[path] = dict(sched=sched, rec=instrument(sched, path == "eager"),
+                              captures=[], seconds={}, served={})
+        real_capture = adv_compiled.capture
 
-            def capture(fn, inputs, device, what, *args, **kw):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                out = real_capture(fn, inputs, device, what, *args, **kw)
-                torch.cuda.synchronize()
-                captures.append((what, time.perf_counter() - t0))
-                return out
-
-            adv_compiled.capture = capture
+        def capture(fn, inputs, device, what, *args, **kw):
             torch.cuda.synchronize()
-            reset_launches()
-            try:
-                cold = make_reqs()
-                cold_s = timed_serve(sched, cold)
-                torch.cuda.synchronize()
-                launches = launches_now()
-                n_cold = {k: len(v["calls"]) for k, v in rec.items()}
-                warm = make_reqs()
-                warm_s = timed_serve(sched, warm)
-            finally:
-                adv_compiled.capture = real_capture
+            t0 = time.perf_counter()
+            out = real_capture(fn, inputs, device, what, *args, **kw)
+            torch.cuda.synchronize()
+            runs["programs"]["captures"].append((what, time.perf_counter() - t0))
+            return out
+
+        adv_compiled.capture = capture
+        try:
+            for burst in ("cold", "warm"):
+                for path, run in runs.items():
+                    reqs = make_reqs()
+                    torch.cuda.synchronize()
+                    counted = burst == "cold" and path == "programs"
+                    if counted:
+                        reset_launches()
+                    run["seconds"][burst] = timed_serve(run["sched"], reqs)
+                    torch.cuda.synchronize()
+                    if counted:
+                        launches_by_path[f"compiled_serving_{case}"] = launches_now()
+                    run["served"][burst] = reqs
+        finally:
+            adv_compiled.capture = real_capture
+        fields = ("samples", "final_words", "accept_count", "final_logp")
+        for path, run in runs.items():
             where = f"compiled_serving {case} {path}"
+            rec = run["rec"]
             check(all(n == 1 for v in rec.values() for n in v["launches"]),
                   f"{where}: chunks launched {[v['launches'] for v in rec.values()]}")
-            for a, b in zip(cold, warm):
-                check(all(np.array_equal(getattr(a, f), getattr(b, f)) for f in
-                          ("samples", "final_words", "accept_count", "final_logp")),
+            for a, b in zip(run["served"]["cold"], run["served"]["warm"]):
+                check(all(np.array_equal(getattr(a, f), getattr(b, f)) for f in fields),
                       f"{where}: request {a.rid} differs between the cold and warm bursts")
-            if path == "programs":
-                launches_by_path[f"compiled_serving_{case}"] = launches
-                for name, v in rec.items():
-                    sigs = {c["sig"] for c in v["calls"]}
-                    check(len(v["programs"]) == len(sigs)
-                          and all(p.graph is not None for p in v["programs"].values()),
-                          f"{where} {name}: {len(v['programs'])} programs for {sigs}")
-                    check(sum(not c["hit"] for c in v["calls"]) == len(sigs),
-                          f"{where} {name}: captured more than once a signature")
-                check(sched.compiled_programs == sum(len(v["programs"]) for v in rec.values()),
-                      f"{where}: {sched.compiled_programs} advance signatures counted")
-            served[path] = (cold, warm)
-            runs[path] = dict(sched=sched, rec=rec, captures=captures, cold_s=cold_s,
-                              warm_s=warm_s, n_cold=n_cold)
-        for a, b in zip(served["programs"][0], served["eager"][0]):
-            check(all(np.array_equal(getattr(a, f), getattr(b, f)) for f in
-                      ("samples", "final_words", "accept_count", "final_logp")),
-                  f"compiled_serving {case}: request {a.rid} differs from its eager twin")
-        exact = served_equals_solo(served["programs"][0], randomness, smoke, wkw)
+        for burst in ("cold", "warm"):
+            for a, b in zip(runs["programs"]["served"][burst], runs["eager"]["served"][burst]):
+                check(all(np.array_equal(getattr(a, f), getattr(b, f)) for f in fields),
+                      f"compiled_serving {case}: request {a.rid} ({burst}) differs from its "
+                      "eager twin")
+        run = runs["programs"]
+        for name, v in run["rec"].items():
+            sigs = {c["sig"] for c in v["calls"]}
+            check(len(v["programs"]) == len(sigs)
+                  and all(p.graph is not None for p in v["programs"].values()),
+                  f"compiled_serving {case} {name}: {len(v['programs'])} programs for {sigs}")
+            check(sum(not c["hit"] for c in v["calls"]) == len(sigs),
+                  f"compiled_serving {case} {name}: captured more than once a signature")
+        check(run["sched"].compiled_programs == sum(len(v["programs"])
+                                                    for v in run["rec"].values()),
+              f"compiled_serving {case}: {run['sched'].compiled_programs} signatures counted")
+        exact = served_equals_solo(run["served"]["cold"], randomness, smoke, wkw)
         # a replay at other step bases than its capture's, after a mid-flight join
         captured_at, rejoined = {}, 0
-        for name, v in runs["programs"]["rec"].items():
+        for name, v in run["rec"].items():
             for c in v["calls"]:
                 if not c["hit"]:
                     captured_at[(name, c["sig"])] = c["step0s"]
@@ -2430,51 +2434,64 @@ def main() -> int:
         for path, run in runs.items():
             per_class = {}
             for name, v in run["rec"].items():
-                warm_calls = v["calls"][run["n_cold"][name]:]
+                # a chunk of a known signature: a replay, or an eager chunk
+                # after the signature's first
+                seen, known = set(), []
+                for c, chunk_s in zip(v["calls"], v["chunk_s"]):
+                    if c["hit"] if path == "programs" else c["sig"] in seen:
+                        known.append((chunk_s, c["host_s"]))
+                    seen.add(c["sig"])
                 per_class[name] = dict(
-                    chunks=len(v["calls"]), signatures=sorted({c["sig"] for c in v["calls"]}),
+                    chunks=len(v["calls"]), known_signature_chunks=len(known),
+                    signatures=sorted({c["sig"] for c in v["calls"]}),
                     kernel_launches_per_chunk=sorted(set(v["launches"])),
-                    warm_chunk_host_s_median=float(np.median(v["chunk_s"][run["n_cold"][name]:])),
-                    warm_advance_host_s_median=float(np.median([c["host_s"] for c in warm_calls])),
-                    warm_advance_host_s_range=[min(c["host_s"] for c in warm_calls),
-                                               max(c["host_s"] for c in warm_calls)])
+                    chunk_host_s_median=float(np.median([k[0] for k in known])),
+                    advance_host_s_median=float(np.median([k[1] for k in known])),
+                    advance_host_s_range=[min(k[1] for k in known), max(k[1] for k in known)])
                 if path == "programs":
                     per_class[name].update(
                         programs=len(v["programs"]),
                         program_bytes={f"{k[0]},{k[1]}": p.nbytes
                                        for k, p in v["programs"].items()})
-            paths[path] = dict(cold_burst_s=run["cold_s"], warm_burst_s=run["warm_s"],
+            paths[path] = dict(cold_burst_s=run["seconds"]["cold"],
+                               warm_burst_s=run["seconds"]["warm"],
                                capture_s=run["captures"], classes=per_class)
-        # one chunk of each class traced on each path, its 4 slots filled at
-        # step 0 and one chunk run first (a new signature is captured there)
-        for path, run in runs.items():
-            for name in ("gmm", "ising"):
-                ex = run["sched"].executor_for(name)
-                for i in range(4):
-                    ex.admit(serving.ServeRequest(rid=1000 + i, workload=name, seed=300 + i,
-                                                  n_steps=trace_steps, collect="all"))
-                ex.advance_chunk()
-                calls = []
-                events, wall_ms = traced(
-                    torch, ex.advance_chunk,
-                    "mh_chain_kernel" if name == "gmm" else "gibbs_band_kernel",
-                    lambda: sum(launches_now().values()), host_calls=calls)
-                while ex.active_count:
+        # one chunk of each class traced on each path, twice, the paths in
+        # turns (the first trace of a run pays for new pinned host blocks);
+        # its 4 slots filled at step 0 and one chunk run first (a new
+        # signature is captured there); thin:64 keeps one row a slot every
+        # other 32-step chunk, as the burst's ising requests do, so the
+        # traced chunks copy alike to pinned memory on both paths
+        for turn in range(2):
+            for path, run in runs.items():
+                for name in ("gmm", "ising"):
+                    ex = run["sched"].executor_for(name)
+                    for i in range(4):
+                        ex.admit(serving.ServeRequest(
+                            rid=1000 + i, workload=name, seed=300 + 10 * turn + i,
+                            n_steps=trace_steps, collect="thin:64"))
                     ex.advance_chunk()
-                ex.drain()
-                busy = sum(e.self_device_time_total for e in events) / 1e3
-                paths[path]["classes"][name]["traced_chunk"] = dict(
-                    wall_ms=wall_ms, busy_ms=busy, busy_share=busy / wall_ms,
-                    graph_launches=sum(c == "cudaGraphLaunch" for c in calls),
-                    kernel_launch_calls=sum("Launch" in c and c != "cudaGraphLaunch"
-                                            for c in calls),
-                    memcpy_calls=sum("Memcpy" in c for c in calls))
-        graph_launches = [paths["programs"]["classes"][k]["traced_chunk"]["graph_launches"]
-                          for k in ("gmm", "ising")]
-        check(graph_launches == [1, 1],
-              f"compiled_serving {case}: a traced chunk made {graph_launches} graph launches")
+                    calls = []
+                    events, wall_ms = traced(
+                        torch, ex.advance_chunk,
+                        "mh_chain_kernel" if name == "gmm" else "gibbs_band_kernel",
+                        lambda: sum(launches_now().values()), host_calls=calls)
+                    while ex.active_count:
+                        ex.advance_chunk()
+                    ex.drain()
+                    busy = sum(e.self_device_time_total for e in events) / 1e3
+                    paths[path]["classes"][name].setdefault("traced_chunks", []).append(dict(
+                        wall_ms=wall_ms, busy_ms=busy, busy_share=busy / wall_ms,
+                        graph_launches=sum(c == "cudaGraphLaunch" for c in calls),
+                        kernel_launch_calls=sum("Launch" in c and c != "cudaGraphLaunch"
+                                                for c in calls),
+                        memcpy_calls=sum("Memcpy" in c for c in calls)))
+        graph_launches = [t["graph_launches"] for k in ("gmm", "ising")
+                          for t in paths["programs"]["classes"][k]["traced_chunks"]]
+        check(graph_launches == [1] * 4,
+              f"compiled_serving {case}: traced chunks made {graph_launches} graph launches")
         emit(phase="compiled_serving", case=case, randomness=randomness, smoke=smoke,
-             n_slots=4, requests=len(served["programs"][0]), bit_equal_eager=True,
+             n_slots=4, requests=len(runs["programs"]["served"]["cold"]), bit_equal_eager=True,
              served_equals_solo=exact, replays_after_a_join_at_other_step0s=rejoined,
              launches=launches_by_path[f"compiled_serving_{case}"], **paths)
         return rejoined

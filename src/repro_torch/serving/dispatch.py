@@ -45,9 +45,8 @@ class advance runs eagerly and records its signatures only.
 
 from __future__ import annotations
 
-from collections import deque
-
 import functools
+from collections import deque
 
 import numpy as np
 import torch
