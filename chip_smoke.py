@@ -177,7 +177,8 @@ Phases 20-23 (tempering and serving) run between 19 and 12 as well:
      traced chunks of each class on each path, in turns (graph launches,
      kernel-launch calls, the card's busy share).
 
-Phases 24-28 (the autotuner, the CLIs, the serving mesh) run after 23:
+Phases 24-28 (the autotuner, the CLIs, the serving mesh) run after 23,
+and phase 42 right after 28:
 
  24. ``autotune_mh``: ``samplers.autotune_config`` on the MH main path
      (B = 64, V = 49,155, C = 256, ``fused``, ``execution="auto"``: scan
@@ -202,8 +203,28 @@ Phases 24-28 (the autotuner, the CLIs, the serving mesh) run after 23:
      ``nccl`` ``DeviceMesh`` serves a mixed burst at the serving phase's
      shapes (4 ``gmm`` requests of 512 steps at their default widths, 2
      ``ising`` requests of 256 steps at 1024 x 1024 x 2, one shape class)
-     equal to the unsharded one request for request, then both are timed
-     warm in turns; under ``pallas`` the mesh is refused.
+     equal to the unsharded one request for request, each chunk a replay
+     of its ``(seg, collect)`` program with the all-gather inside, then
+     both are timed warm in turns; under ``pallas`` the mesh is refused;
+ 42. ``compiled_scan``: the scan-side programs against their twins.
+     Serving: phase 28's burst (``fused``, full width) and phase 23's
+     ``cim`` smoke burst on one 4-slot ``gmm`` + ``ising`` scan class,
+     cold and warm through the class's programs and through its
+     advance's eager body, in turns: every request equal on both paths
+     and to its solo scan run at tolerance 0, one program a ``(seg,
+     collect)`` captured once, cut into a graph for every slot's every
+     member (a section) of which a chunk replays the occupied slots'
+     own, replays at other step bases and slot layouts after a
+     mid-flight join, two traced chunks a path.  Tempering: a
+     ``ReplicaExchange`` under scan (8 replicas, ``Ladder.geometric(8,
+     0.25, 1.0)``, 16-step segments, 64 steps) on the spin glass at
+     1024 x 1024 x 4 (``collect="last"``) and at 64 x 64 (``"all"``), and
+     a 4-replica ``TableTarget`` MH ladder (``"all"``), through the
+     segment programs and through direct submits, cold and warm: every
+     run equal to its twin, one program a replica and segment length.
+     It prints host seconds a chunk or segment, kernel-launch calls and
+     the busy share of traced chunks and runs, and each program's
+     capture seconds, node count and bytes held.
 
 Each path of 24-27 counts its launches from 0 and holds each kernel's
 first launch there against its plain version (tolerance 0).
@@ -458,6 +479,11 @@ CLI_LADDER_STEPS = 64  # the sample CLI's ladder: 8 replicas x 1024 x 1024 x 4, 
 # and steps (scan runs ~1 ms of host-driven torch ops a step: 4 gmm requests
 # of 2,048 steps took 9-12 s a burst on the H100); one warm pair in turns
 M_GMM, M_GMM_STEPS, M_ISING, M_ISING_STEPS, MESH_TURNS = 4, 512, 2, 256, 1
+# tempering under scan through its segment programs (phase 42): the spin
+# glass at LAT x LAT x LAT_B with collect "last" ("all" would keep 16 GiB of
+# rows), a SCAN_T_SMALL lattice with "all", and a TableTarget MH ladder
+SCAN_T_REPLICAS, SCAN_T_STEPS, SCAN_T_SWAP, SCAN_T_SMALL = 8, 64, 16, 64
+SCAN_MH_B, SCAN_MH_V, SCAN_MH_C = 16, 4096, 64
 # the LLM server: granite-3 8B at full width and depth (bfloat16) through
 # launch/serve.py:main; then decode steps timed one by one
 LLM_ARCH, LLM_REQUESTS, LLM_SLOTS, LLM_PROMPT, LLM_GEN = "granite3_8b", 8, 4, 128, 32
@@ -2691,12 +2717,28 @@ def main() -> int:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             done = sched.serve(mesh_burst())
-            return {r.rid: r for r in done}, time.perf_counter() - t0, sched.shape_classes
+            return {r.rid: r for r in done}, time.perf_counter() - t0, sched
 
-        plain, mesh_cold_s, n_classes = mesh_serve(None)
+        plain, mesh_cold_s, plain_sched = mesh_serve(None)
+        n_classes = plain_sched.shape_classes
+        del plain_sched
         reset_launches()
-        sharded, mesh_s, _ = mesh_serve(mesh)
+        sharded, mesh_s, mesh_sched = mesh_serve(mesh)
         launches_by_path["serving_mesh"] = launches_now()
+        # the sharded class call, its all-gather included, runs as the
+        # programs of its (seg, collect) signatures (the ising member's
+        # join rebuilt the advance, whose first programs were freed, so
+        # more signatures were counted than are held)
+        mesh_programs = {f"{k[0]},{k[1]}": p for ex in mesh_sched.executors.values()
+                         for k, p in ex._advance.programs.items()}
+        mesh_signatures = mesh_sched.compiled_programs
+        check(mesh_programs and all(p.graph is not None for p in mesh_programs.values())
+              and mesh_signatures >= len(mesh_programs),
+              f"serving_mesh: {mesh_signatures} signatures, programs "
+              f"{ {k: p.graph is not None for k, p in mesh_programs.items()} }")
+        mesh_programs = {k: dict(graphs=len(p.graph.pieces), sections=len(p.sections),
+                                 bytes=p.nbytes) for k, p in mesh_programs.items()}
+        del mesh_sched
         check(len(sharded) == M_GMM + M_ISING, f"served {len(sharded)} requests on the mesh")
         for rid, r in sharded.items():
             check(all(np.array_equal(getattr(r, f), getattr(plain[rid], f)) for f in
@@ -2720,8 +2762,294 @@ def main() -> int:
          requests={"gmm": M_GMM, "ising": M_ISING}, ising=s_kw, gmm_n_steps=M_GMM_STEPS,
          ising_n_steps=M_ISING_STEPS,
          shape_classes=n_classes, equals_unsharded=True, cold_unsharded_seconds=mesh_cold_s,
-         first_mesh_seconds=mesh_s, warm_seconds=warm,
+         first_mesh_seconds=mesh_s, warm_seconds=warm, mesh_programs=mesh_programs,
+         mesh_signatures=mesh_signatures,
          launches=launches_by_path["serving_mesh"], pallas_refused=refused)
+
+    # 42. compiled_scan: the scan class advance's and tempering's scan segment
+    # programs against their eager twins -----------------------------------
+    t_phase = time.perf_counter()
+    scan_captures = []
+    real_capture = adv_compiled.capture
+
+    def timed_capture(fn, inputs, device, what, *args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        adv_compiled.KEEP_GRAPHS = True  # to count every program's nodes
+        try:
+            program, result = real_capture(fn, inputs, device, what, *args, **kw)
+        finally:
+            adv_compiled.KEEP_GRAPHS = False
+        torch.cuda.synchronize()
+        scan_captures.append(dict(what=what, seconds=time.perf_counter() - t0,
+                                  nodes=program.nodes, bytes=program.nbytes,
+                                  sections=len(program.sections),
+                                  section_nodes=sum(program.sections.values())))
+        return program, result
+
+    def scan_instrument(sched, eager):
+        """Make the gmm + ising shape class (both members before any
+        request) and record its advance calls (signature, step bases,
+        capture or replay, host seconds) and each chunk's host seconds;
+        with ``eager`` the class's advance is its eager body."""
+        ex = sched.executor_for("gmm")
+        check(sched.executor_for("ising") is ex and len(ex.members) == 2,
+              "compiled_scan: gmm and ising are not one shape class")
+        programs = ex._advance.programs
+        real_adv = ex._advance.eager if eager else ex._advance
+        real_chunk = ex.advance_chunk
+        rec = dict(calls=[], chunk_s=[], programs=programs, ex=ex)
+
+        def advance(words, logp, keys, step0s, *, seg, collect, layout):
+            hit = (seg, collect) in programs
+            t0 = time.perf_counter()
+            out = real_adv(words, logp, keys, step0s, seg=seg, collect=collect, layout=layout)
+            rec["calls"].append(dict(sig=(seg, collect), step0s=step0s.tolist(), hit=hit,
+                                     layout=layout, host_s=time.perf_counter() - t0))
+            return out
+
+        def chunk():
+            if not ex.active_count:
+                return real_chunk()
+            t0 = time.perf_counter()
+            done = real_chunk()
+            rec["chunk_s"].append(time.perf_counter() - t0)
+            return done
+
+        if not eager:
+            advance.programs = programs  # advance_compiles reads it
+        ex._advance, ex.advance_chunk = advance, chunk
+        return rec
+
+    def scan_solo(req, randomness, smoke, wkw):
+        k_init, k_run = prng.split(prng.PRNGKey(req.seed, device=dev))
+        wl = workloads.build(req.workload, k_init, randomness=randomness, backend="scan",
+                             smoke=smoke, **(wkw if req.workload == "ising" else {}))
+        return wl.engine.run(k_run, wl.target, req.n_steps or wl.n_steps, wl.init_words,
+                             collect=req.collect)
+
+    served_fields = ("samples", "final_words", "accept_count", "final_logp")
+
+    def scan_serving_case(case, randomness, smoke, wkw, make_reqs, trace_steps):
+        """``make_reqs()`` on one 4-slot gmm + ising scan class, through the
+        programs and through the eager body, one scheduler a path, in
+        turns: programs cold, eager cold, programs warm, eager warm; then
+        two chunks traced on each path, in turns, with 2 gmm and 2 ising
+        requests of ``trace_steps`` steps in the slots."""
+        runs = {}
+        for path in ("programs", "eager"):
+            sched = serving.Scheduler(n_slots=4, randomness=randomness, execution="scan",
+                                      smoke=smoke, workload_kwargs=wkw)
+            runs[path] = dict(sched=sched, rec=scan_instrument(sched, path == "eager"),
+                              seconds={}, served={})
+        del scan_captures[:]
+        adv_compiled.capture = timed_capture
+        try:
+            for burst in ("cold", "warm"):
+                for path, run in runs.items():
+                    reqs = make_reqs()
+                    run["seconds"][burst] = timed_serve(run["sched"], reqs)
+                    torch.cuda.synchronize()
+                    run["served"][burst] = reqs
+        finally:
+            adv_compiled.capture = real_capture
+        captures = list(scan_captures)
+        where = f"compiled_scan serving {case}"
+        for path, run in runs.items():
+            for a, b in zip(run["served"]["cold"], run["served"]["warm"]):
+                check(all(np.array_equal(getattr(a, f), getattr(b, f)) for f in served_fields),
+                      f"{where} {path}: request {a.rid} differs between the cold and warm bursts")
+        for burst in ("cold", "warm"):
+            for a, b in zip(runs["programs"]["served"][burst], runs["eager"]["served"][burst]):
+                check(all(np.array_equal(getattr(a, f), getattr(b, f)) for f in served_fields),
+                      f"{where}: request {a.rid} ({burst}) differs from its eager twin")
+        for req in runs["programs"]["served"]["cold"]:
+            ref_ = scan_solo(req, randomness, smoke, wkw)
+            check(all(np.array_equal(getattr(req, f), getattr(ref_, f).cpu().numpy())
+                      for f in served_fields),
+                  f"{where}: request {req.rid} ({req.workload}) != its solo scan run")
+        rec = runs["programs"]["rec"]
+        sigs = {c["sig"] for c in rec["calls"]}
+        check(len(rec["programs"]) == len(sigs) == len(captures)
+              and all(p.graph is not None for p in rec["programs"].values()),
+              f"{where}: {len(rec['programs'])} programs, {len(captures)} captures for {sigs}")
+        check(sum(not c["hit"] for c in rec["calls"]) == len(sigs),
+              f"{where}: captured more than once a signature")
+        check(runs["programs"]["sched"].compiled_programs == len(sigs),
+              f"{where}: {runs['programs']['sched'].compiled_programs} signatures counted")
+        captured_at, rejoined, relaid = {}, 0, 0
+        for c in rec["calls"]:
+            if not c["hit"]:
+                captured_at[c["sig"]] = (c["step0s"], c["layout"])
+                continue
+            if c["step0s"] != captured_at[c["sig"]][0] and max(c["step0s"]) > 0:
+                rejoined += 1
+            relaid += c["layout"] != captured_at[c["sig"]][1]
+        paths = {}
+        for path, run in runs.items():
+            r_ = run["rec"]
+            seen, known = set(), []
+            for c, chunk_s in zip(r_["calls"], r_["chunk_s"]):
+                if c["hit"] if path == "programs" else c["sig"] in seen:
+                    known.append((chunk_s, c["host_s"]))
+                seen.add(c["sig"])
+            paths[path] = dict(
+                cold_burst_s=run["seconds"]["cold"], warm_burst_s=run["seconds"]["warm"],
+                chunks=len(r_["calls"]), known_signature_chunks=len(known),
+                signatures=sorted({c["sig"] for c in r_["calls"]}),
+                chunk_host_s_median=float(np.median([k[0] for k in known])),
+                advance_host_s_median=float(np.median([k[1] for k in known])),
+                advance_host_s_range=[min(k[1] for k in known), max(k[1] for k in known)])
+        paths["programs"]["captures"] = captures
+        for turn in range(2):
+            for path, run in runs.items():
+                ex = run["rec"]["ex"]
+                for i, name in enumerate(("gmm", "gmm", "ising", "ising")):
+                    ex.admit(serving.ServeRequest(rid=1000 + i, workload=name,
+                                                  seed=300 + 10 * turn + i, n_steps=trace_steps,
+                                                  collect="thin:64"))
+                ex.advance_chunk()
+                calls = []
+                events, wall_ms = traced(torch, ex.advance_chunk, host_calls=calls)
+                while ex.active_count:
+                    ex.advance_chunk()
+                ex.drain()
+                busy = sum(e.self_device_time_total for e in events) / 1e3
+                paths[path].setdefault("traced_chunks", []).append(dict(
+                    wall_ms=wall_ms, busy_ms=busy, busy_share=busy / wall_ms,
+                    graph_launches=sum(c == "cudaGraphLaunch" for c in calls),
+                    kernel_launch_calls=sum("Launch" in c and c != "cudaGraphLaunch"
+                                            for c in calls),
+                    memcpy_calls=sum("Memcpy" in c for c in calls)))
+        # a traced chunk has 4 slots occupied: it replays their 4 sections
+        # and the graphs between sections
+        graph_launches = [t["graph_launches"] for t in paths["programs"]["traced_chunks"]]
+        between = {sum(k is None for k, _, _ in p.graph.pieces) for p in rec["programs"].values()}
+        check(all(g - 4 in between for g in graph_launches),
+              f"{where}: traced chunks made {graph_launches} graph launches, "
+              f"{between} graphs between sections")
+        emit(phase="compiled_scan", part="serving", case=case, randomness=randomness,
+             smoke=smoke, n_slots=4, members=["gmm", "ising"], ising=wkw or "smoke",
+             requests=len(runs["programs"]["served"]["cold"]), bit_equal_eager=True,
+             served_equals_solo=True, replays_at_other_step0s=rejoined,
+             replays_at_other_layouts=relaid,
+             layouts=sorted({str(c["layout"]) for c in rec["calls"]}), **paths)
+        return rejoined, relaid
+
+    rejoined, relaid = scan_serving_case("fused", "fused", False, s_kw, mesh_burst, 32 * 4)
+    more = scan_serving_case("cim", "cim", True, {}, cim_burst, 32 * 4)
+    check(rejoined + more[0] > 0, "compiled_scan: no chunk replayed a program at other step bases")
+    check(relaid + more[1] > 0, "compiled_scan: no chunk replayed a program at another layout")
+
+    def scan_tempering_case(case, eng, target, init, n_steps, swap, ladder, trace):
+        """A ``ReplicaExchange`` under scan through its segment programs and
+        through direct submits (``exchange._segment_body`` at the host's
+        int step: the twin), in turns, cold then warm; with ``trace`` one
+        run of each path traced."""
+        from repro_torch.tempering import exchange
+
+        rex = tempering.ReplicaExchange(ladder, eng, swap_every=swap)
+        inits = init.expand(ladder.num_replicas, *init.shape)
+        tkey_ = prng.PRNGKey(SEED + 5, device=dev)
+        seg_s = {"programs": [], "direct": []}
+        real_seg = exchange._scan_segment
+
+        def segment(path):
+            def run_segment(programs_, engine, target_, n, cid, key_, init_, step):
+                t0 = time.perf_counter()
+                if path == "programs":
+                    out = real_seg(programs_, engine, target_, n, cid, key_, init_, step)
+                else:
+                    out = exchange._segment_body(engine, target_, n, cid, key_, init_, step)
+                seg_s[path].append(time.perf_counter() - t0)
+                return out
+            return run_segment
+
+        results, seconds, programs = {}, {}, rex._programs
+        del scan_captures[:]
+        adv_compiled.capture = timed_capture
+        try:
+            for turn in ("cold", "warm"):
+                for path in ("programs", "direct"):
+                    exchange._scan_segment = segment(path)
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    results[turn, path] = rex.run(tkey_, target, n_steps, inits)
+                    torch.cuda.synchronize()
+                    seconds[turn, path] = time.perf_counter() - t0
+            traced_runs = {}
+            if trace:
+                for path in ("programs", "direct"):
+                    exchange._scan_segment = segment(path)
+                    calls = []
+                    events, wall_ms = traced(
+                        torch, lambda: rex.run(tkey_, target, n_steps, inits), host_calls=calls)
+                    busy = sum(e.self_device_time_total for e in events) / 1e3
+                    traced_runs[path] = dict(
+                        wall_ms=wall_ms, busy_ms=busy, busy_share=busy / wall_ms,
+                        graph_launches=sum(c == "cudaGraphLaunch" for c in calls),
+                        kernel_launch_calls=sum("Launch" in c and c != "cudaGraphLaunch"
+                                                for c in calls))
+        finally:
+            exchange._scan_segment = real_seg
+            adv_compiled.capture = real_capture
+        where = f"compiled_scan tempering {case}"
+        fields = ("samples", "accept_count", "final_words", "final_logp")
+        for turn in ("cold", "warm"):
+            a, b = results[turn, "programs"], results[turn, "direct"]
+            check(all(same_words(getattr(a, f), getattr(b, f)) for f in fields)
+                  and a.swap.summary() == b.swap.summary()
+                  and all(np.array_equal(getattr(a.swap, f), getattr(b.swap, f))
+                          for f in ("attempts", "accepts", "events", "round_trips")),
+                  f"{where}: the {turn} run differs from its direct-submit twin")
+        check(all(same_words(getattr(results["cold", "programs"], f),
+                             getattr(results["warm", "programs"], f)) for f in fields),
+              f"{where}: the warm run differs from the cold one")
+        lengths = {min(swap, n_steps - s) for s in range(0, n_steps, swap)}
+        want = ladder.num_replicas * len(lengths)
+        check(len(programs) == want == len(scan_captures)
+              and all(p.graph is not None for p in programs.values())
+              and len({p.graph.pool() for p in programs.values()}) == 1,
+              f"{where}: {len(programs)} programs, {len(scan_captures)} captures, want {want}")
+        held_bytes = sum(p.nbytes for p in programs.values())
+        res = results["cold", "programs"]
+        check(bool(torch.isfinite(res.final_logp).all()), f"{where}: non-finite final_logp")
+        n_seg = ladder.num_replicas * len(range(0, n_steps, swap))
+        emit(phase="compiled_scan", part="tempering", case=case, replicas=ladder.num_replicas,
+             betas=list(ladder.betas), n_steps=n_steps, swap_every=swap,
+             collect=eng.config.collect, state=list(init.shape), bit_equal_direct=True,
+             programs=len(programs), captures=list(scan_captures),
+             run_s={f"{t},{p}": v for (t, p), v in seconds.items()},
+             segment_host_s_median={
+                 p: float(np.median(v[-n_seg:])) for p, v in seg_s.items()},
+             segment_host_s_range={p: [min(v[-n_seg:]), max(v[-n_seg:])]
+                                   for p, v in seg_s.items()},
+             programs_bytes_held=held_bytes, swap=res.swap.summary(), traced=traced_runs)
+        programs.clear()
+
+    sg_wl = workloads.build("spin_glass", prng.PRNGKey(SEED, device=dev), randomness="fused",
+                            backend="scan", height=LAT, width=LAT, batch=LAT_B, collect="last",
+                            chunk_steps=SCAN_T_SWAP)
+    scan_tempering_case("spin_glass_full_width_last", sg_wl.engine, sg_wl.target,
+                        sg_wl.init_words, SCAN_T_STEPS, SCAN_T_SWAP,
+                        tempering.Ladder.geometric(SCAN_T_REPLICAS, 0.25, 1.0), trace=True)
+    del sg_wl
+    sg_small = workloads.build("spin_glass", prng.PRNGKey(SEED + 1, device=dev),
+                               randomness="fused", backend="scan", height=SCAN_T_SMALL,
+                               width=SCAN_T_SMALL, batch=LAT_B, collect="all",
+                               chunk_steps=SCAN_T_SWAP)
+    scan_tempering_case(f"spin_glass_{SCAN_T_SMALL}_all", sg_small.engine, sg_small.target,
+                        sg_small.init_words, SCAN_T_STEPS, SCAN_T_SWAP,
+                        tempering.Ladder.geometric(SCAN_T_REPLICAS, 0.25, 1.0), trace=False)
+    gen_t = torch.Generator(device=dev).manual_seed(SEED + 3)
+    t_table = samplers.TableTarget(
+        torch.randn((SCAN_MH_B, SCAN_MH_V), generator=gen_t, device=dev) * 2)
+    t_words = torch.argmax(t_table.table, -1)[:, None].expand(SCAN_MH_B, SCAN_MH_C)
+    scan_tempering_case("table_mh_all", samplers.MHEngine(samplers.EngineConfig(
+        randomness="fused", execution="scan", chunk_steps=SCAN_T_SWAP, collect="all")),
+        t_table, t_words.contiguous(), SCAN_T_STEPS, SCAN_T_SWAP,
+        tempering.Ladder.geometric(T_MH_REPLICAS, 0.25, 1.0), trace=False)
+    emit(phase="compiled_scan_total", seconds=time.perf_counter() - t_phase)
 
     # 29. serve_lm: granite-3 8B at full width through launch/serve.py ---------
     def serve_lm_phase():

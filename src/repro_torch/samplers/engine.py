@@ -402,8 +402,10 @@ def _run_scan_gibbs(key, target, backend, n_steps, chunk, step0, init_words, col
     carry = (init_words, torch.zeros(shape, dtype=torch.int32, device=init_words.device))
 
     def make_xs(start, n):
+        # the half-sweep parity of absolute step start + t: a card tensor
+        # when ``start`` is one
         _, u = backend.chunk(key, start, n, shape, 1, need_flips=False)
-        return u, range(start, start + n)
+        return u, [start + t for t in range(n)]
 
     def step_fn(c, x):
         u_t, t = x
@@ -616,6 +618,23 @@ class MHEngine:
             words = torch.from_numpy(np.asarray(words).astype(np.int64))
         return words.to(device=self.device, dtype=torch.int64) & _MASK32
 
+    def _step0(self, step0, collect: tuple[str, int]):
+        """An int ``step0`` checked, or a tensor one as a 0-d int64 tensor
+        on the engine's device, never read on the host."""
+        if not isinstance(step0, torch.Tensor):
+            step0 = int(step0)
+            if step0 < 0:
+                raise ValueError(f"step0 must be >= 0, got {step0}")
+            return step0
+        if step0.ndim != 0:
+            raise ValueError(f"a tensor step0 is 0-d, got shape {tuple(step0.shape)}")
+        if collect[0] == "thin":
+            raise ValueError(
+                "collect='thin:<k>' needs an int step0: the kept count is a "
+                "shape, and a tensor step0 is not read on the host"
+            )
+        return step0.to(device=self.device, dtype=torch.int64)
+
     def _check_target(self, target) -> None:
         for name in ("table", "j_right", "j_down"):
             x = getattr(target, name, None)
@@ -633,7 +652,7 @@ class MHEngine:
 
     def run(
         self, key, target, n_steps: int, init_words, *,
-        chain_id: int = 0, mesh=None, step0: int = 0, collect: str | None = None,
+        chain_id: int = 0, mesh=None, step0=0, collect: str | None = None,
         init_logp=None,
     ) -> EngineResult:
         """Run ``n_steps`` steps of the configured update rule from
@@ -653,16 +672,19 @@ class MHEngine:
         absolute step count, so a run resumed from ``(final_words,
         step0=s)`` continues one unsegmented run exactly.  ``init_logp``
         (solo MH scan only) seeds the carried log-prob.
+        ``step0`` may be a 0-d int64 tensor on the engine's device (JAX's
+        traced offset): every executor takes it as an operand and never
+        reads it on the host, so the run can be captured and replayed at
+        other steps.  ``"thin:<k>"`` needs an int ``step0``: its kept
+        count is a shape.
         ``mesh`` (a 1-D ``DeviceMesh``) shards the chain axis of a C-chain
         run across its ranks (``_shard_over_chains``); a solo run ignores
         it, as in the JAX package.
         """
         if n_steps < 1:
             raise ValueError(f"n_steps must be >= 1, got {n_steps}")
-        step0 = int(step0)
-        if step0 < 0:
-            raise ValueError(f"step0 must be >= 0, got {step0}")
         collect = parse_collect(self.config.collect if collect is None else collect)
+        step0 = self._step0(step0, collect)
         if init_logp is not None and (
             self.config.num_chains > 1 or self.config.update == "gibbs"
         ):

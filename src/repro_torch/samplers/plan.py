@@ -65,8 +65,11 @@ class RunPlan:
     ``key`` and ``seed`` are mutually exclusive: a key tensor of shape
     (2,), or an int seed resolved to ``prng.PRNGKey(seed)`` on the
     engine's device at submit time.  ``init_words`` is required.
-    ``step0``/``init_logp`` are the resume carry.  ``mesh`` (a 1-D
-    ``DeviceMesh``) shards the chain axis of a multi-chain run.
+    ``step0``/``init_logp`` are the resume carry; ``step0`` is an int or
+    a 0-d int64 tensor on the engine's device (JAX's traced offset), which
+    nothing here reads on the host, so a submit at a step held on the
+    card can be captured.  ``mesh`` (a 1-D ``DeviceMesh``) shards the
+    chain axis of a multi-chain run.
     """
 
     target: Any
@@ -75,7 +78,7 @@ class RunPlan:
     key: Any = None
     seed: int | None = None
     chain_id: int = 0
-    step0: int = 0
+    step0: Any = 0
     collect: str | None = None
     mesh: Any = None
     init_logp: Any = None
@@ -94,7 +97,7 @@ class RunPlan:
             raise ValueError(
                 "init_words is required — the engine never guesses chain state"
             )
-        if int(self.step0) < 0:
+        if _is_concrete_int(self.step0) and int(self.step0) < 0:
             raise ValueError(f"step0 must be >= 0, got {self.step0}")
         if self.collect is not None:
             parse_collect(self.collect)
@@ -108,6 +111,17 @@ class RunPlan:
         if self.key is not None:
             return torch.as_tensor(self.key).to(device=device, dtype=torch.int64)
         return prng.PRNGKey(self.seed, device=device)
+
+    @property
+    def concrete_step0(self) -> int:
+        """``step0`` as a Python int; a tensor ``step0`` raises, since
+        reading it would wait for the card."""
+        if not _is_concrete_int(self.step0):
+            raise ValueError(
+                "this plan carries a tensor step0 — only plans with host-int "
+                "offsets have a Python-level progress"
+            )
+        return int(self.step0)
 
     def fingerprint(self, engine: MHEngine) -> dict:
         """A JSON-able identity of (engine axes, stream, state layout):
@@ -169,8 +183,9 @@ class RunHandle:
 
     @property
     def progress(self) -> int:
-        """Absolute step after this segment (= the next plan's step0)."""
-        return int(self.plan.step0) + int(self.plan.n_steps)
+        """Absolute step after this segment (= the next plan's step0);
+        raises for a tensor ``step0`` (``RunPlan.concrete_step0``)."""
+        return self.plan.concrete_step0 + int(self.plan.n_steps)
 
     def resume_plan(self, n_steps: int, **overrides) -> RunPlan:
         """The continuation plan for ``n_steps`` more steps."""
@@ -309,7 +324,7 @@ def _submit_span(engine: MHEngine, plan: RunPlan, compiled: bool):
         randomness=cfg.randomness,
         execution=cfg.execution,
         n_steps=int(plan.n_steps),
-        step0=int(plan.step0),
+        step0=int(plan.step0) if _is_concrete_int(plan.step0) else None,
         collect=plan.collect if plan.collect is not None else cfg.collect,
         num_chains=cfg.num_chains,
         compiled=compiled,

@@ -3,44 +3,47 @@ the PyTorch port of ``repro.serving.dispatch``.
 
   * ``make_class_advance_fn`` advances a *shape class* under scan
     execution: every member workload's slots in one call.  JAX runs one
-    compiled ``jit(vmap(lax.switch(...)))`` over the slot axis; PyTorch
-    has no counterpart of the switch under vmap, so the port runs each
-    occupied slot's segment through its member's engine (the exact solo
-    call, ``engine.submit(RunPlan(..., step0=<slot progress>))``) and
-    stores the results flat, zero-padded to the class width, as JAX does.
-    With a ``mesh`` the slot axis is sharded by the "chains" rule (the
-    JAX package's ``_slot_axis_wrap``): each rank runs the occupied slots
-    of its block and an all-gather joins the blocks.
+    compiled ``jit(vmap(lax.switch(...)))`` over the slot axis; the port
+    runs, for every occupied slot, its own member's exact solo call
+    (``engine.submit(RunPlan(..., step0=<slot step base, a card
+    tensor>))``), stored flat and zero-padded to the class width, as JAX
+    does.  With a ``mesh`` the slot axis is sharded by the "chains" rule
+    (the JAX package's ``_slot_axis_wrap``): each rank runs the slots of
+    its block and an all-gather joins the blocks.
   * ``make_pallas_advance_fn`` is the pallas edition: all slots of a
     class fold into ONE kernel call per chunk — slot-major into the MH
     column axis (per-column key words and step base ``t0c``) or the Gibbs
     lattice axis (per-lattice ``t0b`` / ``parity0``) — so slots at
     different absolute steps advance in one launch on their solo streams.
     Host/cim randomness draws each slot's operands at its own offset and
-    folds them.  Each chunk runs through a compiled program of its
-    ``(seg, collect)`` (``repro_torch.compiled``): on the card one CUDA
-    graph replay, the slot keys and step bases staged into it.
+    folds them.
+  * Both advances run through a compiled program of each ``(seg,
+    collect)`` (``repro_torch.compiled``), the slot keys and step bases
+    staged into it: on the card a kernel class's chunk is one CUDA graph
+    replay.  A scan class's program is cut into one graph for every
+    slot's every member's call (a section) and the graphs between them,
+    and a chunk replays each occupied slot's own member's section only,
+    so one program serves every slot layout.
   * ``SegmentPipeline`` bounds how far host-side finalisation may lag
     the device; the executor issues each retiring slot's copies to the
     host (``to_host``: pinned memory, ``non_blocking``, an event) right
     behind its own segment, so a finalize waits for that segment alone.
 
 Donation: JAX donates the carried slot state to the next segment and
-deletes the old buffers.  The scan class call returns a new carry; the
-kernel advance writes the final words back into the carry it was given,
-as a donated buffer is reused, so the executor keeps one words tensor
-for its life and a program holds it.  Either way the executor hands the
-old ``Carry`` to ``poison_donated``, which drops its tensor, so a stale
-read raises ``RuntimeError`` instead of seeing an outdated state.
+deletes the old buffers.  Both advances write the final state back into
+the carries they were given, as a donated buffer is reused, so the
+executor keeps one words tensor (and under scan one logp tensor) for its
+life and a program holds them.  The executor hands the old ``Carry`` to
+``poison_donated``, which drops its tensor, so a stale read raises
+``RuntimeError`` instead of seeing an outdated state.
 (Resizing the tensor's storage to zero would free it too, but a read of
 such a tensor is not checked: ``x + 1`` on it crashed the process under
 torch 2.13 on the CPU.)
 
 ``jit_cache_size`` counts the distinct ``(seg, collect)`` signatures an
 advance function has run: the programs the JAX package compiles for
-them.  The kernel advance keeps one ``compiled.Program`` for each (on
-the CPU a record of the signature, the body run directly); the scan
-class advance runs eagerly and records its signatures only.
+them, one ``compiled.Program`` each (on the CPU a record of the
+signature, the body run directly).
 """
 
 from __future__ import annotations
@@ -96,9 +99,8 @@ class Carry:
 
 def jit_cache_size(fn) -> int:
     """Distinct ``(seg, collect)`` signatures ``fn`` (an advance function
-    of this module) has run: the kernel advance's programs, the scan
-    class advance's recorded signatures; 0 for any other callable."""
-    return len(getattr(fn, "programs", getattr(fn, "signatures", ())))
+    of this module) has run: its programs; 0 for any other callable."""
+    return len(getattr(fn, "programs", ()))
 
 
 def poison_donated(*carries) -> None:
@@ -142,29 +144,22 @@ def to_host(t: torch.Tensor) -> HostCopy:
     return HostCopy(out, event)
 
 
-def _advance_fn(body):
-    """``body`` as an advance function that records its signatures."""
-
-    def advance(*args, seg: int, collect: str, **kw):
-        advance.signatures.add((int(seg), collect))
-        return body(*args, seg=int(seg), collect=collect, **kw)
-
-    advance.signatures = set()
-    return advance
-
-
 def make_class_advance_fn(members, n_pad: int, n_slots: int, mesh=None):
-    """The packed-segment call of one *shape class* under scan execution.
+    """The packed-segment program of one *shape class* under scan
+    execution.
 
-    Returns ``advance(words, logp, keys, step0s, tidx, *, seg, collect,
-    active)`` -> ``(samples, words', logp', accept)``, each with a leading
-    slot axis and flat state vectors zero-padded to ``n_pad``.  ``keys``
-    is the (S, 2) stack of the slots' request keys, ``step0s`` and
-    ``tidx`` (each slot's member index) host ints, ``active`` the occupied
-    slots: slot s runs ``member.engine.submit(RunPlan(target, seg,
-    words[s, :size], key=keys[s], step0=step0s[s], collect))`` — the solo
-    call, so the packed batch is bit-identical to solo runs whoever
-    shares it.  Free slots run nothing and hold zeros.
+    Returns ``advance(words, logp, keys, step0s, *, layout, seg, collect)``
+    -> ``(samples, words, logp, accept)``, each with a leading slot axis
+    and flat state vectors zero-padded to ``n_pad``.  ``words`` and
+    ``logp`` are the carries, written in place and returned; ``keys`` is
+    the (S, 2) stack of the slots' request keys and ``step0s`` the (S,)
+    int64 tensor of their step bases, both staged; ``layout`` is each
+    slot's member index on the host, -1 for a free slot.  Slot s runs its
+    member m's solo call ``m.engine.submit(RunPlan(m.target, seg,
+    words[s, :m.size], key=keys[s], step0=step0s[s], collect=collect))``
+    with ``step0s[s]`` a 0-d tensor on the card, so the packed batch is
+    bit-identical to solo runs whoever shares it.  A free slot runs
+    nothing and holds zeros: its outputs reach no request.
 
     MH members carry (words, logp) across segments (``init_logp``);
     Gibbs members read only words and return the final per-site
@@ -175,79 +170,113 @@ def make_class_advance_fn(members, n_pad: int, n_slots: int, mesh=None):
     (``samplers.engine._shard_over_chains``): when the mesh divides
     ``n_slots`` each rank runs the occupied slots of its contiguous block
     and ``all_gather_into_tensor`` joins the four outputs along the slot
-    axis; otherwise every rank runs every slot and nothing is gathered.
-    Slots never communicate, so the result equals the unsharded call word
-    for word.  Every rank must make the same calls with the same
-    ``active`` (the scheduler admits on one clock for that).
+    axis inside the program; otherwise every rank runs every slot.  Slots
+    never communicate, so the result equals the unsharded call word for
+    word.  Every rank must make the same calls with the same ``layout``
+    (the scheduler admits on one clock for that).
+
+    One ``compiled.Program`` a ``(seg, collect)`` (``_compiled_advance``),
+    as JAX compiles one for its ``switch`` under ``vmap``: on the card its
+    capture is cut into a graph for every slot's every member's call (a
+    section, ``compiled.section``) and the graphs between them, and a
+    chunk replays each occupied slot's own member's section and no other,
+    so it costs the occupied slots' own work, whatever the layout.  The
+    capture's warm-up runs every section once (and keeps the layout's), so
+    no section's first call, which may fill a cache, is left to the graph.
     """
     members = list(members)
+    device = members[0].engine.device
 
-    def block(words, logp, keys, step0s, tidx, occupied, *, seg, collect):
+    def branch(m, w_flat, lp_flat, key, step0, seg, collect):
+        size = m.size
+        kwargs = {}
+        if m.carry_logp:
+            kwargs["init_logp"] = lp_flat[:size].reshape(m.state_shape)
+        res = m.engine.submit(
+            RunPlan(target=m.target, n_steps=seg, init_words=w_flat[:size].reshape(m.state_shape),
+                    key=key, step0=step0, collect=collect, **kwargs)
+        ).result
+        return (res.samples.reshape(-1, size), res.final_words.reshape(size),
+                res.final_logp.to(torch.float32).reshape(size), res.accept_count.reshape(size))
+
+    def block(words, logp, keys, step0s, layout, slots, *, seg, collect, every):
         n = words.shape[0]
-        dev = words.device
         kept = seg if collect == "all" else 0
-        samples = torch.zeros((n, kept, n_pad), dtype=torch.int64, device=dev)
-        words_out = torch.zeros((n, n_pad), dtype=torch.int64, device=dev)
-        logp_out = torch.zeros((n, n_pad), dtype=torch.float32, device=dev)
-        acc = torch.zeros((n, n_pad), dtype=torch.int32, device=dev)
-        for s in (s for s in range(n) if occupied[s]):
-            m = members[tidx[s]]
-            size = m.size
-            kwargs = {}
-            if m.carry_logp:
-                kwargs["init_logp"] = logp[s, :size].reshape(m.state_shape)
-            res = m.engine.submit(
-                RunPlan(
-                    target=m.target, n_steps=seg, init_words=words[s, :size].reshape(m.state_shape),
-                    key=keys[s], step0=int(step0s[s]), collect=collect, **kwargs,
-                )
-            ).result
-            samples[s, :, :size] = res.samples.reshape(kept, size)
-            words_out[s, :size] = res.final_words.reshape(size)
-            logp_out[s, :size] = res.final_logp.to(torch.float32).reshape(size)
-            acc[s, :size] = res.accept_count.reshape(size)
-        return samples, words_out, logp_out, acc
+        outs = (torch.zeros((n, kept, n_pad), dtype=torch.int64, device=device),
+                torch.zeros((n, n_pad), dtype=torch.int64, device=device),
+                torch.zeros((n, n_pad), dtype=torch.float32, device=device),
+                torch.zeros((n, n_pad), dtype=torch.int32, device=device))
+        for s in range(n):
+            for m in members:
+                own = layout[s] == m.index
+                if not (own or every):
+                    continue
+                with compiled.section((slots[s], m.index)) as recording:
+                    got = branch(m, words[s], logp[s], keys[s], step0s[s], seg, collect)
+                    if own or recording:
+                        for out, x in zip(outs, got):
+                            out[s, ..., :m.size].copy_(x)
+        return outs
 
-    block = _shard_over_chains(block, mesh, n_slots, members[0].engine.device)
+    block = _shard_over_chains(block, mesh, n_slots, device)
 
-    def body(words, logp, keys, step0s, tidx, *, seg, collect, active):
-        occupied = [s in active for s in range(n_slots)]
-        return block(words, logp, keys, list(step0s), list(tidx), occupied,
-                     seg=seg, collect=collect)
+    def body(words, logp, keys, step0s, *, layout, every, seg, collect):
+        samples, words_out, logp_out, acc = block(
+            words, logp, keys, step0s, tuple(layout), tuple(range(n_slots)), seg=seg,
+            collect=collect, every=every)
+        words.copy_(words_out)
+        logp.copy_(logp_out)
+        return samples, acc
 
-    return _advance_fn(body)
+    return _compiled_advance(body, device, "scan class advance", n_carry=2, gated=True)
 
 
-def _compiled_advance(body, device, what: str):
-    """``body(words, keys, step0s, *, seg, collect) -> (samples, acc)``,
-    which writes the final words into ``words``, as an advance function
-    with one ``compiled.Program`` a ``(seg, collect)`` in its ``programs``:
-    JAX's jit with ``seg`` and ``collect`` static.  A program holds the
-    carry tensor it captured and stages ``keys`` and ``step0s`` (a host
-    or card tensor) into its buffers; on the card a failed capture or
-    replay raises the ``RuntimeError`` naming the signature, and a carry
-    other than the captured one raises too.  ``advance.eager`` runs the
-    body directly, outside any program: the twin a check compares a
-    program with."""
+def _compiled_advance(body, device, what: str, n_carry: int = 1, gated: bool = False):
+    """``body(*carries, *inputs, *, seg, collect) -> (samples, acc)``,
+    which writes the segment's final state into its ``n_carry`` carry
+    tensors, as an advance function ``advance(*carries, *inputs, *, seg,
+    collect) -> (samples, *carries, acc)`` with one ``compiled.Program``
+    a ``(seg, collect)`` in its ``programs``: JAX's jit with ``seg`` and
+    ``collect`` static.  A program holds the carries it captured and
+    stages the inputs (host or card tensors) into its buffers; on the
+    card a failed capture or replay raises the ``RuntimeError`` naming
+    the signature, and a carry other than the captured one raises too.
+    ``advance.eager`` runs the body directly, outside any program: the
+    twin a check compares a program with.
+
+    ``gated``: the advance also takes the host ``layout`` (each slot's
+    member, -1 for a free one) and hands the body ``layout`` and
+    ``every``: True where a graph is captured (run every slot's every
+    member, each a section), False where the body runs as it is (run each
+    slot's own member).  A replay runs the sections ``(slot, member)`` of
+    the layout."""
     programs: dict = {}
 
-    def advance(words, keys, step0s, *, seg: int, collect: str):
+    def advance(*args, seg: int, collect: str, layout=None):
+        carries, inputs = args[:n_carry], args[n_carry:]
         sig = (int(seg), collect)
         where = f"{what} (seg={sig[0]}, collect={collect!r})"
         held = programs.get(sig)
-        if held is not None and held.graph is not None and held.holds is not words:
+        if held is not None and held.graph is not None and any(
+                a is not b for a, b in zip(held.holds, carries)):
             raise RuntimeError(
                 f"{where}: the slot carry was replaced after the capture; the program "
                 "reads and writes the one it captured")
+        kw, enable = {}, None
+        if gated:
+            kw = dict(layout=layout, every=device.type == "cuda")
+            enable = {(s, m) for s, m in enumerate(layout) if m >= 0}
         (samples, acc), _ = compiled.call(
-            programs, sig, functools.partial(body, words, seg=sig[0], collect=collect),
-            (keys, step0s), device, where, holds=words, name="the packed segment")
-        return samples, words, acc
+            programs, sig, functools.partial(body, *carries, seg=sig[0], collect=collect, **kw),
+            inputs, device, where, holds=carries, name="the packed segment", enable=enable)
+        return (samples, *carries, acc)
 
-    def eager(words, keys, step0s, *, seg: int, collect: str):
-        samples, acc = body(words, keys, step0s.to(device, non_blocking=True), seg=int(seg),
-                            collect=collect)
-        return samples, words, acc
+    def eager(*args, seg: int, collect: str, layout=None):
+        carries, inputs = args[:n_carry], args[n_carry:]
+        kw = dict(layout=layout, every=False) if gated else {}
+        samples, acc = body(*carries, *(x.to(device, non_blocking=True) for x in inputs),
+                            seg=int(seg), collect=collect, **kw)
+        return (samples, *carries, acc)
 
     advance.programs = programs
     advance.eager = eager

@@ -8,10 +8,12 @@ runs because each slot replays exactly the solo call:
 
   * slot state is the engine carry with a leading slot axis, handed to
     the next segment and then deleted (``dispatch.poison_donated``) —
-    stored *flat* (one zero-padded vector per slot) under scan execution
-    so heterogeneous workload members share the pool, and shaped under
-    pallas (kernel geometry is per workload), where one tensor serves the
-    executor's life: each segment writes its final words back into it;
+    stored *flat* (one zero-padded vector per slot, words and logp)
+    under scan execution so heterogeneous workload members share the
+    pool, and shaped under pallas (kernel geometry is per workload).
+    Each segment writes its final state back into the same tensors, so
+    one set serves the executor's life (a wider member joining a scan
+    class re-pads it once);
   * each slot streams from its *request's* key (``PRNGKey(seed)`` split
     exactly as the JAX package's ``launch.sample`` does), so the stream
     belongs to the request, never to the slot;
@@ -36,9 +38,8 @@ deferred finalize waits for that segment only, never for the kernels
 queued after it: under pallas execution before the next segment
 overwrites the carry.  ``advance_compiles`` counts the distinct advance
 signatures (``dispatch.jit_cache_size``): the programs the JAX package
-compiles.  Under pallas execution each is a compiled program of the
-port (on the card a CUDA graph, replayed once a chunk); the scan class
-advance runs eagerly.
+compiles.  Each is a compiled program of the port (on the card a CUDA
+graph, replayed once a chunk), under scan and pallas execution alike.
 """
 
 from __future__ import annotations
@@ -472,12 +473,14 @@ class PackedExecutor:
         return finished
 
     def _segment_inputs(self, active):
-        """(collect, step0s, keys): every slot's absolute step as host ints
-        (0 for a free slot) and the (S, 2) stack of its stream key."""
+        """(collect, step0s, keys): every slot's absolute step as an (S,)
+        int64 host tensor (0 for a free slot), staged into the program,
+        and the (S, 2) stack of its stream key."""
         collect = (
             "all" if any(self._slots[i].mode != "last" for i in active) else "last"
         )
-        step0s = [s.progress if s else 0 for s in self._slots]
+        step0s = torch.tensor([s.progress if s else 0 for s in self._slots],
+                              dtype=torch.int64)
         keys = torch.stack(self._keys)
         return collect, step0s, keys
 
@@ -491,15 +494,19 @@ class PackedExecutor:
             ).inc(grew, execution=self.execution)
 
     def _advance_scan(self, active, seg: int) -> list:
-        """One class call over the occupied slots: flat (words, logp)
-        carry, per-slot ``step0`` and member (dispatch.make_class_advance_fn)."""
+        """One class call over the slots (dispatch.make_class_advance_fn):
+        the flat (words, logp) carries, written in place, the slots' (S,
+        2) keys and (S,) int64 step bases, staged, and each slot's member
+        on the host (-1 for a free slot, which runs nothing).  The new
+        ``Carry`` objects wrap the same tensors; the old ones are poisoned
+        all the same."""
         collect, step0s, keys = self._segment_inputs(active)
-        tidx = [s.member.index if s else 0 for s in self._slots]
+        layout = tuple(s.member.index if s else -1 for s in self._slots)
         old_words, old_logp = self.words, self.logp
         before = dispatch.jit_cache_size(self._advance)
         samples, words, logp, acc = self._advance(
-            old_words.tensor, old_logp.tensor, keys, step0s, tidx, seg=seg, collect=collect,
-            active=active,
+            old_words.tensor, old_logp.tensor, keys, step0s, seg=seg, collect=collect,
+            layout=layout,
         )
         self._count_compiles(before)
         self.words, self.logp = Carry(words), Carry(logp)
@@ -528,8 +535,7 @@ class PackedExecutor:
         old_words = self.words
         before = dispatch.jit_cache_size(self._advance)
         samples, words, acc = self._advance(
-            old_words.tensor, keys, torch.tensor(step0s, dtype=torch.int64), seg=seg,
-            collect=collect,
+            old_words.tensor, keys, step0s, seg=seg, collect=collect,
         )
         self._count_compiles(before)
         self.words = Carry(words)

@@ -261,8 +261,8 @@ class Scheduler:
     def compiled_programs(self) -> int:
         """Advance signatures across all classes: the programs the JAX
         package compiles per burst (``PackedExecutor.advance_compiles``).
-        A kernel class keeps a compiled program for each (on the card a
-        CUDA graph); a scan class runs its advance eagerly."""
+        Every class keeps a compiled program for each (on the card a CUDA
+        graph), scan and kernel classes alike."""
         return sum(ex.advance_compiles for ex in self.executors.values())
 
     @property

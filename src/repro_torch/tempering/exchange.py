@@ -25,7 +25,15 @@ Determinism contract (the JAX package's):
 
 Every segment goes through ``engine.submit(RunPlan)``; under ``pallas``
 the Gibbs replicas reach ``csrc/gibbs.cu`` with their scaled logit spec
-and the table replicas ``csrc/mh.cu`` with their scaled table.  The swap
+and the table replicas ``csrc/mh.cu`` with their scaled table.  When
+every replica resolves to scan and the engine does not thin, a segment
+runs through a compiled program (``_scan_segment``, JAX's jitted
+segment with a traced ``step0``): one for each replica and segment
+length, its ``step0`` a 0-d tensor staged from the host's step, so on
+the card every segment of a replica is one graph replay.  The programs
+live on the ``ReplicaExchange`` for the targets of its last run (a run
+on other targets frees them first) and share one memory pool, since a
+run replays them one at a time.  The swap
 sweep runs on the engine's device and reads nothing back: its accept
 masks are copied to the host once, at the end of the run, for
 ``SwapStats``.
@@ -34,15 +42,16 @@ masks are copied to the host once, at the end of the run, for
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
 
-from repro_torch import telemetry
+from repro_torch import compiled, telemetry
 from repro_torch.diagnostics import SwapStats
 from repro_torch.kernels.mh.ref import FLUSH
 from repro_torch.samplers import MHEngine, RunPlan, chain_key
-from repro_torch.samplers.engine import _acceptance_rate, resolve_execution
+from repro_torch.samplers.engine import _acceptance_rate, parse_collect, resolve_execution
 from repro_torch.tempering.ladder import base_log_prob
 
 # chain-id slot of the swap-uniform stream: spells "SWAP", far outside
@@ -81,6 +90,35 @@ def swap_accept(delta: torch.Tensor, u: torch.Tensor, active: torch.Tensor) -> t
     return active & (u < e)
 
 
+def _segment_body(engine, target, n_steps, chain_id, key, init, step0):
+    """One replica segment through the run surface, as every call site
+    launches one."""
+    plan = RunPlan(target=target, n_steps=n_steps, init_words=init, key=key,
+                   chain_id=chain_id, step0=step0)
+    return engine.submit(plan).result
+
+
+def _scan_segment(programs: dict, engine, target, n_steps: int, chain_id: int, key, init,
+                  step: int):
+    """One replica segment under scan execution through a compiled program
+    in ``programs``: JAX's jitted ``_scan_segment``, whose statics are the
+    engine and target (by identity), ``n_steps`` and ``chain_id``, and
+    whose ``step0`` is traced.  The key, the init words and ``step0`` (a
+    0-d int64 tensor the host fills from ``step``) are staged, so every
+    segment of a replica shares one program.  A program holds its target;
+    the programs of one dict share a memory pool."""
+    step0 = torch.full((), int(step), dtype=torch.int64)
+    inputs = (key, init, step0)
+    sig = (id(target), int(n_steps), int(chain_id), *(compiled.layout(x) for x in inputs))
+    result, _ = compiled.call(
+        programs, sig,
+        functools.partial(_segment_body, engine, target, int(n_steps), int(chain_id)),
+        inputs, engine.device, f"tempering scan segment {sig}", holds=target,
+        name="the scan segment", share_pool=True,
+    )
+    return result
+
+
 @dataclasses.dataclass(frozen=True)
 class ReplicaExchange:
     """Parallel-tempering driver: ``ladder`` replicas of ``engine``'s
@@ -89,6 +127,10 @@ class ReplicaExchange:
     ladder: object
     engine: MHEngine
     swap_every: int = 16
+    # the scan segment programs (``_scan_segment``) of the last run's
+    # targets, by signature
+    _programs: dict = dataclasses.field(default_factory=dict, init=False, repr=False,
+                                        compare=False)
 
     def __post_init__(self):
         if self.swap_every < 1:
@@ -122,8 +164,21 @@ class ReplicaExchange:
             )
         key = engine._key(key)
         targets = self.ladder.targets(target)
-        for t in targets:  # refuse an executor a replica cannot run, before any segment
+        # refuse an executor a replica cannot run, before any segment
+        scan_exec = all([
             resolve_execution(engine.config.execution, t, engine.device, engine.config.update)
+            == "scan" for t in targets
+        ])
+        # thin's kept count is a shape, so thinned segments submit directly
+        # at their int step0 (as JAX's take the concrete-step0 path)
+        if parse_collect(engine.config.collect)[0] == "thin":
+            scan_exec = False
+        # a run keeps the programs of its own targets only: the device
+        # memory they hold stays that of one ladder
+        programs = self._programs
+        live = {id(t) for t in targets}
+        for sig in [sig for sig in programs if sig[0] not in live]:
+            del programs[sig]
         elem_shape = tuple(base_log_prob(target, init[0]).shape)
         stats = SwapStats(num_replicas, elem_shape)
         betas = torch.tensor(self.ladder.betas, dtype=torch.float32).to(engine.device)
@@ -145,7 +200,11 @@ class ReplicaExchange:
                     )
                     if _observe is not None:
                         _observe("segment", plan)
-                    res = engine.submit(plan).result
+                    if scan_exec:
+                        res = _scan_segment(programs, engine, targets[r], seg, chain_id + r,
+                                            key, states[r], step)
+                    else:  # a kernel segment takes its step0 as an operand
+                        res = engine.submit(plan).result
                     states[r] = res.final_words
                     pieces[r].append(res.samples)
                     acc[r] = res.accept_count if acc[r] is None else acc[r] + res.accept_count

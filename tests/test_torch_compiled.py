@@ -141,10 +141,32 @@ def test_tensor_step0_takes_the_direct_path():
     got = eng.submit(plan, compiled=True).result
     (span,) = [e for e in tr.events() if e.name == "engine.submit"]
     assert "jit_cache" not in span.meta and span.meta["compiled"] is True
+    assert span.meta["step0"] is None  # JAX's span for a traced offset
     assert eng._compiled == {}
     want = eng.submit(plan.replace(step0=7)).result
     for f in ("samples", "accept_count", "final_words", "final_logp"):
         assert torch.equal(getattr(got, f), getattr(want, f)), f
+
+
+def test_tensor_step0_has_no_host_progress():
+    """``concrete_step0`` and ``RunHandle.progress`` read ``step0`` on the
+    host, so a tensor one raises there (JAX's traced offset); an int one
+    gives the ints."""
+    table, init = _data()
+    eng = ts.MHEngine(ts.EngineConfig(randomness="host", chunk_steps=5), device="cpu")
+    plan = ts.RunPlan(target=ts.TableTarget(torch.from_numpy(table)), n_steps=N,
+                      init_words=init[0], seed=3, step0=torch.tensor(7))
+    handle = eng.submit(plan)
+    with pytest.raises(ValueError, match="tensor step0"):
+        plan.concrete_step0
+    with pytest.raises(ValueError, match="tensor step0"):
+        handle.progress
+    with pytest.raises(ValueError, match="tensor step0"):
+        handle.resume_plan(3)
+    assert plan.replace(step0=7).concrete_step0 == 7
+    assert eng.submit(plan.replace(step0=7)).progress == 7 + N
+    with pytest.raises(ValueError, match=">= 0"):
+        plan.replace(step0=-1)
 
 
 # --- results against JAX's compiled entry --------------------------------------------

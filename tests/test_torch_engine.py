@@ -116,6 +116,33 @@ def _kept(samples, collect, step0):
 @pytest.mark.parametrize("num_chains", [1, 3])
 @pytest.mark.parametrize("step0", [0, 7])
 def test_engine_grid(jax_runs, randomness, execution, collect, num_chains, step0):
+    _check_cell(jax_runs, randomness, execution, collect, num_chains, step0)
+
+
+@partitionable
+@pytest.mark.parametrize("randomness", ["host", "cim", "fused"])
+@pytest.mark.parametrize("execution", ["scan", "pallas"])
+@pytest.mark.parametrize("collect", ["all", "last"])
+@pytest.mark.parametrize("num_chains", [1, 3])
+def test_tensor_step0_equals_jax(jax_runs, randomness, execution, collect, num_chains):
+    """A 0-d int64 tensor ``step0`` (JAX's traced offset) runs the int
+    offset's stream on both executors, the kernels' plain versions too."""
+    _check_cell(jax_runs, randomness, execution, collect, num_chains, 7, tensor_step0=True)
+
+
+def test_tensor_step0_refuses_thin():
+    """``thin:<k>``'s kept count is a shape: a tensor ``step0`` raises."""
+    table, init = _data()
+    for execution in ("scan", "pallas"):
+        eng = ts.MHEngine(ts.EngineConfig(execution=execution, collect="thin:3"),
+                          device="cpu")
+        with pytest.raises(ValueError, match="int step0"):
+            eng.run(prng.PRNGKey(SEED), ts.TableTarget(torch.from_numpy(table)), N, init[0],
+                    step0=torch.tensor(7))
+
+
+def _check_cell(jax_runs, randomness, execution, collect, num_chains, step0,
+                tensor_step0=False):
     table, init = _data()
     want = dict(jax_runs[randomness, step0])
     want["samples"] = _kept(want["samples"], collect, step0)
@@ -130,7 +157,8 @@ def test_engine_grid(jax_runs, randomness, execution, collect, num_chains, step0
         ts.RunPlan(
             target=ts.TableTarget(torch.from_numpy(table)), n_steps=N,
             init_words=init if num_chains == 3 else init[1], seed=SEED,
-            step0=step0, chain_id=0 if num_chains == 3 else 1,
+            step0=torch.tensor(step0) if tensor_step0 else step0,
+            chain_id=0 if num_chains == 3 else 1,
         )
     )
     got = convert.result_to_numpy(h.result)

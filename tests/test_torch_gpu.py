@@ -884,6 +884,152 @@ def test_compiled_advance_results_survive_replays(cuda, workload):
         _assert_served_equals_solo(r, workload, "fused", cuda)
 
 
+def _serve_scan_class(randomness, eager=False):
+    """A gmm + ising scan class on 4 slots at smoke size: two requests from
+    the first chunk, a third joining mid-flight; with ``eager`` through
+    the advance's eager body.  Returns (the requests, the programs)."""
+    from repro_torch import serving
+
+    sched = serving.Scheduler(n_slots=4, randomness=randomness, execution="scan", smoke=True,
+                              chunk_steps=8)
+    ex = sched.executor_for("gmm")
+    assert sched.executor_for("ising") is ex
+    programs = ex._advance.programs
+    if eager:
+        ex._advance = ex._advance.eager
+    reqs = [serving.ServeRequest(rid=0, workload="gmm", n_steps=40, seed=1, collect="all"),
+            serving.ServeRequest(rid=1, workload="ising", n_steps=16, seed=2, collect="all")]
+    for r in reqs:
+        ex.admit(r)
+    ex.advance_chunk()
+    reqs.append(serving.ServeRequest(rid=2, workload="ising", n_steps=24, seed=3,
+                                     collect="thin:3"))
+    ex.admit(reqs[-1])
+    while ex.active_count:
+        ex.advance_chunk()
+    ex.drain()
+    return reqs, programs
+
+
+@pytest.mark.parametrize("randomness", ["fused", "cim"])
+def test_scan_class_advance_equals_eager_body(cuda, randomness):
+    """Each chunk of a scan class is a replay of its (seg, collect)
+    program, cut into a graph for every slot's every member (a section)
+    and the graphs between sections, of which a chunk replays each
+    occupied slot's own member's at its step base held on the card; with
+    a mid-flight join every request equals, at tolerance 0, its twin
+    served through the eager body and its solo scan run."""
+    reqs, programs = _serve_scan_class(randomness)
+    twins, unused = _serve_scan_class(randomness, eager=True)
+    assert programs and all(p.graph is not None for p in programs.values())
+    for p in programs.values():
+        assert set(p.sections) == {(s, m) for s in range(4) for m in (0, 1)}
+        keys = [k for k, _, _ in p.graph.pieces]
+        assert keys.count(None) <= 2 and len(keys) == len(set(keys) - {None}) + keys.count(None)
+    assert not unused
+    for r, t in zip(reqs, twins):
+        k_init, k_run = prng.split(prng.PRNGKey(r.seed, device=cuda))
+        wl = workloads.build(r.workload, k_init, randomness=randomness, backend="scan",
+                             smoke=True)
+        solo = wl.engine.run(k_run, wl.target, r.n_steps, wl.init_words, collect=r.collect)
+        for f in ("samples", "final_words", "accept_count", "final_logp"):
+            assert np.array_equal(getattr(r, f), getattr(t, f)), (r.rid, f)
+            assert np.array_equal(getattr(r, f), getattr(solo, f).cpu().numpy()), (r.rid, f)
+
+
+@pytest.mark.parametrize("kind", ["ising", "table"])
+def test_tempering_scan_segments_equal_direct_submits(cuda, kind, monkeypatch):
+    """Tempering under scan replays one program a replica and segment
+    length, its step0 staged; the run equals, at tolerance 0, the same
+    run with every segment submitted directly at its int step0."""
+    from repro_torch import tempering
+    from repro_torch.tempering import exchange
+
+    if kind == "ising":
+        wl = workloads.build("ising", prng.PRNGKey(4, device=cuda), randomness="fused",
+                             backend="scan", height=16, width=16, collect="all",
+                             chunk_steps=5)
+        eng, target, init = wl.engine, wl.target, wl.init_words
+    else:
+        gen = torch.Generator(device=cuda).manual_seed(5)
+        target = samplers.TableTarget(torch.randn((4, 300), generator=gen, device=cuda))
+        init = torch.argmax(target.table, -1)[:, None].expand(4, 8).contiguous()
+        eng = samplers.MHEngine(samplers.EngineConfig(randomness="cim", execution="scan",
+                                                      chunk_steps=5))
+    ladder = tempering.Ladder.geometric(3, 0.3, 1.0)
+    rex = tempering.ReplicaExchange(ladder, eng, swap_every=6)
+    inits = init.expand(3, *init.shape)
+    key = prng.PRNGKey(9, device=cuda)
+    got = [rex.run(key, target, 16, inits) for _ in range(2)]  # captures, then replays
+    programs = rex._programs
+    assert len(programs) == 3 * 2  # segments of 6 and 4 steps
+    assert all(p.graph is not None for p in programs.values())
+    pools = {p.graph.pool() for p in programs.values()}
+    assert len(pools) == 1  # one run replays them one at a time
+    monkeypatch.setattr(exchange, "_scan_segment",
+                        lambda programs, *args: exchange._segment_body(*args))
+    want = rex.run(key, target, 16, inits)
+    for res in got:
+        for f in ("samples", "accept_count", "final_words", "final_logp"):
+            assert torch.equal(getattr(res, f), getattr(want, f)), f
+        assert res.swap.summary() == want.swap.summary()
+
+
+def test_tempering_scan_segments_free_their_memory(cuda):
+    """An exchange keeps the segment programs of its last run's targets
+    only: runs on new base targets (new ladders of scaled targets) on one
+    engine and exchange leave the card's memory where the first left it."""
+    import gc
+
+    from repro_torch import tempering
+    from repro_torch.tempering import ladder as ladder_mod
+
+    eng = samplers.MHEngine(samplers.EngineConfig(update="gibbs", randomness="fused",
+                                                  execution="scan", chunk_steps=8))
+    ladder = tempering.Ladder.geometric(3, 0.3, 1.0)
+    rex = tempering.ReplicaExchange(ladder, eng, swap_every=8)
+    held = []
+    for seed in range(4):
+        wl = workloads.build("ising", prng.PRNGKey(20 + seed, device=cuda), randomness="fused",
+                             backend="scan", height=32, width=32, collect="all")
+        res = rex.run(prng.PRNGKey(seed, device=cuda), wl.target, 16,
+                      wl.init_words.expand(3, *wl.init_words.shape))
+        assert bool(torch.isfinite(res.final_logp).all())
+        del wl, res
+        ladder_mod._cached_targets.cache_clear()
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        held.append((torch.cuda.memory_allocated(cuda), torch.cuda.memory_reserved(cuda)))
+    assert held[1:] == held[:1] * 3, held
+
+
+@pytest.mark.parametrize("update", ["mh", "gibbs"])
+def test_tensor_step0_scan_submit_needs_no_host_sync(cuda, update):
+    """A scan submit at a 0-d step0 tensor on the card neither reads it nor
+    copies to the card from the host: it runs under the sync debug mode
+    "error", and equals the int step0's run."""
+    if update == "gibbs":
+        wl = workloads.build("spin_glass", prng.PRNGKey(6, device=cuda), randomness="cim",
+                             backend="scan", height=12, width=10, chunk_steps=4)
+    else:
+        wl = workloads.build("gmm", prng.PRNGKey(6, device=cuda), randomness="host",
+                             backend="scan", smoke=True, chunk_steps=4)
+    plan = samplers.RunPlan(target=wl.target, n_steps=11, init_words=wl.init_words,
+                            key=prng.PRNGKey(7, device=cuda), step0=7)
+    step0 = torch.full((), 7, dtype=torch.int64, device=cuda)
+    wl.engine.submit(plan.replace(step0=step0))  # builds any cached table first
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = wl.engine.submit(plan.replace(step0=step0)).result
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    want = wl.engine.submit(plan).result
+    for f in ("samples", "accept_count", "final_words", "final_logp"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+
+
 # --- the autotuner and the CLIs on the card ------------------------------------------
 
 
@@ -1718,5 +1864,28 @@ def test_compiled_advance_capture_failure_raises(cuda, monkeypatch):
     monkeypatch.setattr(mh_ops, "mh_sample_fused", copying)
     with pytest.raises(RuntimeError,
                        match=r"packed mh advance \(seg=8, collect='all'\): .*torch\.cuda\.graph"):
+        ex.advance_chunk()
+    assert not ex._advance.programs
+
+
+def test_scan_class_capture_failure_raises(cuda, monkeypatch):
+    """No eager fallback on the card: a scan class advance whose body
+    copies from the host cannot be captured; the chunk raises naming its
+    ``(seg, collect)``, and nothing is kept."""
+    from repro_torch import serving
+    from repro_torch.samplers import engine as engine_mod
+
+    real = engine_mod._mh_step
+
+    def copying(*args):
+        words, logp, acc = real(*args)
+        return words + torch.tensor(0, dtype=torch.int64, device=cuda), logp, acc
+
+    ex = serving.PackedExecutor.for_workload("gmm", n_slots=2, randomness="fused",
+                                             execution="scan", smoke=True, chunk_steps=8)
+    ex.admit(serving.ServeRequest(rid=0, workload="gmm", n_steps=16, seed=1, collect="all"))
+    monkeypatch.setattr(engine_mod, "_mh_step", copying)
+    with pytest.raises(RuntimeError,
+                       match=r"scan class advance \(seg=8, collect='all'\): .*torch\.cuda\.graph"):
         ex.advance_chunk()
     assert not ex._advance.programs

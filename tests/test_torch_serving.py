@@ -26,6 +26,7 @@ import torch
 
 from repro import workloads as jw
 from repro_torch import prng, workloads
+from repro_torch import serving as serving_pkg
 from repro_torch.kernels.gibbs import ref as gref
 from repro_torch.kernels.mh import ref as mref
 from repro_torch.samplers import chain_key, parse_collect
@@ -304,6 +305,67 @@ def test_advance_signatures_are_counted():
     assert set(ex._advance.programs) == {(8, "all"), (4, "all")}
     assert dispatch.jit_cache_size(ex._advance) == 2
     assert dispatch.jit_cache_size(len) == 0
+
+
+def test_scan_class_runs_every_slot_through_its_programs():
+    """A two-member scan class on 4 slots, 2 of them free: each chunk is
+    one call of the class's program of its ``(seg, collect)``, handed the
+    slots' layout, in which each occupied slot runs its own member's
+    segment at a tensor step base and a free slot runs nothing.  Every
+    request equals its solo run and the JAX scheduler's (whose free slots
+    run under ``vmap``), and the signatures are the JAX advance's
+    ``_cache_size()``."""
+    from repro import serving as jsv
+    from repro.serving import dispatch as jdispatch
+    from repro_torch.samplers import MHEngine
+
+    def burst(pkg):
+        return [pkg.ServeRequest(rid=0, workload="gmm", n_steps=16, seed=2, collect="all"),
+                pkg.ServeRequest(rid=1, workload="ising", n_steps=16, seed=6, collect="all")]
+
+    jsched = jsv.Scheduler(n_slots=4, randomness="fused", smoke=True, chunk_steps=6)
+    want = {r.rid: r for r in jsched.serve(burst(jsv))}
+    (jex,) = jsched.executors.values()
+    real, plans = MHEngine.submit, []
+    real_advance, layouts = dispatch._compiled_advance, []
+
+    def submit(self, plan, **kw):
+        plans.append((self, plan))
+        return real(self, plan, **kw)
+
+    def compiled_advance(*args, **kw):
+        advance = real_advance(*args, **kw)
+
+        def recorded(*a, layout=None, **k):
+            layouts.append(layout)
+            return advance(*a, layout=layout, **k)
+
+        recorded.programs, recorded.eager = advance.programs, advance.eager
+        return recorded
+
+    dispatch._compiled_advance = compiled_advance
+    try:
+        sched = Scheduler(n_slots=4, randomness="fused", smoke=True, chunk_steps=6,
+                          device="cpu")
+        MHEngine.submit = submit
+        done = sched.serve(burst(serving_pkg))
+    finally:
+        MHEngine.submit, dispatch._compiled_advance = real, real_advance
+    (ex,) = sched.executors.values()
+    assert len(ex.members) == 2
+    # 3 chunks (6, 6, 4 steps), each slot 0 on gmm and slot 1 on ising
+    assert layouts == [(0, 1, -1, -1)] * 3
+    gmm, ising = (m.engine for m in ex.members)
+    assert [(e, p.n_steps) for e, p in plans] == [(gmm, 6), (ising, 6)] * 2 + [
+        (gmm, 4), (ising, 4)]
+    assert all(isinstance(p.step0, torch.Tensor) and p.step0.ndim == 0 for _, p in plans)
+    assert set(ex._advance.programs) == {(6, "all"), (4, "all")}
+    assert sched.compiled_programs == jsched.compiled_programs == 2
+    assert dispatch.jit_cache_size(ex._advance) == jdispatch.jit_cache_size(jex._advance)
+    for r in done:
+        assert_matches_solo(r, "fused")
+        for f in ("samples", "final_words", "accept_count"):
+            np.testing.assert_array_equal(getattr(r, f), np.asarray(getattr(want[r.rid], f)))
 
 
 @pytest.mark.parametrize("workload,randomness,chunk,plan", [

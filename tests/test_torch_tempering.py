@@ -257,6 +257,49 @@ def test_exchange_equals_jax(jax_exchange, kind, randomness):
             assert got.betas == want.betas and got.n_steps == want.n_steps
 
 
+@partitionable
+def test_scan_segments_are_jax_programs():
+    """Under scan each replica's segments run through a compiled program
+    keyed as JAX's jitted ``_scan_segment`` (engine, target, segment
+    length, chain slot and the inputs' layouts), ``step0`` staged as a
+    tensor: one program for each replica and distinct segment length, as
+    many as JAX's cache holds, kept on the exchange for a rerun, and the
+    run equals JAX's scan run.  A kernel engine or a thinning one submits
+    directly and keeps none."""
+    from repro.tempering import exchange as jexchange
+
+    jtarget, target, init = _targets("ising")
+    n, swap = 10, 6  # segments of 6 and 4 steps
+    inits = np.broadcast_to(init, (2, *init.shape))
+    jeng = js.MHEngine(js.EngineConfig(update="gibbs", randomness="fused", execution="scan",
+                                       chunk_steps=1000))
+    before = jexchange._scan_segment._cache_size()
+    want = jt.ReplicaExchange(jt.Ladder.geometric(2, beta_min=0.3), jeng,
+                              swap_every=swap).run(jax.random.PRNGKey(KEY), jtarget, n, inits)
+    jax_programs = jexchange._scan_segment._cache_size() - before
+    assert jax_programs == 4
+    ladder = tempering.Ladder.geometric(2, beta_min=0.3)
+    eng = ts.MHEngine(ts.EngineConfig(update="gibbs", randomness="fused", execution="scan",
+                                      chunk_steps=4), device="cpu")
+    rex = tempering.ReplicaExchange(ladder, eng, swap_every=swap)
+    assert rex.tie_events(prng.PRNGKey(KEY), target, n, inits) == {"moves": 0, "swaps": 0}
+    for _ in range(2):
+        got = rex.run(prng.PRNGKey(KEY), target, n, inits)
+        assert len(rex._programs) == jax_programs
+        for f in ("samples", "accept_count", "final_words", "final_logp"):
+            np.testing.assert_array_equal(getattr(got, f).numpy(),
+                                          np.asarray(getattr(want, f)), f)
+        for f in SWAP_FIELDS:
+            np.testing.assert_array_equal(getattr(got.swap, f), getattr(want.swap, f), f)
+    assert {(sig[1], sig[2]) for sig in rex._programs} == {(6, 0), (6, 1), (4, 0), (4, 1)}
+    for cfg in (dict(execution="pallas"), dict(execution="scan", collect="thin:2")):
+        other = ts.MHEngine(ts.EngineConfig(update="gibbs", randomness="fused", **cfg),
+                            device="cpu")
+        other_rex = tempering.ReplicaExchange(ladder, other, swap_every=swap)
+        other_rex.run(prng.PRNGKey(KEY), target, n, inits)
+        assert other_rex._programs == {}
+
+
 @pytest.mark.parametrize("kind", ["table", "spin_glass"])
 def test_one_replica_ladder_is_a_plain_run(kind):
     _, target, init = _targets(kind)

@@ -123,7 +123,8 @@ def _kept(samples, collect, step0):
     return samples[:, :0]
 
 
-def _check_cell(jax_runs, lattice, randomness, execution, collect, num_chains, step0, chunk):
+def _check_cell(jax_runs, lattice, randomness, execution, collect, num_chains, step0, chunk,
+                tensor_step0=False):
     want = dict(jax_runs(lattice, randomness, step0))
     want["samples"] = _kept(want["samples"], collect, step0)
     _, model = _models(lattice)
@@ -137,7 +138,8 @@ def _check_cell(jax_runs, lattice, randomness, execution, collect, num_chains, s
     )
     chain = slice(None) if num_chains == CHAINS else 1
     h = eng.submit(ts.RunPlan(
-        target=model, n_steps=N, init_words=init[chain], seed=SEED, step0=step0,
+        target=model, n_steps=N, init_words=init[chain], seed=SEED,
+        step0=torch.tensor(step0) if tensor_step0 else step0,
         chain_id=0 if num_chains == CHAINS else 1,
     ))
     got = convert.result_to_numpy(h.result)
@@ -171,6 +173,19 @@ def test_gibbs_engine_grid(jax_runs, randomness, execution, collect, num_chains,
 @pytest.mark.parametrize("step0", [0, 7])
 def test_gibbs_engine_lattices(jax_runs, lattice, randomness, execution, num_chains, step0):
     _check_cell(jax_runs, lattice, randomness, execution, "all", num_chains, step0, 4)
+
+
+@partitionable
+@pytest.mark.parametrize("lattice", ["ising", "glass"])
+@pytest.mark.parametrize("randomness", ["host", "cim", "fused"])
+@pytest.mark.parametrize("execution", ["scan", "pallas"])
+@pytest.mark.parametrize("collect", ["all", "last"])
+def test_gibbs_tensor_step0_equals_jax(jax_runs, lattice, randomness, execution, collect):
+    """A 0-d int64 tensor ``step0`` at an odd offset: the scan half-sweep
+    parity is the tensor ``(start + t) % 2`` and the kernels take it as an
+    operand; three chains, chunks of 5."""
+    _check_cell(jax_runs, lattice, randomness, execution, collect, CHAINS, 7, 5,
+                tensor_step0=True)
 
 
 @partitionable
